@@ -1,0 +1,106 @@
+"""STRADS primitives: ``schedule``, ``push``, ``pull`` (+ automatic ``sync``).
+
+The round anatomy is the JAX package's (``core/primitives.py``):
+
+    cand  = propose(state, carry, noise, t, phase)
+    stats = tree_psum( schedule_stats(data, state, cand, phase) )
+    sched = schedule(state, carry, cand, stats, t, phase)
+    z, local = push(data, state, sched, phase)
+    state = pull(state, sched, tree_psum(z), local, data, phase)
+    carry = sched_update(carry, state_before, state, sched, phase)
+
+Workers are a leading axis, not a device mesh: every row-sharded leaf of
+the data and the state carries shape (W, n/W, …), ``push`` and
+``schedule_stats`` return per-worker partials with that leading axis, and
+the JAX ``psum`` over the ``data`` axis becomes :func:`tree_psum`, a
+``.sum(0)``.  The same layout runs on the CPU and on one card.
+
+Scheduling policy and the kernel backend arrive by injection, as in the
+JAX package: the engine resolves the plan's ``SchedulerSpec`` and
+``KernelSpec`` (or the app's defaults) and calls ``use_scheduler`` /
+``use_kernels``; the engine also sets ``app.device``.  The scheduler's
+carry (e.g. the Δβ priority history) is engine-owned.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Optional
+
+import torch
+
+
+class StradsAppBase:
+    """Convenience base with the common defaults.  ``schedule_stats`` is
+    only invoked when the injected scheduler needs statistics."""
+
+    phase_period: int = 1
+
+    #: the injected Scheduler (set by the engine)
+    scheduler = None
+    #: which SchedulerSpec kinds this app can consume (None = any)
+    supported_scheduler_kinds = None
+    #: the injected kernel backend (set by the engine)
+    kernels = None
+    #: which KernelSpec kinds this app can dispatch (None = any)
+    supported_kernel_kinds = None
+    #: the engine's device (set by the engine)
+    device = torch.device("cpu")
+
+    def static_phase(self, t: int) -> int:
+        return 0
+
+    def default_scheduler_spec(self) -> Optional[Any]:
+        return None
+
+    def num_schedulable(self) -> int:
+        raise NotImplementedError(
+            f"{type(self).__name__} must define num_schedulable() to "
+            f"accept an injected SchedulerSpec")
+
+    def use_scheduler(self, scheduler) -> None:
+        self.scheduler = scheduler
+
+    def default_kernel_spec(self) -> Optional[Any]:
+        return None
+
+    def use_kernels(self, kernels) -> None:
+        self.kernels = kernels
+
+    # -- the primitives ------------------------------------------------------
+
+    def propose(self, state, carry, noise, t, phase):
+        return None
+
+    def schedule_stats(self, data, state, candidates, phase):
+        return None
+
+    def schedule(self, state, carry, candidates, stats, t, phase):
+        return candidates
+
+    def push(self, data, state, sched, phase):
+        raise NotImplementedError
+
+    def pull(self, state, sched, z, local, data, phase):
+        raise NotImplementedError
+
+    def sched_update(self, carry, before, after, sched, phase):
+        return carry
+
+
+@dataclasses.dataclass(frozen=True)
+class RoundResult:
+    """Output of one BSP round."""
+    state: Any
+    sched: Any
+    sched_carry: Any = None   # post-round engine-owned carry
+
+
+def tree_psum(tree: Any) -> Any:
+    """Sum every tensor leaf of nested dicts/lists/tuples over its
+    leading worker axis (the pull aggregation, the JAX package's
+    ``psum`` over ``data``)."""
+    if isinstance(tree, dict):
+        return {k: tree_psum(v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(tree_psum(v) for v in tree)
+    return None if tree is None else tree.sum(0)

@@ -1,0 +1,13 @@
+"""Scheduling policies of the port and the registry a
+:class:`SchedulerSpec` resolves through."""
+from .protocol import SchedulerBase
+from .schedulers import (DynamicPriorityScheduler, RandomScheduler,
+                         RoundRobinScheduler, build_scheduler,
+                         dependency_filter, priority_weights,
+                         sample_candidates)
+from .spec import SCHEDULER_KINDS, SchedulerSpec
+
+__all__ = ["SCHEDULER_KINDS", "DynamicPriorityScheduler", "RandomScheduler",
+           "RoundRobinScheduler", "SchedulerBase", "SchedulerSpec",
+           "build_scheduler", "dependency_filter", "priority_weights",
+           "sample_candidates"]

@@ -1,0 +1,158 @@
+"""Schedulers of the Lasso round, ported from the JAX package's
+``sched/schedulers.py``:
+
+* :class:`RoundRobinScheduler` — fixed cyclic blocks (Lasso-cyclic).
+* :class:`RandomScheduler` — uniform random blocks (the Lasso-RR
+  baseline): the top U of the round's Gumbel noise, which is a uniform
+  draw without replacement.
+* :class:`DynamicPriorityScheduler` — the STRADS Lasso strategy: sample
+  U′ candidates with probability ∝ |Δβ| + η by Gumbel top-k, then
+  greedily keep at most U whose pairwise |x_jᵀx_k| is below ρ.
+
+Shapes are static (U′ candidates, U-wide masked schedules), and nothing
+here syncs with the host: the ρ-filter is written with tensor ops only.
+"""
+from __future__ import annotations
+
+import dataclasses
+
+import torch
+
+from .protocol import SchedulerBase
+from .spec import SchedulerSpec
+
+
+@dataclasses.dataclass(frozen=True)
+class RoundRobinScheduler(SchedulerBase):
+    """Round t schedules indices ``[t*U, ..., (t+1)*U) mod J``."""
+    num_vars: int
+    block_size: int
+
+    needs_noise = False
+
+    def propose(self, carry, noise, t, phase, device=None):
+        start = (t * self.block_size) % self.num_vars
+        return (start + torch.arange(self.block_size, device=device)) \
+            % self.num_vars
+
+
+@dataclasses.dataclass(frozen=True)
+class RandomScheduler(SchedulerBase):
+    """Uniform random block of U distinct indices."""
+    num_vars: int
+    block_size: int
+
+    def propose(self, carry, noise, t, phase, device=None):
+        return sample_candidates(noise, torch.ones_like(noise),
+                                 self.block_size)
+
+
+def priority_weights(delta: torch.Tensor, eta: float) -> torch.Tensor:
+    """c_j ∝ |Δx_j| + η  (paper §3.3, f₁)."""
+    return delta.abs() + eta
+
+
+def sample_candidates(gumbel: torch.Tensor, weights: torch.Tensor,
+                      num_candidates: int) -> torch.Tensor:
+    """Draw U′ distinct candidates ∝ weights via Gumbel top-k, given the
+    (J,) Gumbel draw.  A stable descending sort breaks ties towards the
+    lower index, as ``lax.top_k`` does."""
+    keys = torch.log(torch.clamp_min(weights, 1e-30)) + gumbel
+    order = torch.sort(keys, descending=True, stable=True).indices
+    return order[:num_candidates]
+
+
+def dependency_filter(gram: torch.Tensor, rho: float,
+                      max_select: int) -> torch.Tensor:
+    """Greedy ρ-dependency filter (paper §3.3, f₂): admit candidates in
+    order; candidate i joins iff its |correlation| with every admitted
+    candidate is < ρ and fewer than ``max_select`` are admitted.  Returns
+    the (U′,) keep-mask.  Tensor ops only — no ``.item()``, no Python
+    ``bool`` of a device tensor — so it never waits for the device."""
+    u = gram.shape[0]
+    absg = gram.abs()
+    keep = torch.zeros((u,), dtype=torch.bool, device=gram.device)
+    count = torch.zeros((), dtype=torch.int32, device=gram.device)
+    zero = torch.zeros((), dtype=absg.dtype, device=gram.device)
+    for i in range(u):
+        # max correlation with already-kept candidates (keep[i] is still
+        # False, so the candidate itself is excluded)
+        conflict = torch.where(keep, absg[i], zero).max()
+        ok = (conflict < rho) & (count < max_select)
+        keep[i] = ok
+        count = count + ok
+    return keep
+
+
+def _compact_schedule(candidates: torch.Tensor, keep: torch.Tensor,
+                      block_size: int):
+    """Compact the kept candidates to the front (stable, like
+    ``argsort(~keep)``); the tail is masked out downstream."""
+    order = torch.sort((~keep).to(torch.uint8), stable=True).indices
+    return candidates[order][:block_size], keep[order][:block_size]
+
+
+@dataclasses.dataclass(frozen=True)
+class DynamicPriorityScheduler(SchedulerBase):
+    """STRADS Lasso scheduler: priority sampling + Gram dependency filter.
+    The carry is the (J,) Δβ history driving the priorities."""
+    num_vars: int
+    num_candidates: int      # U'
+    block_size: int          # U  (≤ num_candidates)
+    rho: float = 0.1
+    eta: float = 1e-6
+
+    needs_stats = True
+
+    def init_carry(self, device) -> torch.Tensor:
+        """Uniform priority at t=0 (every variable equally likely)."""
+        return torch.ones((self.num_vars,), dtype=torch.float32,
+                          device=device)
+
+    def update_carry(self, carry, idx, mask, dx):
+        """Scheduled-and-kept entries take |Δx|; the rest keep their
+        previous priority (indices are distinct, so the scatter is
+        deterministic)."""
+        out = carry.clone()
+        out[idx] = torch.where(mask, dx.abs(), carry[idx])
+        return out
+
+    def propose(self, carry, noise, t=None, phase: int = 0, device=None):
+        c = priority_weights(carry, self.eta)
+        return sample_candidates(noise, c, self.num_candidates)
+
+    def finalize(self, candidates, gram):
+        keep = dependency_filter(gram, self.rho, self.block_size)
+        return _compact_schedule(candidates, keep, self.block_size)
+
+
+def build_scheduler(spec: SchedulerSpec, *, num_vars: int,
+                    num_workers: int):
+    """Materialize the policy a :class:`SchedulerSpec` declares for a
+    concrete app (``num_vars`` schedulable variables, ``num_workers``
+    workers).  The port has the Lasso round's three kinds."""
+    if not isinstance(spec, SchedulerSpec):
+        raise TypeError(f"build_scheduler wants a SchedulerSpec; got "
+                        f"{type(spec).__name__}")
+    if spec.num_candidates > num_vars:
+        raise ValueError(
+            f"spec.num_candidates={spec.num_candidates} exceeds the "
+            f"app's {num_vars} schedulable variables (top-U′ sampling "
+            f"needs U′ <= J)")
+    if spec.block_size > num_vars:
+        raise ValueError(
+            f"spec.block_size={spec.block_size} exceeds the app's "
+            f"{num_vars} schedulable variables (a block larger than J "
+            f"would schedule duplicates)")
+    if spec.kind == "round_robin":
+        return RoundRobinScheduler(num_vars, spec.block_size)
+    if spec.kind == "random":
+        return RandomScheduler(num_vars, spec.block_size)
+    if spec.kind == "dynamic_priority":
+        return DynamicPriorityScheduler(
+            num_vars=num_vars, num_candidates=spec.num_candidates,
+            block_size=spec.block_size, rho=spec.rho, eta=spec.eta)
+    raise NotImplementedError(
+        f"scheduler kind {spec.kind!r} is not ported yet (ROADMAP.md "
+        f"queue 1: 'rotation' comes with LDA in step 8, "
+        f"'block_structural' with the model zoo in step 13)")
