@@ -1,18 +1,18 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port (``src/repro_torch``) on one NVIDIA card.
 
-    python3 chip_smoke.py [--seed 0] [--n 50000] [--J 50000]
+    python3 chip_smoke.py [--seed 0] [--n 50000] [--J 50000] [--layers 24]
 
 1. Prints the card (name and power limit from nvidia-smi) and the torch
    and CUDA versions.
-2. Builds the port's CUDA kernels from the checkout with nvcc and prints
-   the build time and the ``-Xptxas -v`` report.
-3. Builds the STRADS Lasso data on the card (dense f32 X of n × J, the
-   recipe of ``synthetic_correlated``, from ``--seed``), then holds each
-   kernel against its plain PyTorch version at the main path's shapes and
-   at ragged ones, times it with CUDA events, and prints one ``kernels``
-   JSON line (time, bound, plain and library times, launches).
-4. Drives the main path through the port's entry points: the plan
+2. Builds the port's CUDA kernels from the checkout with nvcc (one
+   process per source, all at once) and prints the build time and the
+   ``-Xptxas -v`` report.
+3. The STRADS Lasso round.  Builds the data on the card (dense f32 X of
+   n × J, the recipe of ``synthetic_correlated``, from ``--seed``), then
+   holds ``lasso_partial`` and ``gram_block`` against their plain
+   versions at the main path's shapes and at ragged ones and times them.
+   Drives the main path through the port's entry points: the plan
    ``examples/plans/lasso_pallas.json`` as checked in (scan, 16 rounds,
    W = 4, the CUDA kernels), the same plan on the loop executor, on
    W = 1, and with ``kind="reference"``.  It checks that both kernels
@@ -20,8 +20,26 @@
    within the stated tolerance and that the objective is finite and
    falls; then times where a round goes and runs the repo's convergence
    check (``tests/test_lasso.py``) on the card at a small size.
+4. Model-zoo serving of Phi-3.5-MoE at its published widths, depth cut to
+   ``--layers`` (24 of 32: the bf16 weights must fit the card), through
+   the port's ``launch/serve_lm``: batch 4, prompt 1,024, 32 greedy
+   tokens.  First a prefill and one decode step in which every launch of
+   ``flash_attention`` and ``topk_gating`` is held against its plain
+   version on the same inputs; then both kernels against their plain
+   versions at the shapes of layer 0 (its real q, k, v and router
+   logits) and at ragged ones, timed, with SDPA beside attention; then
+   the main path (``Server.generate``) with the launch counts set to 0
+   just before and read just after (24 and 792); then the same prefill
+   and first decode step with the plain versions, and with a float64
+   attention as a control of how far a 24-layer bf16 model amplifies
+   rounding; then profiler windows over a prefill and 4 decode steps.
+5. The same model in float32 with two layers, at full width: the first
+   token and the logits of the prefill and the first decode step with the
+   kernels equal those with the plain versions, within the stated
+   tolerance.
 
-Any failure exits nonzero before the last line.  The last line is
+Any failure exits nonzero before the last line.  The line before the last
+lists every kernel (``{"kernels": [...]}``); the last line is
 ``{"ok": true, "device": {...}}``.  Everything measured is also written
 to ``chiprun_out/chip_smoke.json``.  Float32 products run in full f32
 (``allow_tf32`` is set False for matmul and cuDNN).
@@ -41,10 +59,25 @@ PEAK_BYTES_PER_S = 3.35e12     # H100 SXM HBM3, data sheet
 PEAK_F32_FLOPS = 67e12         # H100 SXM FP32 outside the tensor cores
 KERNEL_TOL = 1e-4              # max |kernel − plain| ≤ KERNEL_TOL·max(1, max|plain|)
 STATE_TOL = 1e-4               # |β|, |r| between runs that sum in another order
+PEAK_BF16_FLOPS = 989e12       # H100 SXM bf16 tensor cores, dense
+ATTN_TOL = 2e-2                # |kernel − plain| ≤ ATTN_TOL·max(1, max|plain|)
+                               # for bf16 attention (one bf16 rounding)
+ATTN_TOL_F32 = 1e-4            # the same for f32 attention
+GATE_TOL = 1e-5                # gating probabilities; idx must be equal
+LOGIT_TOL = 1e-3               # f32 run: |Δ logits| ≤ LOGIT_TOL·max|logits|
 DEVICE = "cuda"
 SOURCE = "src/repro_torch/kernels/csrc/lasso_cd.cu"
+SOURCES = {"lasso_partial": SOURCE, "gram_block": SOURCE,
+           "flash_attention":
+               "src/repro_torch/kernels/csrc/flash_attention.cu",
+           "topk_gating": "src/repro_torch/kernels/csrc/moe_gating.cu"}
 REPLACES = {"lasso_partial": "src/repro/kernels/lasso_cd.py:50",
-            "gram_block": "src/repro/kernels/lasso_cd.py:94"}
+            "gram_block": "src/repro/kernels/lasso_cd.py:94",
+            "flash_attention": "src/repro/kernels/flash_attention.py:100",
+            "topk_gating": "src/repro/kernels/moe_gating.py:56"}
+ARCH = "phi3.5-moe-42b-a6.6b"
+BATCH, PROMPT, GEN = 4, 1024, 32
+BUILD = ("lasso_cd", "flash_attention", "moe_gating")
 
 
 class SmokeFailure(Exception):
@@ -236,12 +269,410 @@ def profile_rounds(torch, lasso, cfg, plan, X, y, seed: int):
             "top": [{"name": k, "device_ms": d / 1e3, "count": c}
                     for d, k, c in rows[:15]]}
 
+# ---------------------------------------------------------------------------
+# Model-zoo serving: flash_attention and topk_gating
+# ---------------------------------------------------------------------------
+
+class patched:
+    """Swap attributes of a module for the length of a ``with`` block."""
+
+    def __init__(self, mod, **attrs):
+        self.mod, self.attrs, self.saved = mod, attrs, {}
+
+    def __enter__(self):
+        for k, v in self.attrs.items():
+            self.saved[k] = getattr(self.mod, k)
+            setattr(self.mod, k, v)
+
+    def __exit__(self, *exc):
+        for k, v in self.saved.items():
+            setattr(self.mod, k, v)
+
+
+def rel_err(torch, got, want) -> tuple[float, float]:
+    """max |got − want| and that over max(1, max |want|)."""
+    err = (got.float() - want.float()).abs().max().item()
+    return err, err / max(1.0, want.float().abs().max().item())
+
+
+def checked_ops(torch, ops, ref):
+    """Stand-ins for ``ops.attention`` / ``ops.topk_gating`` that launch
+    the kernel through the real wrapper, then hold its output against the
+    plain version on the same inputs.  Keeps the worst error per kernel
+    and the inputs of the first call of each shape (layer 0's)."""
+    real_attn, real_gate = ops.attention, ops.topk_gating
+    stats = {"flash_attention": {"calls": 0, "max_abs_err": 0.0,
+                                 "max_rel_err": 0.0},
+             "topk_gating": {"calls": 0, "max_abs_err": 0.0,
+                             "idx_equal": True}}
+    first: dict = {}
+
+    def attention(q, k, v, **kw):
+        out = real_attn(q, k, v, **kw)
+        err, rel = rel_err(torch, out, ref.attention_ref(q, k, v, **kw))
+        st = stats["flash_attention"]
+        st["calls"] += 1
+        st["max_abs_err"] = max(st["max_abs_err"], err)
+        st["max_rel_err"] = max(st["max_rel_err"], rel)
+        first.setdefault("attention", (q, k, v, kw))
+        return out
+
+    def topk_gating(logits, k):
+        p, i = real_gate(logits, k)
+        pr, ir = ref.topk_gating_ref(logits, k)
+        st = stats["topk_gating"]
+        st["calls"] += 1
+        st["max_abs_err"] = max(st["max_abs_err"],
+                                (p - pr).abs().max().item())
+        st["idx_equal"] = st["idx_equal"] and bool(torch.equal(i, ir))
+        first.setdefault(("gating", logits.shape[0]), (logits, k))
+        return p, i
+    return attention, topk_gating, stats, first
+
+
+def attention_f64(torch, ref):
+    """The plain attention with scores, softmax and sum in float64: the
+    control for how far the model amplifies a change of rounding."""
+    def attention(q, k, v, *, causal=True, window=None, scale=None):
+        B, Sq, Hq, D = q.shape
+        G = Hq // k.shape[2]
+        scale = D ** -0.5 if scale is None else scale
+        kd = k.double().repeat_interleave(G, dim=2)
+        vd = v.double().repeat_interleave(G, dim=2)
+        s = torch.einsum("bqhd,bkhd->bhqk", q.double() * scale, kd)
+        mask = ref.attention_mask(Sq, k.shape[1], k.shape[1] - Sq, causal,
+                                  window, q.device)
+        p = torch.softmax(s.masked_fill(~mask, ref.NEG_INF), dim=-1)
+        return torch.einsum("bhqk,bkhd->bqhd", p, vd).to(q.dtype)
+    return attention
+
+
+def attention_bound(torch, ref, q, k, causal, window) -> tuple[float, str]:
+    """Least time for one attention call: QKᵀ on the tensor cores for
+    bf16 inputs (the FP32 cores for f32), PV with f32 probabilities on the
+    FP32 cores, over the (query, key) pairs the mask lets through."""
+    B, Sq, Hq, D = q.shape
+    Skv, Hkv = k.shape[1], k.shape[2]
+    pairs = int(ref.attention_mask(Sq, Skv, Skv - Sq, causal,
+                                   window).sum())
+    half = 2.0 * B * Hq * D * pairs
+    qk_rate = PEAK_BF16_FLOPS if q.dtype == torch.bfloat16 else \
+        PEAK_F32_FLOPS
+    t_ops = half / qk_rate + half / PEAK_F32_FLOPS
+    nbytes = q.element_size() * (2 * B * Sq * Hq * D + 2 * B * Skv * Hkv * D)
+    t_bytes = nbytes / PEAK_BYTES_PER_S
+    return max(t_ops, t_bytes) * 1e3, ("bytes" if t_bytes >= t_ops
+                                       else "operations")
+
+
+def serve_kernel_phase(torch, ops, ref, first, seed: int):
+    """Both kernels against their plain versions at layer 0's shapes (its
+    real inputs) and at ragged ones, timed, with SDPA beside attention."""
+    import torch.nn.functional as F
+    gen = torch.Generator().manual_seed(seed + 2)
+
+    def rnd(*shape, dtype=torch.bfloat16):
+        return torch.randn(shape, generator=gen).to(DEVICE, dtype)
+
+    q, k, v, kw = first["attention"]
+    tq = lambda x: x.transpose(1, 2)
+    out = {}
+
+    # flash_attention
+    got = ops.attention(q, k, v, **kw)
+    want = ref.attention_ref(q, k, v, **kw)
+    torch.cuda.synchronize()
+    check(torch.equal(got, ops.attention(q, k, v, **kw)),
+          "flash_attention: two launches differ")
+    err, rel = rel_err(torch, got, want)
+    check(rel <= ATTN_TOL, f"flash_attention: error {rel} of the largest "
+                           f"value > {ATTN_TOL} at layer 0's shapes")
+    library = lambda: F.scaled_dot_product_attention(
+        tq(q), tq(k), tq(v), is_causal=True, enable_gqa=True)
+    lib_err, _ = rel_err(torch, tq(library()), want)
+    ragged = {}
+    for case in [(2, 200, 333, 8, 2, 64, True, 50),
+                 (1, 65, 300, 4, 1, 128, False, None),
+                 (3, 100, 100, 8, 2, 80, True, 7),
+                 (1, 40, 20, 4, 4, 128, True, None)]:
+        B, Sq, Skv, Hq, Hkv, D, causal, window = case
+        for dtype, tol in ((torch.bfloat16, ATTN_TOL),
+                           (torch.float32, ATTN_TOL_F32)):
+            a, b, c = rnd(B, Sq, Hq, D, dtype=dtype), \
+                rnd(B, Skv, Hkv, D, dtype=dtype), \
+                rnd(B, Skv, Hkv, D, dtype=dtype)
+            e, r = rel_err(torch, ops.attention(a, b, c, causal=causal,
+                                                window=window),
+                           ref.attention_ref(a, b, c, causal=causal,
+                                             window=window))
+            check(r <= tol, f"flash_attention: error {r} > {tol} at "
+                            f"{case} {dtype}")
+            ragged[f"{case} {str(dtype)[6:]}"] = e
+    ms = time_ms(torch, lambda: ops.attention(q, k, v, **kw), iters=50)
+    plain_ms = time_ms(torch, lambda: ref.attention_ref(q, k, v, **kw),
+                       iters=20)
+    library_ms = time_ms(torch, library, iters=50)
+    ms_again = time_ms(torch, lambda: ops.attention(q, k, v, **kw),
+                       iters=50)
+    bms, by = attention_bound(torch, ref, q, k, kw["causal"], kw["window"])
+    out["flash_attention"] = {
+        "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+        "bound_ms": bms, "bound_by": by, "library_ms": library_ms,
+        "tolerance": f"{ATTN_TOL} of max(1, max|plain|) (bf16), "
+                     f"{ATTN_TOL_F32} (f32)",
+        "max_rel_err": rel, "ragged_max_abs_err": ragged,
+        "library": "F.scaled_dot_product_attention(is_causal=True, "
+                   "enable_gqa=True)",
+        "library_max_abs_err_vs_plain": lib_err, "ms_repeat": ms_again,
+        "bound_share": bms / ms, "shape": {"q": list(q.shape),
+                                           "k": list(k.shape),
+                                           "dtype": str(q.dtype)}}
+
+    # topk_gating
+    logits, kk = first[("gating", BATCH * PROMPT)]
+    p, i = ops.topk_gating(logits, kk)
+    pr, ir = ref.topk_gating_ref(logits, kk)
+    p2, i2 = ops.topk_gating(logits, kk)
+    torch.cuda.synchronize()
+    check(torch.equal(p, p2) and torch.equal(i, i2),
+          "topk_gating: two launches differ")
+    check(torch.equal(i, ir), "topk_gating: idx differs from the plain "
+                              "version at layer 0's logits")
+    gerr = (p - pr).abs().max().item()
+    check(gerr <= GATE_TOL, f"topk_gating: probs error {gerr} > {GATE_TOL}")
+    dec_logits, _ = first[("gating", BATCH)]
+    dp, di = ops.topk_gating(dec_logits, kk)
+    dpr, dir_ = ref.topk_gating_ref(dec_logits, kk)
+    check(torch.equal(di, dir_) and (dp - dpr).abs().max().item()
+          <= GATE_TOL, "topk_gating: decode-step logits disagree")
+    gragged = {}
+    for T, E, k_ in [(1000, 16, 1), (1000, 16, 2), (777, 128, 1),
+                     (777, 128, 2), (5, 128, 2)]:
+        lg = rnd(T, E, dtype=torch.float32)
+        lg[: T // 2] = lg[: T // 2].bfloat16().float()     # exact ties
+        a, b = ops.topk_gating(lg, k_), ref.topk_gating_ref(lg, k_)
+        e = (a[0] - b[0]).abs().max().item()
+        check(torch.equal(a[1], b[1]) and e <= GATE_TOL,
+              f"topk_gating: disagrees at T={T}, E={E}, k={k_}")
+        gragged[f"T={T} E={E} k={k_}"] = e
+    T, E = logits.shape
+    out["topk_gating"] = {
+        "max_abs_err": gerr,
+        "ms": time_ms(torch, lambda: ops.topk_gating(logits, kk)),
+        "plain_ms": time_ms(torch, lambda: ref.topk_gating_ref(logits, kk)),
+        "library_ms": None,
+        "library": "none: no single PyTorch call computes softmax, top-k "
+                   "with lowest-index ties and renormalisation",
+        "tolerance": f"probs {GATE_TOL} absolute; idx equal",
+        "idx_equal": True, "ragged_max_abs_err": gragged,
+        "decode_shape_max_abs_err": (dp - dpr).abs().max().item(),
+        "shape": {"logits": [T, E], "k": kk}}
+    bms, by = bound(4 * T * E + 8 * T * kk, T * E * (4 + kk))
+    out["topk_gating"].update(
+        bound_ms=bms, bound_by=by, bound_share=bms / out["topk_gating"]
+        ["ms"], ms_repeat=time_ms(torch, lambda: ops.topk_gating(logits,
+                                                                 kk)))
+    return out
+
+
+def profile_window(torch, fn) -> dict:
+    """Device busy share over one call of ``fn`` (which synchronises),
+    from torch.profiler: the device's own events over the wall time."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    per_name: dict = {}
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA:
+            d, c = per_name.get(e.name, (0.0, 0))
+            per_name[e.name] = (d + e.time_range.elapsed_us(), c + 1)
+    busy_us = sum(d for d, _ in per_name.values())
+    rows = sorted(((d, k, c) for k, (d, c) in per_name.items()),
+                  reverse=True)
+    return {"wall_ms": wall_us / 1e3, "device_busy_ms": busy_us / 1e3,
+            "device_idle_share": (1 - busy_us / wall_us) if busy_us else None,
+            "top": [{"name": k[:120], "device_ms": d / 1e3, "count": c}
+                    for d, k, c in rows[:12]]}
+
+
+def first_step(torch, M, cfg, params, batch, cache_len, tok=None):
+    """Prefill logits and the first decode step's logits (fed ``tok``, or
+    the prefill's greedy pick)."""
+    lg, cache = M.prefill(cfg, params, batch, cache_len=cache_len)
+    pick = lg[:, :cfg.vocab_size].argmax(-1)
+    d, _ = M.decode_step(cfg, params, cache, pick if tok is None else tok,
+                         batch["tokens"].shape[1])
+    return lg.float(), pick, d.float()
+
+
+def serve_phase(torch, ops, ref, M, serve_lm, layers: int, seed: int):
+    """Phi-3.5-MoE at full width through the port's serving entry point;
+    returns (kernel entries, main-path numbers)."""
+    sargs = serve_lm.parse_args([
+        "--arch", ARCH, "--preset", "full", "--layers", str(layers),
+        "--batch", str(BATCH), "--prompt-len", str(PROMPT), "--gen",
+        str(GEN), "--seed", str(seed), "--device", DEVICE])
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    srv = serve_lm.build(sargs)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    cfg, prm, batch = srv.cfg, srv.params, srv.batch
+    weights_gb = torch.cuda.memory_allocated() / 1e9
+    print(f"serve: {cfg.name}, {cfg.num_layers} layers, d={cfg.d_model}, "
+          f"{cfg.num_experts} experts top-{cfg.experts_per_token}, "
+          f"{cfg.dtype}: {weights_gb:.2f} GB of weights made in "
+          f"{init_s:.2f} s from seed {seed}")
+    res = {"arch": cfg.name, "layers": cfg.num_layers, "batch": BATCH,
+           "prompt": PROMPT, "gen": GEN, "cache_len": srv.cache_len,
+           "weights_gb": weights_gb, "init_s": init_s}
+    with torch.inference_mode():
+        # every launch of a prefill and a decode step against its plain
+        # version on its own inputs (also the warm-up)
+        attn, gate, stats, first = checked_ops(torch, ops, ref)
+        with patched(ops, attention=attn, topk_gating=gate):
+            first_step(torch, M, cfg, prm, batch, srv.cache_len)
+        torch.cuda.synchronize()
+        st_a, st_g = stats["flash_attention"], stats["topk_gating"]
+        check(st_a["calls"] == cfg.num_layers
+              and st_g["calls"] == 2 * cfg.num_layers,
+              f"checked run: {st_a['calls']} attention and {st_g['calls']} "
+              f"gating calls for {cfg.num_layers} layers")
+        check(st_a["max_rel_err"] <= ATTN_TOL,
+              f"flash_attention on the main path: error "
+              f"{st_a['max_rel_err']} > {ATTN_TOL}")
+        check(st_g["idx_equal"] and st_g["max_abs_err"] <= GATE_TOL,
+              f"topk_gating on the main path: {st_g}")
+        res["every_launch_vs_plain"] = stats
+        print("serve: every launch of a prefill and a decode step vs its "
+              "plain version: " + json.dumps(stats))
+
+        kern = serve_kernel_phase(torch, ops, ref, first, seed)
+        del first
+
+        # the main path: prefill timed on its own, then the generate run
+        # with the counts set to 0 just before and read just after
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        lg, cache = M.prefill(cfg, prm, batch, cache_len=srv.cache_len)
+        torch.cuda.synchronize()
+        prefill_s = time.perf_counter() - t0
+        check(bool(torch.isfinite(lg).all()), "prefill logits not finite")
+        del cache
+        torch.cuda.reset_peak_memory_stats()
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        toks = srv.generate(GEN)
+        torch.cuda.synchronize()
+        gen_s = time.perf_counter() - t0
+        launches = dict(ops.LAUNCHES)
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        want = {"flash_attention": cfg.num_layers,
+                "topk_gating": cfg.num_layers * (GEN + 1)}
+        check(launches == want, f"main path launches {launches}, expected "
+                                f"{want}")
+        check(toks.shape == (BATCH, GEN) and bool(((toks >= 0) & (
+            toks < cfg.vocab_size)).all()), "tokens outside the vocabulary")
+        for name, n in launches.items():
+            kern[name]["launches"] = n
+        res.update(prefill_ms=prefill_s * 1e3, generate_s=gen_s,
+                   decode_tok_per_s=BATCH * GEN / (gen_s - prefill_s),
+                   peak_memory_gb=peak_gb, launches=launches,
+                   sample_tokens=toks[0, :16].tolist())
+
+        # the same first step with the plain versions, and the control
+        lk, tk, dk = first_step(torch, M, cfg, prm, batch, srv.cache_len)
+        check(torch.equal(tk, toks[:, 0].long()),
+              "the main path's first token is not the prefill's argmax")
+        with patched(ops, attention=ref.attention_ref,
+                     topk_gating=ref.topk_gating_ref):
+            lp, tp, dp = first_step(torch, M, cfg, prm, batch,
+                                    srv.cache_len, tk)
+        with patched(ops, attention=attention_f64(torch, ref),
+                     topk_gating=ref.topk_gating_ref):
+            lc, tc, dc = first_step(torch, M, cfg, prm, batch,
+                                    srv.cache_len, tk)
+        check(bool(torch.isfinite(lp).all() and torch.isfinite(lc).all()),
+              "plain-version logits not finite")
+        vs = lambda a, b, ta, tb: {
+            "first_tokens_equal": int((ta == tb).sum()),
+            "prefill_logits_max_abs_diff": (a[0] - b[0]).abs().max().item(),
+            "decode_logits_max_abs_diff": (a[1] - b[1]).abs().max().item(),
+            "max_abs_logit": b[0].abs().max().item()}
+        res["kernels_vs_plain"] = vs((lk, dk), (lp, dp), tk, tp)
+        res["plain_vs_f64_attention_control"] = vs((lp, dp), (lc, dc), tp,
+                                                   tc)
+        top2 = lp[:, :cfg.vocab_size].topk(2, -1).values
+        res["plain_top2_margins"] = (top2[:, 0] - top2[:, 1]).tolist()
+
+        # where the time goes: a prefill, and 4 decode steps
+        lg, cache = M.prefill(cfg, prm, batch, cache_len=srv.cache_len)
+        tok = lg[:, :cfg.vocab_size].argmax(-1)
+
+        def decode4():
+            for i in range(4):
+                M.decode_step(cfg, prm, cache, tok, PROMPT + i)
+        decode4()
+        res["profile_prefill"] = profile_window(
+            torch, lambda: M.prefill(cfg, prm, batch,
+                                     cache_len=srv.cache_len))
+        res["profile_decode4"] = profile_window(torch, decode4)
+        del cache
+    del srv, prm, cfg
+    return kern, res
+
+
+def parity_phase(torch, ops, ref, M, get_config, data, seed: int):
+    """Phi-3.5-MoE at full width in float32 with 2 layers: the first token
+    and the logits with the kernels equal those with the plain versions."""
+    import dataclasses
+    cfg = dataclasses.replace(get_config(ARCH), num_layers=2,
+                              dtype="float32")
+    gen = torch.Generator(device=DEVICE).manual_seed(seed)
+    prm = M.init_params(cfg, gen)
+    batch = data.make_batch(data.SyntheticLMConfig(
+        vocab_size=cfg.vocab_size, seq_len=PROMPT, batch_size=BATCH,
+        seed=seed), 0, device=DEVICE)
+    cache_len = PROMPT + GEN
+    with torch.inference_mode():
+        ops.reset_launch_counts()
+        lk, tk, dk = first_step(torch, M, cfg, prm, batch, cache_len)
+        check(ops.LAUNCHES == {"flash_attention": 2, "topk_gating": 4},
+              f"f32 run launches {ops.LAUNCHES}")
+        with patched(ops, attention=ref.attention_ref,
+                     topk_gating=ref.topk_gating_ref):
+            lp, tp, dp = first_step(torch, M, cfg, prm, batch, cache_len,
+                                    tk)
+    out = {"layers": 2, "dtype": "float32",
+           "first_tokens_equal": int((tk == tp).sum()),
+           "tolerance": f"{LOGIT_TOL} of max|logits|"}
+    for name, a, b in (("prefill", lk, lp), ("decode", dk, dp)):
+        err, scale = (a - b).abs().max().item(), b.abs().max().item()
+        out[f"{name}_logits_max_abs_diff"] = err
+        out[f"{name}_max_abs_logit"] = scale
+        check(err <= LOGIT_TOL * scale, f"f32 run: {name} logits differ by "
+                                        f"{err} > {LOGIT_TOL}·{scale}")
+    check(torch.equal(tk, tp), f"f32 run: first tokens {tk.tolist()} with "
+                               f"the kernels, {tp.tolist()} plain")
+    del prm
+    return out
+
+
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--n", type=int, default=50_000)
     ap.add_argument("--J", type=int, default=50_000)
+    ap.add_argument("--layers", type=int, default=24,
+                    help="Phi-3.5-MoE layers served (32 published; 24 fit "
+                         "the card in bf16)")
     args = ap.parse_args()
 
     import torch
@@ -255,10 +686,14 @@ def main() -> int:
               f"checkout of the repository", file=sys.stderr)
         return 2
     sys.path.insert(0, src)
+    from repro_torch import data as tdata
     from repro_torch.apps import lasso
+    from repro_torch.configs import get_config
     from repro_torch.core import ExecutionPlan
-    from repro_torch.kernels import KernelSpec, _build, ref
+    from repro_torch.kernels import KernelSpec, _build, ops, ref
     from repro_torch.kernels import lasso_cd as lc
+    from repro_torch.launch import serve_lm
+    from repro_torch.models import model as M
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -277,17 +712,21 @@ def main() -> int:
     result["versions"] = {"torch": torch.__version__,
                           "cuda": torch.version.cuda}
 
-    # 2. the build
+    # 2. the build: one nvcc per source, all started together
     t0 = time.perf_counter()
-    _build.build(["lasso_cd"])
+    _build.build(BUILD)
     build_s = time.perf_counter() - t0
-    ptxas = [ln.strip() for ln in _build.build_log["lasso_cd"]["ptxas"]
-             .splitlines() if "ptxas info" in ln or "spill" in ln]
-    print(f"build: lasso_cd.cu in {build_s:.2f} s (nvcc "
-          f"{' '.join(_build.NVCC_FLAGS)})")
-    for ln in ptxas:
-        print(f"  {ln}")
-    result["build"] = {"seconds": build_s, "ptxas": ptxas}
+    print(f"build: {', '.join(n + '.cu' for n in BUILD)} in {build_s:.2f} s "
+          f"(in parallel; nvcc {' '.join(_build.NVCC_FLAGS)})")
+    result["build"] = {"seconds": build_s}
+    for name in BUILD:
+        ptxas = [ln.strip() for ln in _build.build_log[name]["ptxas"]
+                 .splitlines() if "ptxas info" in ln or "spill" in ln]
+        print(f"  {name}.cu ({_build.build_log[name]['seconds']:.2f} s):")
+        for ln in ptxas:
+            print(f"    {ln}")
+        result["build"][name] = {
+            "seconds": _build.build_log[name]["seconds"], "ptxas": ptxas}
 
     # 3. data on the card, then the kernels against their plain versions
     n, J = args.n, args.J
@@ -378,8 +817,6 @@ def main() -> int:
         "max_diff_vs_scan_w4": diffs, "loop_equals_scan": True,
         "data_seconds": gen_s,
     }
-    # the per-kernel line, then the main path's numbers
-    print(json.dumps({"kernels": list(kern.values())}))
     print("main path: " + json.dumps(main))
 
     eng = lasso.make_engine(cfg, workers=W, device=DEVICE)
@@ -415,12 +852,45 @@ def main() -> int:
     print(f"small run (n=150, J=60, 400 rounds, W=2, CUDA kernels): "
           f"objective {got:.6f} vs reference_cd {want:.6f}")
 
+    del st, Xs, ys
+    torch.cuda.empty_cache()
+
+    # 4. model-zoo serving: Phi-3.5-MoE at full width, bf16
+    skern, serve = serve_phase(torch, ops, ref, M, serve_lm, args.layers,
+                               args.seed)
+    torch.cuda.empty_cache()
+    print("serve: " + json.dumps({k: v for k, v in serve.items()
+                                  if not k.startswith("profile")}))
+    for w in ("profile_prefill", "profile_decode4"):
+        print(f"serve {w}: " + json.dumps(
+            {k: v for k, v in serve[w].items() if k != "top"}))
+        for row in serve[w]["top"][:6]:
+            print(f"    {row['device_ms']:9.3f} ms  x{row['count']:<5d} "
+                  f"{row['name'][:90]}")
+
+    # 5. the same model in f32, 2 layers: kernels vs plain, token for token
+    parity = parity_phase(torch, ops, ref, M, get_config, tdata, args.seed)
+    print("f32 parity (2 layers, full width): " + json.dumps(parity))
+
+    for name, entry in skern.items():
+        kern[name] = {"name": name, "route": "cuda",
+                      "source": SOURCES[name], "replaces": REPLACES[name],
+                      **entry}
+    keys = ("name", "route", "source", "replaces", "launches",
+            "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+            "library_ms")
+    for name, entry in kern.items():
+        missing = [k for k in keys if k not in entry]
+        check(not missing and entry["launches"],
+              f"{name}: missing {missing} or never launched on its path")
     result.update(kernels=list(kern.values()), main=main, profile=prof,
-                  small={"objective": got, "reference_cd": want})
+                  small={"objective": got, "reference_cd": want},
+                  serve=serve, f32_parity=parity)
     os.makedirs(os.path.join(ROOT, "chiprun_out"), exist_ok=True)
     with open(os.path.join(ROOT, "chiprun_out", "chip_smoke.json"),
               "w") as f:
         json.dump(result, f, indent=1)
+    print(json.dumps({"kernels": list(kern.values())}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

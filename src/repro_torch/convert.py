@@ -1,4 +1,8 @@
-"""Carry a STRADS Lasso run from the JAX package into the port.
+"""Carry state from the JAX package into the port.
+
+Two carriers: :func:`lasso_from_jax` for a STRADS Lasso run, and
+:func:`model_params_from_jax` for the model zoo's parameters.
+
 
 The JAX package keeps β replicated, r and the data row-sharded over a
 ``data`` mesh axis, and the dynamic-priority scheduler's Δβ history in
@@ -16,6 +20,8 @@ import numpy as np
 import torch
 
 from .core import EngineCarry, resolve_device
+from .models import params as P
+from .models.transformer import stack_template
 
 
 def _rows(x: np.ndarray, workers: int, device) -> torch.Tensor:
@@ -44,3 +50,42 @@ def lasso_from_jax(state: dict, X: np.ndarray, y: np.ndarray, *,
     sc = (None if sched_carry is None else
           torch.tensor(np.asarray(sched_carry, np.float32), device=device))
     return out_state, data, EngineCarry(t=int(t), sched_carry=sc)
+
+
+def _tensor(x, dtype: torch.dtype, device) -> torch.Tensor:
+    a = np.array(x)                          # a writable copy
+    if a.dtype.name == "bfloat16":           # ml_dtypes: keep the bits
+        t = torch.from_numpy(a.view(np.uint16)).view(torch.bfloat16)
+    else:
+        t = torch.from_numpy(a)
+    return t.to(device=device, dtype=dtype)
+
+
+def model_params_from_jax(params_numpy: dict, cfg, device="cuda") -> dict:
+    """The JAX package's model parameters (``init_params``' tree with
+    numpy leaves, e.g. ``jax.tree.map(np.asarray, prm)``) as the port's:
+    the same nested dict, each leaf a tensor in the config's dtype on
+    ``device``.  The two packages lay every leaf out alike (stacked
+    layers, padded heads and vocabulary), so this checks each key and
+    shape against :func:`stack_template` and copies."""
+    device = resolve_device(device)
+    dtype = getattr(torch, cfg.dtype)
+
+    def check_keys(path, tmpl, tree):
+        if isinstance(tmpl, dict):
+            if not isinstance(tree, dict) or set(tree) != set(tmpl):
+                got = sorted(tree) if isinstance(tree, dict) else type(tree)
+                raise ValueError(f"params{list(path)}: keys {got} are not "
+                                 f"the template's {sorted(tmpl)}")
+            for k in tmpl:
+                check_keys(path + (k,), tmpl[k], tree[k])
+
+    def leaf(path, meta, x):
+        if tuple(np.shape(x)) != meta.shape:
+            raise ValueError(f"params{list(path)}: shape {np.shape(x)} is "
+                             f"not the template's {meta.shape}")
+        return _tensor(x, dtype, device)
+
+    tmpl = stack_template(cfg)
+    check_keys((), tmpl, params_numpy)
+    return P.tree_map(leaf, tmpl, params_numpy)

@@ -1,0 +1,4 @@
+"""Synthetic token data for the model zoo."""
+from .pipeline import SyntheticLMConfig, make_batch
+
+__all__ = ["SyntheticLMConfig", "make_batch"]

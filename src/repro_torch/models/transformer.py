@@ -1,0 +1,145 @@
+"""The decoder stack of the dense and MoE families.
+
+The port of the JAX package's ``models/transformer.py``.  Layers are
+organised into groups that repeat down the stack, and each parameter of a
+group is stacked over the groups (the JAX package's scan-over-layers
+layout, so weights carry across one for one).  Group contents:
+
+  dense / vlm / audio : [attn, mlp]                       × num_layers
+  moe (moe_every=g)   : [attn, mlp] × (g−1) + [attn, moe] × (layers / g)
+
+Where the JAX package scans over the stacked groups, the port loops in
+Python over layer slices of the stacked tensors.  The hybrid (Zamba2)
+and ssm (xLSTM) families are not ported yet.
+"""
+from __future__ import annotations
+
+from typing import Any, Dict, List, Tuple
+
+import torch
+
+from ..sharding import rules
+from . import params as P
+from .layers import (FSDP, VOCAB, attention_apply, attention_cache_template,
+                     attention_template, mlp_apply, mlp_template,
+                     norm_template)
+from .moe import moe_apply, moe_template
+
+ParamMeta = P.ParamMeta
+
+_NOT_PORTED = {
+    "hybrid": "the hybrid family (Zamba2: models/ssm.py, scan_utils.py and "
+              "the ssm_scan kernel) is ROADMAP.md queue 1 step 13b, the "
+              "next slice",
+    "ssm": "the xLSTM family is ROADMAP.md queue 1 step 13c, after the "
+           "hybrid family",
+}
+
+
+def _check_family(cfg) -> None:
+    if cfg.family in _NOT_PORTED:
+        raise NotImplementedError(f"{cfg.name}: {_NOT_PORTED[cfg.family]}")
+
+
+# ---------------------------------------------------------------------------
+# Stack layout
+# ---------------------------------------------------------------------------
+
+def group_layout(cfg) -> Tuple[int, List[Tuple[str, str]]]:
+    """Returns (number of groups, [(sub_name, kind), ...])."""
+    _check_family(cfg)
+    if cfg.family in ("dense", "vlm", "audio"):
+        return cfg.num_layers, [("attn0", "attn"), ("ffn0", "mlp")]
+    if cfg.family == "moe":
+        g = max(1, cfg.moe_every)
+        subs = []
+        for i in range(g):
+            subs.append((f"attn{i}", "attn"))
+            subs.append((f"ffn{i}", "moe" if i == g - 1 else "mlp"))
+        return cfg.num_layers // g, subs
+    raise ValueError(cfg.family)
+
+
+_SUB_TEMPLATE = {
+    "attn": attention_template,
+    "mlp": mlp_template,
+    "moe": moe_template,
+}
+
+
+def stack_template(cfg) -> Dict[str, Any]:
+    """Template for the full parameter tree."""
+    d = cfg.d_model
+    vp = rules.padded_vocab(cfg.vocab_size)
+    t: Dict[str, Any] = {}
+    if cfg.frontend != "audio":
+        t["tok_embed"] = ParamMeta((vp, d), (VOCAB, FSDP), scale=0.02)
+    steps, subs = group_layout(cfg)
+    group = {name: _SUB_TEMPLATE[kind](cfg) for name, kind in subs}
+    t["layers"] = P.stack(group, steps)
+    t["final_norm"] = norm_template(cfg)
+    if not cfg.tie_embeddings:
+        t["lm_head"] = ParamMeta((d, vp), (FSDP, VOCAB))
+    return t
+
+
+# ---------------------------------------------------------------------------
+# Cache template
+# ---------------------------------------------------------------------------
+
+def cache_template(cfg, batch: int, cache_len: int) -> Dict[str, Any]:
+    """Layout of the decode cache (mirrors the layer groups)."""
+    steps, subs = group_layout(cfg)
+    group = {name: attention_cache_template(cfg, batch, cache_len)
+             for name, kind in subs if kind == "attn"}
+    return {"layers": P.stack(group, steps),
+            "kpos": ParamMeta((cache_len,), (None,), "zeros")}  # int32 − 1
+
+
+# ---------------------------------------------------------------------------
+# Sub-layer application
+# ---------------------------------------------------------------------------
+
+def _apply_sub(kind: str, p, x, cfg, ctx):
+    """Returns (x, aux_loss or None); a cache in ``ctx`` is written in
+    place."""
+    if kind == "attn":
+        x, _ = attention_apply(
+            p, x, cfg, positions=ctx["positions"], cache=ctx["cache"],
+            kpos=ctx["kpos"], slot=ctx["slot"], causal=cfg.causal,
+            window=ctx["window"])
+        return x, None
+    if kind == "mlp":
+        return mlp_apply(p, x, cfg), None
+    if kind == "moe":
+        return moe_apply(p, x, cfg)
+    raise ValueError(kind)
+
+
+def _layer(tree, i: int):
+    return P.tree_map(lambda _, t: t[i], tree)
+
+
+# ---------------------------------------------------------------------------
+# Stack application (shared by forward / prefill / decode)
+# ---------------------------------------------------------------------------
+
+def apply_stack(cfg, prm, x, *, positions, cache=None, kpos=None, slot=None,
+                window=None):
+    """Runs the layer stack.  Returns (x, cache, aux_loss); a given
+    ``cache`` ({"layers": …}) is filled or updated in place."""
+    steps, subs = group_layout(cfg)
+    base_ctx = {"positions": positions, "kpos": kpos, "slot": slot,
+                "window": window}
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    for i in range(steps):
+        layer_p = _layer(prm["layers"], i)
+        layer_cache = None if cache is None else _layer(cache["layers"], i)
+        for name, kind in subs:
+            ctx = dict(base_ctx)
+            ctx["cache"] = None if layer_cache is None \
+                else layer_cache.get(name)
+            x, a = _apply_sub(kind, layer_p[name], x, cfg, ctx)
+            if a is not None:
+                aux = aux + a
+    return x, cache, aux
