@@ -2,6 +2,7 @@
 """Smoke run of the PyTorch/CUDA port (``src/repro_torch``) on one NVIDIA card.
 
     python3 chip_smoke.py [--seed 0] [--n 50000] [--J 50000] [--layers 24]
+                          [--zamba-layers 54]
 
 1. Prints the card (name and power limit from nvidia-smi) and the torch
    and CUDA versions.
@@ -37,6 +38,27 @@
    token and the logits of the prefill and the first decode step with the
    kernels equal those with the plain versions, within the stated
    tolerance.
+6. Model-zoo serving of Zamba2-2.7B at its published widths and full
+   depth (54 mamba layers, the shared attention block applied 9 times),
+   bf16, after the Phi-3.5-MoE weights are freed: batch 4, prompt 1,000
+   (longer than 128 and not a multiple of it, so every mamba layer of a
+   prefill runs ``ssm_scan``), 32 greedy tokens.  First a prefill and a
+   decode step in which every launch of ``ssm_scan`` and
+   ``flash_attention`` is held against its plain version on the same
+   inputs; then ``ssm_scan`` timed at layer 0's real inputs and checked
+   at ragged shapes; then the main path (``Server.generate``) with the
+   counts set to 0 just before and read just after (54 ``ssm_scan``, 9
+   ``flash_attention``: the prefill's; decode runs neither); the same
+   prefill and first decode step with the plain versions (printed, not
+   asserted: a bf16 model at depth amplifies rounding); profiler windows
+   over a prefill and 4 decode steps.
+7. Zamba2-2.7B in float32 with 12 layers (2 groups, so the shared
+   block's cache is stacked over 2 applications), at full width: logits
+   within the stated tolerance, kernels against plain versions, and the
+   first tokens equal in every row that f32 can decide (the top-2 margin
+   of a float64 control above twice the plain path's own distance from
+   it; a row below that is a tie at f32's resolution, and its token must
+   be one of the control's top two).
 
 Any failure exits nonzero before the last line.  The line before the last
 lists every kernel (``{"kernels": [...]}``); the last line is
@@ -65,19 +87,27 @@ ATTN_TOL = 2e-2                # |kernel − plain| ≤ ATTN_TOL·max(1, max|pla
 ATTN_TOL_F32 = 1e-4            # the same for f32 attention
 GATE_TOL = 1e-5                # gating probabilities; idx must be equal
 LOGIT_TOL = 1e-3               # f32 run: |Δ logits| ≤ LOGIT_TOL·max|logits|
+SSM_TOL = 1e-2                 # |kernel − plain| ≤ SSM_TOL·max(1, max|plain|)
+                               # for bf16 y (one bf16 rounding)
+SSM_TOL_F32 = 1e-4             # the same for f32 y and for h (f32 sums in
+                               # another order over up to 1,000 steps)
 DEVICE = "cuda"
 SOURCE = "src/repro_torch/kernels/csrc/lasso_cd.cu"
 SOURCES = {"lasso_partial": SOURCE, "gram_block": SOURCE,
            "flash_attention":
                "src/repro_torch/kernels/csrc/flash_attention.cu",
-           "topk_gating": "src/repro_torch/kernels/csrc/moe_gating.cu"}
+           "topk_gating": "src/repro_torch/kernels/csrc/moe_gating.cu",
+           "ssm_scan": "src/repro_torch/kernels/csrc/ssm_scan.cu"}
 REPLACES = {"lasso_partial": "src/repro/kernels/lasso_cd.py:50",
             "gram_block": "src/repro/kernels/lasso_cd.py:94",
             "flash_attention": "src/repro/kernels/flash_attention.py:100",
-            "topk_gating": "src/repro/kernels/moe_gating.py:56"}
+            "topk_gating": "src/repro/kernels/moe_gating.py:56",
+            "ssm_scan": "src/repro/kernels/ssm_scan.py:67"}
 ARCH = "phi3.5-moe-42b-a6.6b"
 BATCH, PROMPT, GEN = 4, 1024, 32
-BUILD = ("lasso_cd", "flash_attention", "moe_gating")
+ZAMBA = "zamba2-2.7b"
+ZPROMPT = 1000                 # > 128 and not a multiple of 128: the scan path
+BUILD = ("lasso_cd", "flash_attention", "moe_gating", "ssm_scan")
 
 
 class SmokeFailure(Exception):
@@ -511,6 +541,54 @@ def first_step(torch, M, cfg, params, batch, cache_len, tok=None):
     return lg.float(), pick, d.float()
 
 
+def main_path(torch, ops, M, srv, want: dict) -> tuple:
+    """The serving main path: a prefill timed on its own, then
+    ``Server.generate`` with the launch counts set to 0 just before and
+    read just after, which must equal ``want``.  Returns (tokens,
+    numbers)."""
+    cfg = srv.cfg
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    lg, _ = M.prefill(cfg, srv.params, srv.batch, cache_len=srv.cache_len)
+    torch.cuda.synchronize()
+    prefill_s = time.perf_counter() - t0
+    check(bool(torch.isfinite(lg).all()), "prefill logits not finite")
+    del lg, _
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    toks = srv.generate(GEN)
+    torch.cuda.synchronize()
+    gen_s = time.perf_counter() - t0
+    launches = dict(ops.LAUNCHES)
+    check(launches == want, f"{cfg.name}: main path launches {launches}, "
+                            f"expected {want}")
+    check(toks.shape == (BATCH, GEN) and bool(((toks >= 0) & (
+        toks < cfg.vocab_size)).all()), "tokens outside the vocabulary")
+    return toks, dict(
+        prefill_ms=prefill_s * 1e3, generate_s=gen_s,
+        decode_tok_per_s=BATCH * GEN / (gen_s - prefill_s),
+        peak_memory_gb=torch.cuda.max_memory_allocated() / 1e9,
+        launches=launches, sample_tokens=toks[0, :16].tolist())
+
+
+def profile_serving(torch, M, srv) -> dict:
+    """Profiler windows over a prefill and over 4 decode steps."""
+    cfg, prm, batch = srv.cfg, srv.params, srv.batch
+    lg, cache = M.prefill(cfg, prm, batch, cache_len=srv.cache_len)
+    tok = lg[:, :cfg.vocab_size].argmax(-1)
+    start = batch["tokens"].shape[1]
+
+    def decode4():
+        for i in range(4):
+            M.decode_step(cfg, prm, cache, tok, start + i)
+    decode4()
+    return {"profile_prefill": profile_window(
+                torch, lambda: M.prefill(cfg, prm, batch,
+                                         cache_len=srv.cache_len)),
+            "profile_decode4": profile_window(torch, decode4)}
+
+
 def serve_phase(torch, ops, ref, M, serve_lm, layers: int, seed: int):
     """Phi-3.5-MoE at full width through the port's serving entry point;
     returns (kernel entries, main-path numbers)."""
@@ -556,35 +634,12 @@ def serve_phase(torch, ops, ref, M, serve_lm, layers: int, seed: int):
         kern = serve_kernel_phase(torch, ops, ref, first, seed)
         del first
 
-        # the main path: prefill timed on its own, then the generate run
-        # with the counts set to 0 just before and read just after
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        lg, cache = M.prefill(cfg, prm, batch, cache_len=srv.cache_len)
-        torch.cuda.synchronize()
-        prefill_s = time.perf_counter() - t0
-        check(bool(torch.isfinite(lg).all()), "prefill logits not finite")
-        del cache
-        torch.cuda.reset_peak_memory_stats()
-        ops.reset_launch_counts()
-        t0 = time.perf_counter()
-        toks = srv.generate(GEN)
-        torch.cuda.synchronize()
-        gen_s = time.perf_counter() - t0
-        launches = dict(ops.LAUNCHES)
-        peak_gb = torch.cuda.max_memory_allocated() / 1e9
-        want = {"flash_attention": cfg.num_layers,
-                "topk_gating": cfg.num_layers * (GEN + 1)}
-        check(launches == want, f"main path launches {launches}, expected "
-                                f"{want}")
-        check(toks.shape == (BATCH, GEN) and bool(((toks >= 0) & (
-            toks < cfg.vocab_size)).all()), "tokens outside the vocabulary")
-        for name, n in launches.items():
-            kern[name]["launches"] = n
-        res.update(prefill_ms=prefill_s * 1e3, generate_s=gen_s,
-                   decode_tok_per_s=BATCH * GEN / (gen_s - prefill_s),
-                   peak_memory_gb=peak_gb, launches=launches,
-                   sample_tokens=toks[0, :16].tolist())
+        toks, numbers = main_path(torch, ops, M, srv, {
+            "flash_attention": cfg.num_layers,
+            "topk_gating": cfg.num_layers * (GEN + 1), "ssm_scan": 0})
+        for name in kern:
+            kern[name]["launches"] = numbers["launches"][name]
+        res.update(numbers)
 
         # the same first step with the plain versions, and the control
         lk, tk, dk = first_step(torch, M, cfg, prm, batch, srv.cache_len)
@@ -611,19 +666,7 @@ def serve_phase(torch, ops, ref, M, serve_lm, layers: int, seed: int):
         top2 = lp[:, :cfg.vocab_size].topk(2, -1).values
         res["plain_top2_margins"] = (top2[:, 0] - top2[:, 1]).tolist()
 
-        # where the time goes: a prefill, and 4 decode steps
-        lg, cache = M.prefill(cfg, prm, batch, cache_len=srv.cache_len)
-        tok = lg[:, :cfg.vocab_size].argmax(-1)
-
-        def decode4():
-            for i in range(4):
-                M.decode_step(cfg, prm, cache, tok, PROMPT + i)
-        decode4()
-        res["profile_prefill"] = profile_window(
-            torch, lambda: M.prefill(cfg, prm, batch,
-                                     cache_len=srv.cache_len))
-        res["profile_decode4"] = profile_window(torch, decode4)
-        del cache
+        res.update(profile_serving(torch, M, srv))
     del srv, prm, cfg
     return kern, res
 
@@ -643,7 +686,8 @@ def parity_phase(torch, ops, ref, M, get_config, data, seed: int):
     with torch.inference_mode():
         ops.reset_launch_counts()
         lk, tk, dk = first_step(torch, M, cfg, prm, batch, cache_len)
-        check(ops.LAUNCHES == {"flash_attention": 2, "topk_gating": 4},
+        check(ops.LAUNCHES == {"flash_attention": 2, "topk_gating": 4,
+                               "ssm_scan": 0},
               f"f32 run launches {ops.LAUNCHES}")
         with patched(ops, attention=ref.attention_ref,
                      topk_gating=ref.topk_gating_ref):
@@ -664,6 +708,277 @@ def parity_phase(torch, ops, ref, M, get_config, data, seed: int):
     return out
 
 
+# ---------------------------------------------------------------------------
+# Model-zoo serving of Zamba2-2.7B: ssm_scan (and flash_attention)
+# ---------------------------------------------------------------------------
+
+def ssm_err(torch, got, want) -> tuple[float, float]:
+    """(max abs err of y and h, the larger of the two over its tolerance
+    (SSM_TOL for bf16 y, SSM_TOL_F32 for f32 y and for h), relative to
+    max(1, max|plain|))."""
+    (y, h), (yr, hr) = got, want
+    ey, ry = rel_err(torch, y, yr)
+    eh, rh = rel_err(torch, h, hr)
+    ytol = SSM_TOL if y.dtype == torch.bfloat16 else SSM_TOL_F32
+    return max(ey, eh), max(ry / ytol, rh / SSM_TOL_F32)
+
+
+def checked_ssm(torch, ops, ref):
+    """A stand-in for ``ops.ssm_scan`` that launches the kernel through the
+    real wrapper, then holds y and h against the plain version on the same
+    inputs.  Keeps the worst error and layer 0's inputs."""
+    real = ops.ssm_scan
+    stats = {"calls": 0, "max_abs_err": 0.0, "max_err_over_tol": 0.0}
+    first: dict = {}
+
+    def ssm_scan(x, dt, A, Bm, Cm, h0=None):
+        out = real(x, dt, A, Bm, Cm, h0)
+        err, over = ssm_err(torch, out, ref.ssm_scan_ref(x, dt, A, Bm, Cm,
+                                                          h0))
+        stats["calls"] += 1
+        stats["max_abs_err"] = max(stats["max_abs_err"], err)
+        stats["max_err_over_tol"] = max(stats["max_err_over_tol"], over)
+        first.setdefault("ssm", (x, dt, A, Bm, Cm, h0))
+        return out
+    return ssm_scan, stats, first
+
+
+def ssm_bound(torch, x, Bm, h0) -> tuple[float, str]:
+    """Least time for one scan: x and dt read and y written once (x's
+    type), B and C read once, A, h0 (when given) and h once in f32; 5
+    operations a (b, t, c, n) on the FP32 cores."""
+    B, S, C = x.shape
+    N = Bm.shape[-1]
+    e = x.element_size()
+    nbytes = 3 * B * S * C * e + 2 * B * S * N * e + 4 * C \
+        + 4 * B * C * N * (1 if h0 is None else 2)
+    return bound(nbytes, 5.0 * B * S * C * N)
+
+
+def ssm_kernel_phase(torch, ops, ref, first, seed: int):
+    """``ssm_scan`` against its plain version at layer 0's real inputs,
+    timed, and at ragged shapes (S = 1, 25, 200, 1,000; h0 given and None;
+    N = 16 and 64; C not a multiple of the 64-channel block; bf16 and
+    f32)."""
+    gen = torch.Generator().manual_seed(seed + 3)
+    args = first["ssm"]
+    x, dt, A, Bm, Cm, h0 = args
+    got = ops.ssm_scan(*args)
+    want = ref.ssm_scan_ref(*args)
+    torch.cuda.synchronize()
+    again = ops.ssm_scan(*args)
+    check(torch.equal(got[0], again[0]) and torch.equal(got[1], again[1]),
+          "ssm_scan: two launches differ")
+    err, over = ssm_err(torch, got, want)
+    check(over <= 1.0, f"ssm_scan: error {over} of its tolerance at layer "
+                       f"0's shapes")
+    ragged = {}
+    for B, S, C, N, with_h0 in [(4, 1, 5120, 64, True),
+                                (2, 25, 130, 16, False),
+                                (3, 200, 257, 64, True),
+                                (1, 1000, 5000, 64, False),
+                                (2, 1000, 96, 16, True)]:
+        for dtype in (torch.bfloat16, torch.float32):
+            r = lambda *shape: torch.randn(shape, generator=gen)
+            xs, Bs, Cs = r(B, S, C), r(B, S, N), r(B, S, N)
+            dts = torch.nn.functional.softplus(r(B, S, C) - 1)
+            As = -torch.exp(torch.rand(C, generator=gen) * 2 - 1)
+            hs = r(B, C, N) if with_h0 else None
+            a = [t.to(DEVICE, dtype) for t in (xs, dts)] + [As.to(DEVICE)] \
+                + [t.to(DEVICE, dtype) for t in (Bs, Cs)] \
+                + [None if hs is None else hs.to(DEVICE)]
+            e, o = ssm_err(torch, ops.ssm_scan(*a), ref.ssm_scan_ref(*a))
+            key = f"B={B} S={S} C={C} N={N} h0={with_h0} {str(dtype)[6:]}"
+            check(o <= 1.0, f"ssm_scan: error {o} of its tolerance at {key}")
+            ragged[key] = e
+    ms = time_ms(torch, lambda: ops.ssm_scan(*args), iters=100)
+    plain_ms = time_ms(torch, lambda: ref.ssm_scan_ref(*args), iters=2,
+                       warmup=1)
+    ms_again = time_ms(torch, lambda: ops.ssm_scan(*args), iters=100)
+    bms, by = ssm_bound(torch, x, Bm, h0)
+    return {
+        "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+        "bound_ms": bms, "bound_by": by, "library_ms": None,
+        "library": "none: no single PyTorch call computes a selective scan",
+        "tolerance": f"{SSM_TOL} of max(1, max|plain|) for bf16 y, "
+                     f"{SSM_TOL_F32} for f32 y and h",
+        "max_err_over_tol": over, "ragged_max_abs_err": ragged,
+        "ms_repeat": ms_again, "bound_share": bms / ms,
+        "shape": {"x": list(x.shape), "B": list(Bm.shape),
+                  "dtype": str(x.dtype), "x_strides": list(x.stride()),
+                  "h0": None if h0 is None else list(h0.shape)}}
+
+
+def zamba_phase(torch, ops, ref, M, serve_lm, layers: int, seed: int):
+    """Zamba2-2.7B at full width through the port's serving entry point;
+    returns (the ssm_scan entry, main-path numbers)."""
+    sargs = serve_lm.parse_args([
+        "--arch", ZAMBA, "--preset", "full", "--layers", str(layers),
+        "--batch", str(BATCH), "--prompt-len", str(ZPROMPT), "--gen",
+        str(GEN), "--seed", str(seed), "--device", DEVICE])
+    torch.cuda.reset_peak_memory_stats()
+    before_gb = torch.cuda.memory_allocated() / 1e9
+    t0 = time.perf_counter()
+    srv = serve_lm.build(sargs)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    cfg, prm, batch = srv.cfg, srv.params, srv.batch
+    groups = cfg.num_layers // cfg.attn_every
+    weights_gb = torch.cuda.memory_allocated() / 1e9 - before_gb
+    print(f"zamba2: {cfg.name}, {cfg.num_layers} mamba layers + the shared "
+          f"block x{groups}, d={cfg.d_model}, {cfg.dtype}: "
+          f"{weights_gb:.2f} GB of weights made in {init_s:.2f} s from seed "
+          f"{seed} ({before_gb:.2f} GB held before)")
+    res = {"arch": cfg.name, "layers": cfg.num_layers, "groups": groups,
+           "batch": BATCH, "prompt": ZPROMPT, "gen": GEN,
+           "cache_len": srv.cache_len, "weights_gb": weights_gb,
+           "allocated_before_gb": before_gb, "init_s": init_s}
+    with torch.inference_mode():
+        # every launch of a prefill and a decode step against its plain
+        # version on its own inputs (also the warm-up)
+        attn, _, astats, afirst = checked_ops(torch, ops, ref)
+        ssm, sstats, sfirst = checked_ssm(torch, ops, ref)
+        with patched(ops, attention=attn, ssm_scan=ssm):
+            first_step(torch, M, cfg, prm, batch, srv.cache_len)
+        torch.cuda.synchronize()
+        st_a = astats["flash_attention"]
+        check(sstats["calls"] == cfg.num_layers and st_a["calls"] == groups,
+              f"checked run: {sstats['calls']} scans and {st_a['calls']} "
+              f"attention calls for {cfg.num_layers} layers")
+        check(sstats["max_err_over_tol"] <= 1.0,
+              f"ssm_scan on the main path: {sstats}")
+        check(st_a["max_rel_err"] <= ATTN_TOL,
+              f"flash_attention on the Zamba2 path: error "
+              f"{st_a['max_rel_err']} > {ATTN_TOL}")
+        stats = {"ssm_scan": sstats, "flash_attention": st_a}
+        res["every_launch_vs_plain"] = stats
+        print("zamba2: every launch of a prefill and a decode step vs its "
+              "plain version: " + json.dumps(stats))
+        del afirst
+        kern = ssm_kernel_phase(torch, ops, ref, sfirst, seed)
+        del sfirst
+
+        toks, numbers = main_path(torch, ops, M, srv, {
+            "flash_attention": groups, "topk_gating": 0,
+            "ssm_scan": cfg.num_layers})
+        res.update(numbers)
+
+        # the same first step with the plain versions (printed only)
+        lk, tk, dk = first_step(torch, M, cfg, prm, batch, srv.cache_len)
+        check(torch.equal(tk, toks[:, 0].long()),
+              "the main path's first token is not the prefill's argmax")
+        with patched(ops, attention=ref.attention_ref,
+                     ssm_scan=ref.ssm_scan_ref):
+            lp, tp, dp = first_step(torch, M, cfg, prm, batch,
+                                    srv.cache_len, tk)
+        check(bool(torch.isfinite(lp).all()), "plain logits not finite")
+        top2 = lp[:, :cfg.vocab_size].topk(2, -1).values
+        res["kernels_vs_plain_bf16"] = {
+            "first_tokens_equal": int((tk == tp).sum()),
+            "prefill_logits_max_abs_diff": (lk - lp).abs().max().item(),
+            "decode_logits_max_abs_diff": (dk - dp).abs().max().item(),
+            "max_abs_logit": lp.abs().max().item(),
+            "plain_top2_margins": (top2[:, 0] - top2[:, 1]).tolist()}
+
+        res.update(profile_serving(torch, M, srv))
+    kern["launches"] = res["launches"]["ssm_scan"]
+    del srv, prm, cfg
+    return kern, res
+
+
+def ssm_scan_f64(torch):
+    """The plain scan's steps in float64: the control for how far the
+    model amplifies a change of rounding."""
+    def ssm_scan(x, dt, A, Bm, Cm, h0=None):
+        xd, dtd, Ad, Bd, Cd = (t.double() for t in (x, dt, A, Bm, Cm))
+        h = torch.zeros((x.shape[0], x.shape[2], Bm.shape[-1]),
+                        dtype=torch.float64, device=x.device) \
+            if h0 is None else h0.double()
+        ys = []
+        for t in range(x.shape[1]):
+            h = torch.exp(dtd[:, t] * Ad)[:, :, None] * h \
+                + (dtd[:, t] * xd[:, t])[:, :, None] * Bd[:, t][:, None, :]
+            ys.append(torch.einsum("bcn,bn->bc", h, Cd[:, t]))
+        return torch.stack(ys, dim=1).to(x.dtype), h.float()
+    return ssm_scan
+
+
+def zamba_parity_phase(torch, ops, ref, M, get_config, data, seed: int):
+    """Zamba2-2.7B at full width in float32 with 12 layers (2 groups): the
+    logits with the kernels equal those with the plain versions within
+    LOGIT_TOL, and so do the first tokens wherever f32 can decide them
+    (see the check at the end); a float64 control (scan and attention in
+    float64) measures how far the model amplifies f32 rounding."""
+    import dataclasses
+    cfg = dataclasses.replace(get_config(ZAMBA), num_layers=12,
+                              dtype="float32")
+    gen = torch.Generator(device=DEVICE).manual_seed(seed)
+    prm = M.init_params(cfg, gen)
+    batch = data.make_batch(data.SyntheticLMConfig(
+        vocab_size=cfg.vocab_size, seq_len=ZPROMPT, batch_size=BATCH,
+        seed=seed), 0, device=DEVICE)
+    cache_len = ZPROMPT + GEN
+    with torch.inference_mode():
+        ops.reset_launch_counts()
+        lk, tk, dk = first_step(torch, M, cfg, prm, batch, cache_len)
+        check(ops.LAUNCHES == {"flash_attention": 2, "topk_gating": 0,
+                               "ssm_scan": 12},
+              f"Zamba2 f32 run launches {ops.LAUNCHES}")
+        with patched(ops, attention=ref.attention_ref,
+                     ssm_scan=ref.ssm_scan_ref):
+            lp, tp, dp = first_step(torch, M, cfg, prm, batch, cache_len,
+                                    tk)
+        with patched(ops, attention=attention_f64(torch, ref),
+                     ssm_scan=ssm_scan_f64(torch)):
+            lc, tc, dc = first_step(torch, M, cfg, prm, batch, cache_len,
+                                    tk)
+    top2 = lambda lg: (lambda v: (v[:, 0] - v[:, 1]).tolist())(
+        lg[:, :cfg.vocab_size].topk(2, -1).values)
+    out = {"layers": 12, "groups": 2, "dtype": "float32",
+           "first_tokens_equal": int((tk == tp).sum()),
+           "tolerance": f"{LOGIT_TOL} of max|logits|",
+           "tokens": {"kernels": tk.tolist(), "plain": tp.tolist(),
+                      "f64_control": tc.tolist()},
+           "top2_margins": {"kernels": top2(lk), "plain": top2(lp),
+                            "f64_control": top2(lc)},
+           "f64_control_vs_plain": {
+               "prefill_logits_max_abs_diff": (lc - lp).abs().max().item(),
+               "decode_logits_max_abs_diff": (dc - dp).abs().max().item()},
+           "f64_control_vs_kernels": {
+               "prefill_logits_max_abs_diff": (lc - lk).abs().max().item(),
+               "decode_logits_max_abs_diff": (dc - dk).abs().max().item()}}
+    for name, a, b in (("prefill", lk, lp), ("decode", dk, dp)):
+        err, scale = (a - b).abs().max().item(), b.abs().max().item()
+        out[f"{name}_logits_max_abs_diff"] = err
+        out[f"{name}_max_abs_logit"] = scale
+    print("Zamba2 f32 parity (12 layers, full width): " + json.dumps(out))
+    for name, a, b in (("prefill", lk, lp), ("decode", dk, dp)):
+        err, scale = (a - b).abs().max().item(), b.abs().max().item()
+        check(err <= LOGIT_TOL * scale, f"Zamba2 f32 run: {name} logits "
+                                        f"differ by {err} > "
+                                        f"{LOGIT_TOL}·{scale}")
+    # A first token is decidable in f32 where the float64 control's top-2
+    # margin exceeds twice the plain f32 path's own distance from the
+    # control; there the kernels must pick the plain version's token, and
+    # elsewhere one of the control's top two.
+    floor = out["f64_control_vs_plain"]["prefill_logits_max_abs_diff"]
+    top2_c = lc[:, :cfg.vocab_size].topk(2, -1).indices
+    decidable = [m > 2 * floor for m in out["top2_margins"]["f64_control"]]
+    out["decidable_rows"] = decidable
+    out["decidable_first_tokens_equal"] = all(
+        bool(tk[i] == tp[i]) for i, d in enumerate(decidable) if d)
+    check(out["decidable_first_tokens_equal"],
+          f"Zamba2 f32 run: first tokens {tk.tolist()} with the kernels, "
+          f"{tp.tolist()} plain, in rows decidable in f32 {decidable}")
+    check(all(bool((top2_c[i] == tk[i]).any())
+              for i, d in enumerate(decidable) if not d),
+          f"Zamba2 f32 run: a first token {tk.tolist()} outside the "
+          f"control's top two {top2_c.tolist()}")
+    check(sum(decidable) >= 3, f"Zamba2 f32 run: only {sum(decidable)} of "
+                               f"4 first tokens decidable in f32")
+    del prm
+    return out
+
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
@@ -673,6 +988,9 @@ def main() -> int:
     ap.add_argument("--layers", type=int, default=24,
                     help="Phi-3.5-MoE layers served (32 published; 24 fit "
                          "the card in bf16)")
+    ap.add_argument("--zamba-layers", type=int, default=54,
+                    help="Zamba2-2.7B layers served (54 published; a "
+                         "multiple of 6)")
     args = ap.parse_args()
 
     import torch
@@ -871,6 +1189,30 @@ def main() -> int:
     # 5. the same model in f32, 2 layers: kernels vs plain, token for token
     parity = parity_phase(torch, ops, ref, M, get_config, tdata, args.seed)
     print("f32 parity (2 layers, full width): " + json.dumps(parity))
+    torch.cuda.empty_cache()
+
+    # 6. model-zoo serving: Zamba2-2.7B at full width and depth, bf16
+    skern["ssm_scan"], zamba = zamba_phase(torch, ops, ref, M, serve_lm,
+                                           args.zamba_layers, args.seed)
+    torch.cuda.empty_cache()
+    print("zamba2: " + json.dumps({k: v for k, v in zamba.items()
+                                   if not k.startswith("profile")}))
+    print("ssm_scan at layer 0's inputs: " + json.dumps(
+        {k: skern["ssm_scan"][k] for k in ("ms", "ms_repeat", "plain_ms",
+                                           "bound_ms", "bound_by",
+                                           "bound_share", "max_abs_err")}))
+    for w in ("profile_prefill", "profile_decode4"):
+        print(f"zamba2 {w}: " + json.dumps(
+            {k: v for k, v in zamba[w].items() if k != "top"}))
+        for row in zamba[w]["top"][:8]:
+            print(f"    {row['device_ms']:9.3f} ms  x{row['count']:<5d} "
+                  f"{row['name'][:90]}")
+    skern["flash_attention"]["launches_zamba2"] = \
+        zamba["launches"]["flash_attention"]
+
+    # 7. Zamba2 in f32, 12 layers: kernels vs plain, token for token
+    zparity = zamba_parity_phase(torch, ops, ref, M, get_config, tdata,
+                                 args.seed)
 
     for name, entry in skern.items():
         kern[name] = {"name": name, "route": "cuda",
@@ -885,7 +1227,8 @@ def main() -> int:
               f"{name}: missing {missing} or never launched on its path")
     result.update(kernels=list(kern.values()), main=main, profile=prof,
                   small={"objective": got, "reference_cd": want},
-                  serve=serve, f32_parity=parity)
+                  serve=serve, f32_parity=parity, zamba2=zamba,
+                  zamba2_f32_parity=zparity)
     os.makedirs(os.path.join(ROOT, "chiprun_out"), exist_ok=True)
     with open(os.path.join(ROOT, "chiprun_out", "chip_smoke.json"),
               "w") as f:

@@ -65,9 +65,10 @@ def model_params_from_jax(params_numpy: dict, cfg, device="cuda") -> dict:
     """The JAX package's model parameters (``init_params``' tree with
     numpy leaves, e.g. ``jax.tree.map(np.asarray, prm)``) as the port's:
     the same nested dict, each leaf a tensor in the config's dtype on
-    ``device``.  The two packages lay every leaf out alike (stacked
-    layers, padded heads and vocabulary), so this checks each key and
-    shape against :func:`stack_template` and copies."""
+    ``device`` (the SSM's ``A_log`` and ``dt_bias`` in float32, as the
+    JAX package keeps them).  The two packages lay every leaf out alike
+    (stacked layers, padded heads and vocabulary), so this checks each
+    key and shape against :func:`stack_template` and copies."""
     device = resolve_device(device)
     dtype = getattr(torch, cfg.dtype)
 
@@ -84,7 +85,8 @@ def model_params_from_jax(params_numpy: dict, cfg, device="cuda") -> dict:
         if tuple(np.shape(x)) != meta.shape:
             raise ValueError(f"params{list(path)}: shape {np.shape(x)} is "
                              f"not the template's {meta.shape}")
-        return _tensor(x, dtype, device)
+        return _tensor(x, torch.float32 if meta.init in P.SSM_INITS
+                       else dtype, device)
 
     tmpl = stack_template(cfg)
     check_keys((), tmpl, params_numpy)

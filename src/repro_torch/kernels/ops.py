@@ -4,6 +4,8 @@
     through the flash-attention kernel (``csrc/flash_attention.cu``).
   * :func:`topk_gating` — softmax → top-k → renormalise router gating,
     through the gating kernel (``csrc/moe_gating.cu``).
+  * :func:`ssm_scan`    — the diagonal selective scan of a Mamba2 block,
+    through the scan kernel (``csrc/ssm_scan.cu``).
 
 As in :mod:`.lasso_cd`: tensors on the CPU take the plain version
 (:mod:`.ref`); CUDA tensors launch the kernel or raise, with no plain
@@ -18,10 +20,11 @@ import torch
 
 from . import flash_attention as _fa
 from . import moe_gating as _mg
-from .ref import attention_ref, topk_gating_ref
+from . import ssm_scan as _ss
+from .ref import attention_ref, ssm_scan_ref, topk_gating_ref
 
 #: kernel name → launches since the last :func:`reset_launch_counts`
-LAUNCHES = {"flash_attention": 0, "topk_gating": 0}
+LAUNCHES = {"flash_attention": 0, "topk_gating": 0, "ssm_scan": 0}
 
 
 def reset_launch_counts() -> None:
@@ -55,4 +58,17 @@ def topk_gating(logits: torch.Tensor, k: int):
         return topk_gating_ref(logits, k)
     out = _mg.topk_gating(logits, k)
     LAUNCHES["topk_gating"] += 1
+    return out
+
+
+def ssm_scan(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
+             Bm: torch.Tensor, Cm: torch.Tensor,
+             h0: Optional[torch.Tensor] = None):
+    """x, dt (B, S, C); A (C,); Bm, Cm (B, S, N); h0 (B, C, N) or None →
+    (y (B, S, C) in x.dtype, h (B, C, N) f32).  See
+    :func:`.ref.ssm_scan_ref`."""
+    if _on_cpu(x, dt, A, Bm, Cm, *(() if h0 is None else (h0,))):
+        return ssm_scan_ref(x, dt, A, Bm, Cm, h0)
+    out = _ss.ssm_scan(x, dt, A, Bm, Cm, h0)
+    LAUNCHES["ssm_scan"] += 1
     return out

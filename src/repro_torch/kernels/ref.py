@@ -83,6 +83,36 @@ def topk_gating_ref(logits: torch.Tensor, k: int):
     return top_p, torch.cat(idx, dim=-1).to(torch.int32)
 
 
+def ssm_scan_ref(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
+                 Bm: torch.Tensor, Cm: torch.Tensor,
+                 h0: Optional[torch.Tensor] = None):
+    """Diagonal selective scan (Mamba2-style), one step at a time.
+
+    x, dt (B, S, C); A (C,); Bm, Cm (B, S, N); h0 (B, C, N) or None
+    (zeros).  Per step, in f32:
+
+        h_t = exp(dt_t ⊙ A) ⊙ h_{t−1} + (dt_t ⊙ x_t) ⊗ B_t
+        y_t = ⟨h_t, C_t⟩_N
+
+    Returns (y (B, S, C) in x.dtype, h_final (B, C, N) f32).
+    """
+    Bsz, S, C = x.shape
+    N = Bm.shape[-1]
+    xf, dtf = x.float(), dt.float()
+    Bf, Cf, Af = Bm.float(), Cm.float(), A.float()
+    h = (torch.zeros((Bsz, C, N), dtype=torch.float32, device=x.device)
+         if h0 is None else h0.float())
+    ys = []
+    for t in range(S):
+        a = torch.exp(dtf[:, t] * Af[None, :])                 # (B, C)
+        inp = (dtf[:, t] * xf[:, t])[:, :, None] * Bf[:, t][:, None, :]
+        h = a[:, :, None] * h + inp                            # (B, C, N)
+        ys.append(torch.einsum("bcn,bn->bc", h, Cf[:, t]))
+    y = (torch.stack(ys, dim=1) if ys else
+         torch.zeros((Bsz, 0, C), dtype=torch.float32, device=x.device))
+    return y.to(x.dtype), h
+
+
 def lasso_partial_ref(Xb: torch.Tensor, r: torch.Tensor) -> torch.Tensor:
     """z_j = x_jᵀ r for the scheduled block: (…, n, U), (…, n) → (…, U)
     f32."""

@@ -3,11 +3,14 @@
     PYTHONPATH=src python -m repro_torch.launch.serve_lm \
         --arch phi3.5-moe-42b-a6.6b --preset full --layers 24 \
         --batch 4 --prompt-len 1024 --gen 32
+    PYTHONPATH=src python -m repro_torch.launch.serve_lm \
+        --arch zamba2-2.7b --preset full --batch 4 --prompt-len 1000 --gen 32
 
 The port of the JAX package's ``launch/serve_lm.py``, with the same
 options plus ``--layers`` (cut the depth; default the config's own) and
 ``--device`` (default ``cuda``; ``cpu`` runs the plain versions of the
-kernels).  Weights are random, drawn from ``--seed``; the prompts are
+kernels).  For the hybrid family ``--layers`` must be a multiple of
+``attn_every``.  Weights are random, drawn from ``--seed``; the prompts are
 :func:`repro_torch.data.make_batch`'s synthetic tokens.  After a warm-up
 it prints the prefill time, the generate rate (tokens over the whole
 prefill + decode run) and the first sample tokens.
@@ -76,6 +79,11 @@ def build(args: argparse.Namespace) -> Server:
         cfg = dataclasses.replace(cfg, num_layers=args.layers)
     if cfg.encoder_only:
         raise SystemExit(f"{cfg.name} is encoder-only: no decode serving")
+    if cfg.family == "hybrid" and cfg.num_layers % cfg.attn_every:
+        raise ValueError(f"{cfg.name}: --layers {cfg.num_layers} is not a "
+                         f"multiple of attn_every={cfg.attn_every} (the "
+                         f"shared attention block follows every "
+                         f"{cfg.attn_every} mamba layers)")
     gen = torch.Generator(device=device).manual_seed(args.seed)
     params = M.init_params(cfg, gen)
     dcfg = SyntheticLMConfig(vocab_size=cfg.vocab_size,

@@ -2,7 +2,7 @@
 ``prefill`` / ``decode_step``.
 
 The port of the JAX package's ``models/model.py`` for the text path of
-the dense and MoE families.  Every function takes the
+the dense, MoE and hybrid families.  Every function takes the
 :class:`repro_torch.configs.base.ModelConfig` explicitly; parameters are
 nested dicts built from :func:`transformer.stack_template`, on the device
 :func:`init_params` put them on.  The vision and audio frontends are not
@@ -27,7 +27,7 @@ def _check_frontend(cfg) -> None:
     if cfg.frontend is not None:
         raise NotImplementedError(
             f"{cfg.name}: the {cfg.frontend} frontend is not ported yet "
-            f"(ROADMAP.md queue 1 step 13c, after the hybrid family)")
+            f"(ROADMAP.md queue 1 step 13c)")
 
 
 # ---------------------------------------------------------------------------
@@ -90,14 +90,16 @@ def forward(cfg, prm, batch: Dict[str, torch.Tensor], *,
 # ---------------------------------------------------------------------------
 
 def init_cache(cfg, batch: int, cache_len: int, device) -> Dict[str, Any]:
-    """Zeroed keys and values in the config's dtype; ``kpos`` (int32) −1
-    for every slot (empty)."""
+    """Each leaf in the JAX package's type: keys and values zeroed in the
+    config's dtype; ``kpos`` (int32) −1 for every slot (empty); the
+    recurrent states (the SSM's ``h`` and ``conv``) zeroed in f32."""
     t = cache_template(cfg, batch, cache_len)
 
     def leaf(path, m):
         if path[-1] == "kpos":
             return torch.full(m.shape, -1, dtype=torch.int32, device=device)
-        return torch.zeros(m.shape, dtype=_dtype(cfg), device=device)
+        dtype = _dtype(cfg) if path[-1] in ("k", "v") else torch.float32
+        return torch.zeros(m.shape, dtype=dtype, device=device)
     return P.tree_map(leaf, t)
 
 

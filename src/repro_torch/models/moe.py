@@ -105,8 +105,8 @@ def moe_apply(p: Dict[str, Any], x: torch.Tensor, cfg,
     if cfg.moe_impl == "sort":
         raise NotImplementedError(
             "moe_impl='sort' is not ported yet (ROADMAP.md queue 1, step "
-            "13c: the sort-based dispatch is queued after the hybrid "
-            "family); use moe_impl='einsum'")
+            "13c: the sort-based dispatch is queued with the rest of "
+            "the zoo); use moe_impl='einsum'")
     B, S, d = x.shape
     h = apply_norm(p["norm"], x, cfg).reshape(B * S, d)
     probs, idx, aux = _router(p, h, cfg)

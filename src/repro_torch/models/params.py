@@ -19,7 +19,7 @@ import torch
 class ParamMeta:
     shape: Tuple[int, ...]
     axes: Tuple[Optional[str], ...]          # logical axis per dim
-    init: str = "normal"                     # normal|zeros|ones
+    init: str = "normal"                     # normal|zeros|ones|ssm_a|ssm_dt
     scale: Optional[float] = None            # stddev; default fan-in
 
     def __post_init__(self):
@@ -31,6 +31,9 @@ class ParamMeta:
 Template = Dict[str, Any]                    # nested dict of ParamMeta
 
 _DRAW_ELEMS = 1 << 26                        # f32 elements drawn at once
+#: inits whose leaves stay float32 in a model of any type (the JAX
+#: package's ``params.abstract``): the SSM's A_log and dt_bias
+SSM_INITS = ("ssm_a", "ssm_dt")
 
 
 def is_meta(x) -> bool:
@@ -69,9 +72,15 @@ def _leaf_init(meta: ParamMeta, gen: torch.Generator, dtype,
         return torch.zeros(meta.shape, dtype=dtype, device=device)
     if meta.init == "ones":
         return torch.ones(meta.shape, dtype=dtype, device=device)
+    if meta.init in SSM_INITS:               # f32 whatever the model's type
+        u = torch.rand(meta.shape, generator=gen, device=device,
+                       dtype=torch.float32)
+        if meta.init == "ssm_a":             # A_log: log of U[1, 16]
+            return torch.log(u * 15.0 + 1.0)
+        u = u * (0.1 - 1e-3) + 1e-3          # dt_bias: softplus⁻¹(U[1e-3, .1])
+        return torch.log(torch.expm1(u))
     if meta.init != "normal":
-        raise NotImplementedError(f"init {meta.init!r} belongs to the SSM "
-                                  f"family, which the port has not reached")
+        raise ValueError(f"unknown init {meta.init!r}")
     std = leaf_std(meta)
     out = torch.empty(meta.shape, dtype=dtype, device=device)
     # drawn in f32 and cast a few slices of the leading axis at a time,
@@ -89,7 +98,9 @@ def _leaf_init(meta: ParamMeta, gen: torch.Generator, dtype,
 def init(template: Template, gen: torch.Generator, dtype,
          device) -> Dict[str, Any]:
     """Materialise a template: every "normal" leaf drawn from ``gen``
-    (which must live on ``device``), leaf after leaf in key order."""
+    (which must live on ``device``), leaf after leaf in key order, in
+    ``dtype``; the SSM inits (:data:`SSM_INITS`) are uniform draws kept in
+    float32."""
     return tree_map(lambda _, m: _leaf_init(m, gen, dtype, device), template)
 
 

@@ -1,16 +1,20 @@
-"""The decoder stack of the dense and MoE families.
+"""The decoder stack of the dense, MoE and hybrid families.
 
 The port of the JAX package's ``models/transformer.py``.  Layers are
 organised into groups that repeat down the stack, and each parameter of a
 group is stacked over the groups (the JAX package's scan-over-layers
 layout, so weights carry across one for one).  Group contents:
 
-  dense / vlm / audio : [attn, mlp]                       × num_layers
-  moe (moe_every=g)   : [attn, mlp] × (g−1) + [attn, moe] × (layers / g)
+  dense / vlm / audio  : [attn, mlp]                       × num_layers
+  moe (moe_every=g)    : [attn, mlp] × (g−1) + [attn, moe] × (layers / g)
+  hybrid (attn_every=g): [mamba] × g + shared-attn(+mlp)   × (layers / g)
+                         — one set of attention and MLP parameters,
+                         applied after every group (Zamba2 style), with a
+                         KV cache of its own for each application
 
 Where the JAX package scans over the stacked groups, the port loops in
-Python over layer slices of the stacked tensors.  The hybrid (Zamba2)
-and ssm (xLSTM) families are not ported yet.
+Python over layer slices of the stacked tensors.  The ssm (xLSTM) family
+is not ported yet.
 """
 from __future__ import annotations
 
@@ -24,15 +28,13 @@ from .layers import (FSDP, VOCAB, attention_apply, attention_cache_template,
                      attention_template, mlp_apply, mlp_template,
                      norm_template)
 from .moe import moe_apply, moe_template
+from .ssm import ssm_apply, ssm_state_template, ssm_template
 
 ParamMeta = P.ParamMeta
 
 _NOT_PORTED = {
-    "hybrid": "the hybrid family (Zamba2: models/ssm.py, scan_utils.py and "
-              "the ssm_scan kernel) is ROADMAP.md queue 1 step 13b, the "
-              "next slice",
-    "ssm": "the xLSTM family is ROADMAP.md queue 1 step 13c, after the "
-           "hybrid family",
+    "ssm": "the xLSTM family (models/xlstm.py, scan_utils.py) is "
+           "ROADMAP.md queue 1 step 13c",
 }
 
 
@@ -57,6 +59,9 @@ def group_layout(cfg) -> Tuple[int, List[Tuple[str, str]]]:
             subs.append((f"attn{i}", "attn"))
             subs.append((f"ffn{i}", "moe" if i == g - 1 else "mlp"))
         return cfg.num_layers // g, subs
+    if cfg.family == "hybrid":
+        g = max(1, cfg.attn_every)
+        return cfg.num_layers // g, [(f"mamba{i}", "mamba") for i in range(g)]
     raise ValueError(cfg.family)
 
 
@@ -64,6 +69,7 @@ _SUB_TEMPLATE = {
     "attn": attention_template,
     "mlp": mlp_template,
     "moe": moe_template,
+    "mamba": ssm_template,
 }
 
 
@@ -77,6 +83,9 @@ def stack_template(cfg) -> Dict[str, Any]:
     steps, subs = group_layout(cfg)
     group = {name: _SUB_TEMPLATE[kind](cfg) for name, kind in subs}
     t["layers"] = P.stack(group, steps)
+    if cfg.family == "hybrid":                           # shared block
+        t["shared_attn"] = attention_template(cfg)
+        t["shared_mlp"] = mlp_template(cfg)
     t["final_norm"] = norm_template(cfg)
     if not cfg.tie_embeddings:
         t["lm_head"] = ParamMeta((d, vp), (FSDP, VOCAB))
@@ -88,12 +97,23 @@ def stack_template(cfg) -> Dict[str, Any]:
 # ---------------------------------------------------------------------------
 
 def cache_template(cfg, batch: int, cache_len: int) -> Dict[str, Any]:
-    """Layout of the decode cache (mirrors the layer groups)."""
+    """Layout of the decode cache (mirrors the layer groups): keys and
+    values of each attention sub-layer, the recurrent state {"h", "conv"}
+    of each mamba sub-layer and, for the hybrid family, one KV cache for
+    each application of the shared attention block."""
     steps, subs = group_layout(cfg)
-    group = {name: attention_cache_template(cfg, batch, cache_len)
-             for name, kind in subs if kind == "attn"}
-    return {"layers": P.stack(group, steps),
-            "kpos": ParamMeta((cache_len,), (None,), "zeros")}  # int32 − 1
+    group: Dict[str, Any] = {}
+    for name, kind in subs:
+        if kind == "attn":
+            group[name] = attention_cache_template(cfg, batch, cache_len)
+        elif kind == "mamba":
+            group[name] = ssm_state_template(cfg, batch)
+    t = {"layers": P.stack(group, steps)}
+    if cfg.family == "hybrid":
+        t["shared_attn"] = P.stack(
+            attention_cache_template(cfg, batch, cache_len), steps)
+    t["kpos"] = ParamMeta((cache_len,), (None,), "zeros")       # int32 − 1
+    return t
 
 
 # ---------------------------------------------------------------------------
@@ -113,6 +133,13 @@ def _apply_sub(kind: str, p, x, cfg, ctx):
         return mlp_apply(p, x, cfg), None
     if kind == "moe":
         return moe_apply(p, x, cfg)
+    if kind == "mamba":
+        state = ctx["cache"]
+        x, new = ssm_apply(p, x, cfg, state=state)
+        if state is not None:
+            state["h"].copy_(new["h"])
+            state["conv"].copy_(new["conv"])
+        return x, None
     raise ValueError(kind)
 
 
@@ -127,7 +154,8 @@ def _layer(tree, i: int):
 def apply_stack(cfg, prm, x, *, positions, cache=None, kpos=None, slot=None,
                 window=None):
     """Runs the layer stack.  Returns (x, cache, aux_loss); a given
-    ``cache`` ({"layers": …}) is filled or updated in place."""
+    ``cache`` ({"layers": …}, and "shared_attn" for the hybrid family)
+    is filled or updated in place."""
     steps, subs = group_layout(cfg)
     base_ctx = {"positions": positions, "kpos": kpos, "slot": slot,
                 "window": window}
@@ -142,4 +170,10 @@ def apply_stack(cfg, prm, x, *, positions, cache=None, kpos=None, slot=None,
             x, a = _apply_sub(kind, layer_p[name], x, cfg, ctx)
             if a is not None:
                 aux = aux + a
+        if cfg.family == "hybrid":           # the shared block, cache i
+            ctx = dict(base_ctx)
+            ctx["cache"] = None if cache is None \
+                else _layer(cache["shared_attn"], i)
+            x, _ = _apply_sub("attn", prm["shared_attn"], x, cfg, ctx)
+            x = mlp_apply(prm["shared_mlp"], x, cfg)
     return x, cache, aux

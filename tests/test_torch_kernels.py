@@ -6,7 +6,9 @@ against the Pallas kernels run in interpret mode and against the jnp
 oracles.  Tolerances: rtol = atol = 1e-5 for the Lasso sums and the
 gating probabilities, 2e-5 for f32 attention (f32 sums in a different
 order), 2e-2 for bf16 attention (one bf16 rounding of the output);
-gating indices are equal.
+gating indices are equal.  The selective scan: rtol = 1e-5 and atol =
+1e-5 of the largest value for f32 y and every h (f32 sums in a different
+order over up to 64 steps), 1e-2 for bf16 y (one bf16 rounding).
 
 The tests marked ``gpu`` hold the CUDA kernels against the plain versions
 on the card; they skip where no card is present.  Run them there with
@@ -26,6 +28,7 @@ from repro_torch.kernels import lasso_cd as tlc
 from repro_torch.kernels import moe_gating as tmg
 from repro_torch.kernels import ops as tops
 from repro_torch.kernels import ref as tref
+from repro_torch.kernels import ssm_scan as tss
 
 TOL = dict(rtol=1e-5, atol=1e-5)   # f32 sums in a different order
 
@@ -49,8 +52,10 @@ def jx():
     from repro.kernels import lasso_cd, ref
     from repro.kernels.flash_attention import flash_attention
     from repro.kernels.moe_gating import topk_gating
+    from repro.kernels.ssm_scan import ssm_scan
     return types.SimpleNamespace(jnp=jnp, lc=lasso_cd, ref=ref,
-                                 flash=flash_attention, gating=topk_gating)
+                                 flash=flash_attention, gating=topk_gating,
+                                 scan=ssm_scan)
 
 
 def _jax_per_worker(jx, fn, *arrays):
@@ -240,6 +245,11 @@ def test_cpu_ops_take_the_plain_version_and_launch_nothing():
     for a, b in zip(tops.topk_gating(logits, 2),
                     tref.topk_gating_ref(logits, 2)):
         assert torch.equal(a, b)
+    x, dt, A, Bm, Cm, _ = (None if a is None else torch.from_numpy(a)
+                           for a in _ssm_inputs(1, 6, 8, 16, False))
+    for a, b in zip(tops.ssm_scan(x, dt, A, Bm, Cm),
+                    tref.ssm_scan_ref(x, dt, A, Bm, Cm)):
+        assert torch.equal(a, b)
     assert tops.LAUNCHES == before
     with pytest.raises(ValueError, match="k=5"):
         tref.topk_gating_ref(logits[:, :4], 5)
@@ -252,6 +262,93 @@ def test_kernel_bindings_refuse_cpu_tensors():
         tfa.flash_attention(q, q[:, :1], q[:, :1])
     with pytest.raises(ValueError, match="CUDA"):
         tmg.topk_gating(torch.zeros(4, 16), 2)
+    x, bm = torch.zeros(1, 3, 8), torch.zeros(1, 3, 4)
+    with pytest.raises(ValueError, match="CUDA"):
+        tss.ssm_scan(x, x, torch.zeros(8), bm, bm)
+
+
+# ---------------------------------------------------------------------------
+# The selective scan, plain version on the CPU
+# ---------------------------------------------------------------------------
+
+# B, S, C, N, h0 given, dtype, the Pallas kernel's chunk: S ragged against
+# the chunk, S below it, h0 given and None, N = 16 (reduced) and 64
+# (Zamba2-2.7B), C not a multiple of the CUDA kernel's 64-channel block
+SSM_CASES = [
+    (2, 37, 24, 16, True, "float32", 16),
+    (1, 64, 40, 64, False, "float32", 64),
+    (2, 5, 8, 16, False, "float32", 64),
+    (3, 50, 33, 64, True, "float32", 16),
+    (1, 1, 16, 16, True, "float32", 64),
+    (2, 40, 16, 16, True, "bfloat16", 16),
+    (1, 64, 24, 64, False, "bfloat16", 32),
+]
+
+
+def _ssm_inputs(B, S, C, N, with_h0, seed=0):
+    """x, Bm, Cm, h0 standard normal; dt = softplus(N(0,1) − 1) > 0;
+    A = −exp(U(−1, 1)) < 0, as the model makes them."""
+    r = np.random.default_rng(seed)
+    x = r.standard_normal((B, S, C)).astype(np.float32)
+    dt = np.log1p(np.exp(r.standard_normal((B, S, C)) - 1)).astype(
+        np.float32)
+    A = -np.exp(r.uniform(-1, 1, C)).astype(np.float32)
+    Bm = r.standard_normal((B, S, N)).astype(np.float32)
+    Cm = r.standard_normal((B, S, N)).astype(np.float32)
+    h0 = r.standard_normal((B, C, N)).astype(np.float32) if with_h0 \
+        else None
+    return x, dt, A, Bm, Cm, h0
+
+
+def _close(got, want, rtol, atol_frac):
+    want = np.asarray(want, np.float32)
+    np.testing.assert_allclose(np.asarray(got, np.float32), want, rtol=rtol,
+                               atol=atol_frac * max(1.0, np.abs(want).max()))
+
+
+@pytest.mark.parametrize("case", SSM_CASES)
+def test_ssm_scan_plain_matches_jax(jx, case):
+    B, S, C, N, with_h0, dtype, chunk = case
+    x, dt, A, Bm, Cm, h0 = _ssm_inputs(B, S, C, N, with_h0)
+    tdt = getattr(torch, dtype)
+    seq = [torch.from_numpy(a).to(tdt) for a in (x, dt, Bm, Cm)]
+    th0 = None if h0 is None else torch.from_numpy(h0)
+    y, h = tops.ssm_scan(seq[0], seq[1], torch.from_numpy(A), seq[2],
+                         seq[3], th0)
+    assert y.shape == (B, S, C) and y.dtype == tdt
+    assert h.shape == (B, C, N) and h.dtype == torch.float32
+    # the JAX package gets the same values in the same type
+    jseq = [jx.jnp.asarray(t.float().numpy(), getattr(jx.jnp, dtype))
+            for t in seq]
+    jh0 = None if h0 is None else jx.jnp.asarray(h0)
+    yp, hp = jx.scan(jseq[0], jseq[1], jx.jnp.asarray(A), jseq[2], jseq[3],
+                     jh0, chunk=chunk, interpret=True)
+    yo, ho = jx.ref.ssm_scan_ref(jseq[0], jseq[1], jx.jnp.asarray(A),
+                                 jseq[2], jseq[3], jh0)
+    ytol = 1e-5 if dtype == "float32" else 1e-2
+    for want_y, want_h in ((yp, hp), (yo, ho)):
+        _close(y.float().numpy(), np.asarray(want_y, np.float32), ytol,
+               ytol)
+        _close(h.numpy(), want_h, 1e-5, 1e-5)
+
+
+def test_ssm_scan_plain_keeps_h0_and_takes_zeros_for_none():
+    x, dt, A, Bm, Cm, h0 = (None if a is None else torch.from_numpy(a)
+                            for a in _ssm_inputs(2, 9, 12, 16, True, seed=1))
+    y0, h_none = tops.ssm_scan(x, dt, A, Bm, Cm)
+    y1, h_zero = tops.ssm_scan(x, dt, A, Bm, Cm, torch.zeros_like(h0))
+    assert torch.equal(y0, y1) and torch.equal(h_none, h_zero)
+    h0_before = h0.clone()
+    # two halves carried through h equal one call over the whole sequence
+    ya, ha = tops.ssm_scan(x[:, :4], dt[:, :4], A, Bm[:, :4], Cm[:, :4], h0)
+    yb, hb = tops.ssm_scan(x[:, 4:], dt[:, 4:], A, Bm[:, 4:], Cm[:, 4:], ha)
+    y, h = tops.ssm_scan(x, dt, A, Bm, Cm, h0)
+    torch.testing.assert_close(torch.cat([ya, yb], 1), y, rtol=1e-6,
+                               atol=1e-6)
+    torch.testing.assert_close(hb, h, rtol=1e-6, atol=1e-6)
+    assert torch.equal(h0, h0_before)                  # not written
+    ye, he = tops.ssm_scan(x[:, :0], dt[:, :0], A, Bm[:, :0], Cm[:, :0], h0)
+    assert ye.shape == (2, 0, 12) and torch.equal(he, h0)
 
 
 # ---------------------------------------------------------------------------
@@ -389,3 +486,72 @@ def test_model_kernels_reject_what_they_do_not_take(cuda):
                                      dtype=torch.bfloat16), 2)
     with pytest.raises(ValueError, match="experts"):
         tops.topk_gating(torch.zeros((4, 200), device=cuda), 2)
+
+
+def _cuda_ssm(cuda, B, S, C, N, with_h0, dtype, seed=9, strided=False):
+    """The scan's inputs on the card; ``strided`` cuts x, Bm, Cm out of one
+    wider (B, S, C + 2N) tensor, as the model's conv output gives them."""
+    x, dt, A, Bm, Cm, h0 = _ssm_inputs(B, S, C, N, with_h0, seed=seed)
+    if strided:
+        xc = torch.from_numpy(np.concatenate([x, Bm, Cm], -1)).to(cuda,
+                                                                  dtype)
+        x_, Bm_, Cm_ = xc[..., :C], xc[..., C:C + N], xc[..., C + N:]
+    else:
+        x_, Bm_, Cm_ = (torch.from_numpy(a).to(cuda, dtype)
+                        for a in (x, Bm, Cm))
+    return (x_, torch.from_numpy(dt).to(cuda, dtype),
+            torch.from_numpy(A).to(cuda), Bm_, Cm_,
+            None if h0 is None else torch.from_numpy(h0).to(cuda))
+
+
+# the main path's prefill (4, 1000, 5120, 64, bf16, h0 zeros) at batch 1,
+# then S = 1, 25, 200 and 1,000; N = 16 and 64 (and 20 and 33, between the
+# kernel's register buckets); C not a multiple of the 64-channel block;
+# h0 given and None; strided views
+GPU_SSM_CASES = SSM_CASES + [
+    (1, 1000, 5120, 64, True, "bfloat16", 0),
+    (2, 1, 100, 64, True, "float32", 0),
+    (2, 25, 130, 16, False, "bfloat16", 0),
+    (3, 200, 257, 64, True, "float32", 0),
+    (1, 1000, 96, 16, False, "float32", 0),
+    (2, 77, 70, 20, True, "bfloat16", 0),
+    (1, 33, 64, 33, False, "float32", 0),
+]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("strided", [False, True])
+@pytest.mark.parametrize("case", GPU_SSM_CASES)
+def test_ssm_scan_kernel_matches_plain_on_card(cuda, case, strided):
+    B, S, C, N, with_h0, dtype, _ = case
+    args = _cuda_ssm(cuda, B, S, C, N, with_h0, getattr(torch, dtype),
+                     strided=strided)
+    before = tops.LAUNCHES["ssm_scan"]
+    y, h = tops.ssm_scan(*args)
+    y2, h2 = tops.ssm_scan(*args)
+    torch.cuda.synchronize()
+    assert tops.LAUNCHES["ssm_scan"] == before + 2
+    assert torch.equal(y, y2) and torch.equal(h, h2)   # same bits
+    yr, hr = tref.ssm_scan_ref(*args)
+    assert y.dtype == yr.dtype and h.dtype == torch.float32
+    tol = 1e-4 if dtype == "float32" else 1e-2
+    for got, want, t in ((y, yr, tol), (h, hr, 1e-4)):
+        err = (got.float() - want.float()).abs().max().item()
+        assert err <= t * max(1.0, want.float().abs().max().item()), err
+
+
+@pytest.mark.gpu
+def test_ssm_scan_kernel_rejects_what_it_does_not_take(cuda):
+    x, dt, A, Bm, Cm, h0 = _cuda_ssm(cuda, 1, 8, 16, 16, True,
+                                     torch.float32)
+    with pytest.raises(TypeError, match="one dtype"):
+        tops.ssm_scan(x, dt.bfloat16(), A, Bm, Cm, h0)
+    with pytest.raises(TypeError, match="float32"):
+        tops.ssm_scan(x, dt, A.bfloat16(), Bm, Cm, h0)
+    with pytest.raises(ValueError, match="at most 64"):
+        big = torch.zeros((1, 8, 65), device=cuda)
+        tops.ssm_scan(x, dt, A, big, big)
+    with pytest.raises(ValueError, match="stride"):
+        tops.ssm_scan(x.mT.contiguous().mT, dt, A, Bm, Cm, h0)
+    with pytest.raises(ValueError, match="one card"):
+        tops.ssm_scan(x, dt, A.cpu(), Bm, Cm, h0)
