@@ -46,7 +46,8 @@
    decode step in which every launch of ``ssm_scan`` and
    ``flash_attention`` is held against its plain version on the same
    inputs; then ``ssm_scan`` timed at layer 0's real inputs and checked
-   at ragged shapes; then the main path (``Server.generate``) with the
+   at ragged shapes, and ``flash_attention`` timed at the shared block's
+   first real inputs (head dim 80), with SDPA beside it; then the main path (``Server.generate``) with the
    counts set to 0 just before and read just after (54 ``ssm_scan``, 9
    ``flash_attention``: the prefill's; decode runs neither); the same
    prefill and first decode step with the plain versions (printed, not
@@ -378,37 +379,29 @@ def attention_f64(torch, ref):
 
 
 def attention_bound(torch, ref, q, k, causal, window) -> tuple[float, str]:
-    """Least time for one attention call: QKᵀ on the tensor cores for
-    bf16 inputs (the FP32 cores for f32), PV with f32 probabilities on the
-    FP32 cores, over the (query, key) pairs the mask lets through."""
+    """Least time for one attention call: both products (QKᵀ and PV,
+    2·B·Hq·D operations a visible (query, key) pair each) at the tensor
+    cores' bf16 rate for bf16 inputs, at the FP32 rate for f32 inputs,
+    over the pairs the mask lets through; or q, k, v read and the output
+    written once, if that takes longer."""
     B, Sq, Hq, D = q.shape
     Skv, Hkv = k.shape[1], k.shape[2]
     pairs = int(ref.attention_mask(Sq, Skv, Skv - Sq, causal,
                                    window).sum())
-    half = 2.0 * B * Hq * D * pairs
-    qk_rate = PEAK_BF16_FLOPS if q.dtype == torch.bfloat16 else \
-        PEAK_F32_FLOPS
-    t_ops = half / qk_rate + half / PEAK_F32_FLOPS
+    rate = PEAK_BF16_FLOPS if q.dtype == torch.bfloat16 else PEAK_F32_FLOPS
+    t_ops = 4.0 * B * Hq * D * pairs / rate
     nbytes = q.element_size() * (2 * B * Sq * Hq * D + 2 * B * Skv * Hkv * D)
     t_bytes = nbytes / PEAK_BYTES_PER_S
     return max(t_ops, t_bytes) * 1e3, ("bytes" if t_bytes >= t_ops
                                        else "operations")
 
 
-def serve_kernel_phase(torch, ops, ref, first, seed: int):
-    """Both kernels against their plain versions at layer 0's shapes (its
-    real inputs) and at ragged ones, timed, with SDPA beside attention."""
+def attention_timing(torch, ops, ref, q, k, v, kw) -> dict:
+    """``flash_attention`` at one call's real inputs: two launches give the
+    same bits and agree with the plain version within ATTN_TOL; the
+    kernel, the plain version and SDPA timed, and the bound."""
     import torch.nn.functional as F
-    gen = torch.Generator().manual_seed(seed + 2)
-
-    def rnd(*shape, dtype=torch.bfloat16):
-        return torch.randn(shape, generator=gen).to(DEVICE, dtype)
-
-    q, k, v, kw = first["attention"]
     tq = lambda x: x.transpose(1, 2)
-    out = {}
-
-    # flash_attention
     got = ops.attention(q, k, v, **kw)
     want = ref.attention_ref(q, k, v, **kw)
     torch.cuda.synchronize()
@@ -416,15 +409,47 @@ def serve_kernel_phase(torch, ops, ref, first, seed: int):
           "flash_attention: two launches differ")
     err, rel = rel_err(torch, got, want)
     check(rel <= ATTN_TOL, f"flash_attention: error {rel} of the largest "
-                           f"value > {ATTN_TOL} at layer 0's shapes")
+                           f"value > {ATTN_TOL} at shapes {tuple(q.shape)}")
+    check(kw["causal"] and kw["window"] is None,
+          f"flash_attention: SDPA's yardstick here is causal, no window; "
+          f"the call has {kw}")
     library = lambda: F.scaled_dot_product_attention(
         tq(q), tq(k), tq(v), is_causal=True, enable_gqa=True)
     lib_err, _ = rel_err(torch, tq(library()), want)
+    ms = time_ms(torch, lambda: ops.attention(q, k, v, **kw), iters=50)
+    plain_ms = time_ms(torch, lambda: ref.attention_ref(q, k, v, **kw),
+                       iters=20)
+    library_ms = time_ms(torch, library, iters=50)
+    ms_again = time_ms(torch, lambda: ops.attention(q, k, v, **kw),
+                       iters=50)
+    bms, by = attention_bound(torch, ref, q, k, kw["causal"], kw["window"])
+    return {
+        "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+        "bound_ms": bms, "bound_by": by, "library_ms": library_ms,
+        "max_rel_err": rel, "ms_repeat": ms_again, "bound_share": bms / ms,
+        "library_max_abs_err_vs_plain": lib_err,
+        "shape": {"q": list(q.shape), "k": list(k.shape),
+                  "dtype": str(q.dtype)}}
+
+
+def serve_kernel_phase(torch, ops, ref, first, seed: int):
+    """Both kernels against their plain versions at layer 0's shapes (its
+    real inputs) and at ragged ones, timed, with SDPA beside attention."""
+    gen = torch.Generator().manual_seed(seed + 2)
+
+    def rnd(*shape, dtype=torch.bfloat16):
+        return torch.randn(shape, generator=gen).to(DEVICE, dtype)
+
+    q, k, v, kw = first["attention"]
+    out = {}
+
+    # flash_attention
     ragged = {}
     for case in [(2, 200, 333, 8, 2, 64, True, 50),
                  (1, 65, 300, 4, 1, 128, False, None),
                  (3, 100, 100, 8, 2, 80, True, 7),
-                 (1, 40, 20, 4, 4, 128, True, None)]:
+                 (1, 40, 20, 4, 4, 128, True, None),
+                 (2, 300, 170, 4, 2, 64, True, 5)]:
         B, Sq, Skv, Hq, Hkv, D, causal, window = case
         for dtype, tol in ((torch.bfloat16, ATTN_TOL),
                            (torch.float32, ATTN_TOL_F32)):
@@ -438,25 +463,15 @@ def serve_kernel_phase(torch, ops, ref, first, seed: int):
             check(r <= tol, f"flash_attention: error {r} > {tol} at "
                             f"{case} {dtype}")
             ragged[f"{case} {str(dtype)[6:]}"] = e
-    ms = time_ms(torch, lambda: ops.attention(q, k, v, **kw), iters=50)
-    plain_ms = time_ms(torch, lambda: ref.attention_ref(q, k, v, **kw),
-                       iters=20)
-    library_ms = time_ms(torch, library, iters=50)
-    ms_again = time_ms(torch, lambda: ops.attention(q, k, v, **kw),
-                       iters=50)
-    bms, by = attention_bound(torch, ref, q, k, kw["causal"], kw["window"])
+    phi = attention_timing(torch, ops, ref, q, k, v, kw)
     out["flash_attention"] = {
-        "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-        "bound_ms": bms, "bound_by": by, "library_ms": library_ms,
+        **phi,
         "tolerance": f"{ATTN_TOL} of max(1, max|plain|) (bf16), "
                      f"{ATTN_TOL_F32} (f32)",
-        "max_rel_err": rel, "ragged_max_abs_err": ragged,
+        "ragged_max_abs_err": ragged,
         "library": "F.scaled_dot_product_attention(is_causal=True, "
                    "enable_gqa=True)",
-        "library_max_abs_err_vs_plain": lib_err, "ms_repeat": ms_again,
-        "bound_share": bms / ms, "shape": {"q": list(q.shape),
-                                           "k": list(k.shape),
-                                           "dtype": str(q.dtype)}}
+        "by_shape": {ARCH: phi}}
 
     # topk_gating
     logits, kk = first[("gating", BATCH * PROMPT)]
@@ -854,7 +869,10 @@ def zamba_phase(torch, ops, ref, M, serve_lm, layers: int, seed: int):
         res["every_launch_vs_plain"] = stats
         print("zamba2: every launch of a prefill and a decode step vs its "
               "plain version: " + json.dumps(stats))
-        del afirst
+        q, k, v, kw = afirst["attention"]
+        res["flash_attention_layer0"] = attention_timing(torch, ops, ref, q,
+                                                         k, v, kw)
+        del afirst, q, k, v
         kern = ssm_kernel_phase(torch, ops, ref, sfirst, seed)
         del sfirst
 
@@ -1209,6 +1227,13 @@ def main() -> int:
                   f"{row['name'][:90]}")
     skern["flash_attention"]["launches_zamba2"] = \
         zamba["launches"]["flash_attention"]
+    skern["flash_attention"]["by_shape"][ZAMBA] = \
+        zamba.pop("flash_attention_layer0")
+    print("flash_attention at layer 0's inputs: " + json.dumps(
+        {name: {k: e[k] for k in ("shape", "ms", "ms_repeat", "plain_ms",
+                                  "library_ms", "bound_ms", "bound_by",
+                                  "bound_share", "max_rel_err")}
+         for name, e in skern["flash_attention"]["by_shape"].items()}))
 
     # 7. Zamba2 in f32, 12 layers: kernels vs plain, token for token
     zparity = zamba_parity_phase(torch, ops, ref, M, get_config, tdata,

@@ -9,76 +9,121 @@
 //   * q the suffix of the kv timeline: query row i sits at absolute
 //     position i + (Skv - Sq), so prefill and decode-shaped calls mask
 //     alike; causal sees j <= pos, a window sees pos - j < window;
-//   * f32 math on bf16 or f32 inputs, the output in the input type;
+//   * f32 softmax on bf16 or f32 inputs, the output in the input type;
 //   * a row that sees no key writes 0 (the TPU kernel's lsum == 0 guard).
 //
-// Bound: at the prefill shapes (Sq = Skv = 1024, D = 128, causal) the
-// function needs 4*B*Hq*D*Sq(Sq+1)/2 operations on 2*(B*Hq + 2*B*Hkv)*S*D
-// bytes, far above the card's ridge: it is bound by operations.  This
-// first kernel keeps both products on the FP32 cores (f32 math, as the
-// plain version), so its bound here is the FP32 rate, not the tensor
-// cores'.
+// Two kernels, picked by dtype in flash_attention_launch:
 //
-// Design: one block of 256 threads per (q tile of 64 rows, query head,
-// batch); the TPU's sequential kv grid axis becomes a loop inside the
-// block.  The block converts its Q tile to f32 (pre-scaled) in shared
-// memory once, then streams 64-key K and V tiles through shared memory.
-// Thread (ty, tx) owns 4 query rows (4ty..4ty+3) and, of the 64x64 score
-// tile, the 4 columns tx + 16j; the 16 threads of a row group reduce the
-// row max and sum by warp shuffles and keep the running (m, l) of their
-// rows in registers, and each accumulates its 4 rows of the output in the
-// columns tx + 16j.  Shared rows are padded by one float so the column
-// reads of K hit 16 different banks; at D = 128 a block takes 113 KB, so
-// two blocks share an SM.  Tiles wholly outside the causal /
-// window mask are never loaded: the loop runs over the visible kv tiles
-// only, and blocks start with the heaviest (last) q tiles.  No atomics:
-// two launches give the same bits.
+// bf16: flash_fwd_bf16, on the tensor cores.  Bound: at the prefill shapes
+// (Sq = Skv = 1024, D = 128, causal) the function needs 4*B*Hq*D*pairs
+// operations on 2*(B*Hq + 2*B*Hkv)*S*D bytes, ~700 operations a byte: far
+// above the card's ridge, so it is bound by the bf16 tensor-core rate for
+// both products, with the softmax's exponentials (one per visible pair, on
+// the special-function units) a second floor at about half of it.  (At
+// D = 80 with Hq = Hkv the bytes weigh a little more than the products.)
+// Route: mma.sync.m16n8k16 (bf16 in, f32 accumulate) in FlashAttention-2's
+// register layout, not wgmma.  A wgmma version (QK^T from shared memory,
+// PV with P from registers, no-swizzle core-matrix tiles, also software
+// pipelined) passed every check on the card but ran slower: with cp.async
+// loads into one or two 64-row warpgroups a block its K/V tiles, not its
+// products, set the pace.  Beating this kernel with wgmma takes TMA loads
+// from a producer warp into a deeper ring and swizzled tiles.
+// Design:
+//   * one block of 4 warps per (q tile, query head, batch row), flattened
+//     into a 1-D grid with the q tile slowest and heaviest first, so every
+//     head's longest causal tiles start before any short one; the heads of
+//     one GQA group are neighbours and share K/V tiles in L2;
+//   * each warp owns 16 * MT query rows (MT = 2 for D <= 128: a K or V
+//     fragment read from shared memory feeds two products);
+//   * the Q tile and a ring of two K and two V stages of 64 keys live in
+//     shared memory, rows padded by 16 bytes so ldmatrix reads hit 32
+//     distinct banks; K/V tile j+1 arrives by cp.async (16 bytes a thread)
+//     while tile j is computed, one barrier a tile;
+//   * S = Q K^T: Q by ldmatrix, K by ldmatrix (its rows are contiguous
+//     along D, the B operand's layout), f32 accumulators;
+//   * softmax in f32 registers: the scores are scaled by scale * log2(e)
+//     after the product (Q is not rounded again), the row max is taken
+//     across the 4 threads of a quad, p = 2^(s - m) by ex2.approx; the
+//     running max (and the rescale of O) moves only when a row's max rises
+//     by more than 2^8, which keeps p below 2^8 and the result exact; p is
+//     rounded to bf16 only as the A operand of P V, repacked from the S
+//     accumulators in registers without shared memory;
+//   * O += P V: V by ldmatrix.trans; O in f32 registers;
+//   * masks are built only on tiles that cut the causal diagonal, the
+//     window's edge or the end of the keys; there a masked score is set to
+//     a finite sentinel and its p is set to 0 explicitly, so a row that
+//     sees no key of a loaded tile adds nothing; a warp whose rows see no
+//     key of a tile skips it;
+//   * head dims in buckets of DP in {64, 80, 96, 128, 256}: a D that is
+//     not DP is zero-filled to DP in shared memory, never read past D;
+//   * the output goes through the warp's own Q rows in shared memory and
+//     out in 16-byte stores;
+//   * a view whose base or (batch, head, row) strides are not 16-byte
+//     aligned, or D % 8 != 0, takes 2-byte loads and stores inside the same
+//     kernel (a uniform branch), so the wrapper makes no copy.
 //
-// Built by nvcc for sm_90a into a shared library with a plain C interface
-// (repro_torch/kernels/_build.py); the entry point returns
+// f32: flash_fwd_f32, for f32 inputs, on the FP32 cores (f32 parity runs
+// hold it to 1e-4; TF32 would not meet that).  One block of 256
+// threads per (q tile of 64 rows, head, batch); the Q tile (pre-scaled) and
+// 64-key K and V tiles in f32 shared memory; thread (ty, tx) owns 4 rows
+// and the columns tx + 16j of the 64x64 score tile; only visible kv tiles
+// are loaded, heaviest q tiles first.
+//
+// Neither kernel uses atomics or splits the keys: two launches give the
+// same bits.  Built by nvcc for sm_90a into a shared library with a plain C
+// interface (repro_torch/kernels/_build.py); the entry point returns
 // cudaGetLastError() so the Python wrapper raises on a refused launch.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
+#include <climits>
+#include <cstdint>
+
 namespace {
 
-constexpr int kThreads = 256;
-constexpr int kBQ = 64;        // query rows per block
-constexpr int kBK = 64;        // keys per streamed tile
 constexpr float kNegInf = -1e30f;
-
-__device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
-template <typename T> __device__ __forceinline__ T from_f32(float x);
-template <> __device__ __forceinline__ float from_f32<float>(float x) {
-  return x;
-}
-template <> __device__ __forceinline__ __nv_bfloat16
-from_f32<__nv_bfloat16>(float x) {
-  return __float2bfloat16(x);
-}
+constexpr int kBK = 64;        // keys per streamed tile (both kernels)
 
 struct Strides {            // in elements; the head_dim stride is 1
   long long b, h, s;
 };
 
-static_assert(kBQ == kBK, "load_tile moves 64-row tiles of Q, K and V");
+// The visible kv tiles [begin, end) of the query rows whose absolute
+// positions are q_lo..q_hi.
+__device__ __forceinline__ void visible_tiles(int q_lo, int q_hi, int Skv,
+                                              int causal, int window,
+                                              int& begin, int& end) {
+  const int nkt = (Skv + kBK - 1) / kBK;
+  end = nkt;
+  if (causal) end = q_hi < 0 ? 0 : min(nkt, q_hi / kBK + 1);
+  begin = 0;
+  if (window > 0) {
+    const int lo = q_lo - window + 1;          // first key row q_lo sees
+    if (lo > 0) begin = lo / kBK;
+  }
+}
+
+// ---------------------------------------------------------------------------
+// f32 inputs: the FP32-core kernel
+// ---------------------------------------------------------------------------
+
+constexpr int kThreadsF32 = 256;
+constexpr int kBQF32 = 64;     // query rows per block
 
 // Load rows [row0, row0 + 64) of one (b, h) slice into an f32 tile with
 // rows of LD floats; rows past `rows` and columns past D are zero.
-template <typename T, int DP, int LD>
-__device__ __forceinline__ void load_tile(float* dst, const T* __restrict__ src,
-                                          Strides st, int row0, int rows,
-                                          int D, float mul) {
-  for (int idx = threadIdx.x; idx < kBK * DP; idx += kThreads) {
+template <int DP, int LD>
+__device__ __forceinline__ void load_tile_f32(float* dst,
+                                              const float* __restrict__ src,
+                                              Strides st, int row0, int rows,
+                                              int D, float mul) {
+  for (int idx = threadIdx.x; idx < kBK * DP; idx += kThreadsF32) {
     const int r = idx / DP;
     const int c = idx % DP;
     const int row = row0 + r;
     float x = 0.f;
-    if (row < rows && c < D) x = to_f32(src[(long long)row * st.s + c]) * mul;
+    if (row < rows && c < D) x = src[(long long)row * st.s + c] * mul;
     dst[r * LD + c] = x;
   }
 }
@@ -86,22 +131,22 @@ __device__ __forceinline__ void load_tile(float* dst, const T* __restrict__ src,
 // Shared memory of one block, in floats: Q and K rows padded by one float
 // (their columns are read across threads), V and P rows read along.
 template <int DP>
-constexpr int smem_floats() {
-  return (kBQ + kBK) * (DP + 1) + kBK * DP + kBQ * (kBK + 1);
+constexpr int smem_floats_f32() {
+  return (kBQF32 + kBK) * (DP + 1) + kBK * DP + kBQF32 * (kBK + 1);
 }
 
-template <typename T, int DP>
-__global__ void __launch_bounds__(kThreads)
-flash_fwd(const T* __restrict__ q, const T* __restrict__ k,
-          const T* __restrict__ v, T* __restrict__ o, Strides qs, Strides ks,
-          Strides vs, Strides os, int G, int Sq, int Skv, int D, int causal,
-          int window, float scale) {
+template <int DP>
+__global__ void __launch_bounds__(kThreadsF32)
+flash_fwd_f32(const float* __restrict__ q, const float* __restrict__ k,
+              const float* __restrict__ v, float* __restrict__ o, Strides qs,
+              Strides ks, Strides vs, Strides os, int G, int Sq, int Skv,
+              int D, int causal, int window, float scale) {
   constexpr int NJ = DP / 16;                  // output columns per thread
   extern __shared__ float smem[];
-  float* Qs = smem;                            // [kBQ][DP + 1]
-  float* Ks = Qs + kBQ * (DP + 1);             // [kBK][DP + 1]
+  float* Qs = smem;                            // [kBQF32][DP + 1]
+  float* Ks = Qs + kBQF32 * (DP + 1);          // [kBK][DP + 1]
   float* Vs = Ks + kBK * (DP + 1);             // [kBK][DP]
-  float* Ps = Vs + kBK * DP;                   // [kBQ][kBK + 1]
+  float* Ps = Vs + kBK * DP;                   // [kBQF32][kBK + 1]
 
   const int qt = gridDim.x - 1 - blockIdx.x;   // heaviest tiles first
   const int h = blockIdx.y;
@@ -109,25 +154,17 @@ flash_fwd(const T* __restrict__ q, const T* __restrict__ k,
   const int hk = h / G;
   const int tx = threadIdx.x & 15;
   const int ty = threadIdx.x >> 4;
-  const int q0 = qt * kBQ;
+  const int q0 = qt * kBQF32;
   const int offs = Skv - Sq;
 
-  const T* qb = q + b * qs.b + h * qs.h;
-  const T* kb = k + b * ks.b + hk * ks.h;
-  const T* vb = v + b * vs.b + hk * vs.h;
-  load_tile<T, DP, DP + 1>(Qs, qb, qs, q0, Sq, D, scale);
+  const float* qb = q + b * qs.b + h * qs.h;
+  const float* kb = k + b * ks.b + hk * ks.h;
+  const float* vb = v + b * vs.b + hk * vs.h;
+  load_tile_f32<DP, DP + 1>(Qs, qb, qs, q0, Sq, D, scale);
 
-  // the kv tiles any row of this q tile sees
-  const int q_lo = q0 + offs;                  // absolute position, row 0
-  const int q_hi = q_lo + kBQ - 1;
-  const int nkt = (Skv + kBK - 1) / kBK;
-  int kt_end = nkt;
-  if (causal) kt_end = q_hi < 0 ? 0 : min(nkt, q_hi / kBK + 1);
-  int kt_begin = 0;
-  if (window > 0) {
-    const int lo = q_lo - window + 1;          // first key row 0 sees
-    if (lo > 0) kt_begin = lo / kBK;
-  }
+  int kt_begin, kt_end;
+  visible_tiles(q0 + offs, q0 + offs + kBQF32 - 1, Skv, causal, window,
+                kt_begin, kt_end);
 
   float m[4], l[4], acc[4][NJ];
 #pragma unroll
@@ -141,8 +178,8 @@ flash_fwd(const T* __restrict__ q, const T* __restrict__ k,
   for (int kt = kt_begin; kt < kt_end; ++kt) {
     const int k0 = kt * kBK;
     __syncthreads();                           // previous tile consumed
-    load_tile<T, DP, DP + 1>(Ks, kb, ks, k0, Skv, D, 1.f);
-    load_tile<T, DP, DP>(Vs, vb, vs, k0, Skv, D, 1.f);
+    load_tile_f32<DP, DP + 1>(Ks, kb, ks, k0, Skv, D, 1.f);
+    load_tile_f32<DP, DP>(Vs, vb, vs, k0, Skv, D, 1.f);
     __syncthreads();
 
     float s[4][4];
@@ -212,7 +249,7 @@ flash_fwd(const T* __restrict__ q, const T* __restrict__ k,
     }
   }
 
-  T* ob = o + b * os.b + h * os.h;
+  float* ob = o + b * os.b + h * os.h;
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
     const int row = q0 + 4 * ty + i;
@@ -221,44 +258,488 @@ flash_fwd(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
     for (int j = 0; j < NJ; ++j) {
       const int c = tx + 16 * j;
-      if (c < D) ob[(long long)row * os.s + c] = from_f32<T>(acc[i][j] * inv);
+      if (c < D) ob[(long long)row * os.s + c] = acc[i][j] * inv;
     }
   }
 }
 
-template <typename T, int DP>
-cudaError_t launch(const void* q, const void* k, const void* v, void* o,
-                   int B, int Hq, int Hkv, int Sq, int Skv, int D,
-                   const long long* st, int causal, int window, float scale,
-                   cudaStream_t stream) {
-  const size_t smem = sizeof(float) * smem_floats<DP>();
+template <int DP>
+cudaError_t launch_f32(const void* q, const void* k, const void* v, void* o,
+                       int B, int Hq, int Hkv, int Sq, int Skv, int D,
+                       const long long* st, int causal, int window,
+                       float scale, cudaStream_t stream) {
+  const size_t smem = sizeof(float) * smem_floats_f32<DP>();
   cudaError_t err = cudaFuncSetAttribute(
-      flash_fwd<T, DP>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      flash_fwd_f32<DP>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)smem);
   if (err != cudaSuccess) return err;
-  const dim3 grid((Sq + kBQ - 1) / kBQ, Hq, B);
-  flash_fwd<T, DP><<<grid, kThreads, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<T*>(o),
+  const dim3 grid((Sq + kBQF32 - 1) / kBQF32, Hq, B);
+  flash_fwd_f32<DP><<<grid, kThreadsF32, smem, stream>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k),
+      static_cast<const float*>(v), static_cast<float*>(o),
       Strides{st[0], st[1], st[2]}, Strides{st[3], st[4], st[5]},
       Strides{st[6], st[7], st[8]}, Strides{st[9], st[10], st[11]},
       Hq / Hkv, Sq, Skv, D, causal, window, scale);
   return cudaGetLastError();
 }
 
-template <typename T>
-cudaError_t dispatch_d(const void* q, const void* k, const void* v, void* o,
-                       int B, int Hq, int Hkv, int Sq, int Skv, int D,
-                       const long long* st, int causal, int window,
-                       float scale, cudaStream_t stream) {
+cudaError_t dispatch_f32(const void* q, const void* k, const void* v,
+                         void* o, int B, int Hq, int Hkv, int Sq, int Skv,
+                         int D, const long long* st, int causal, int window,
+                         float scale, cudaStream_t stream) {
   if (D <= 64)
-    return launch<T, 64>(q, k, v, o, B, Hq, Hkv, Sq, Skv, D, st, causal,
-                         window, scale, stream);
-  if (D <= 128)
-    return launch<T, 128>(q, k, v, o, B, Hq, Hkv, Sq, Skv, D, st, causal,
+    return launch_f32<64>(q, k, v, o, B, Hq, Hkv, Sq, Skv, D, st, causal,
                           window, scale, stream);
-  return launch<T, 256>(q, k, v, o, B, Hq, Hkv, Sq, Skv, D, st, causal,
-                        window, scale, stream);
+  if (D <= 128)
+    return launch_f32<128>(q, k, v, o, B, Hq, Hkv, Sq, Skv, D, st, causal,
+                           window, scale, stream);
+  return launch_f32<256>(q, k, v, o, B, Hq, Hkv, Sq, Skv, D, st, causal,
+                         window, scale, stream);
+}
+
+// ---------------------------------------------------------------------------
+// bf16 inputs: the tensor-core kernel
+// ---------------------------------------------------------------------------
+
+using bf16 = __nv_bfloat16;
+constexpr int kWarps = 4;
+constexpr int kThreads = 32 * kWarps;
+
+// A row keeps its running max m until a tile raises it by more than this
+// (in log2 units): p = 2^(s - m) then stays below 2^8, which f32 sums and
+// bf16 operands hold as exactly as values below 1, and the output's
+// rescale by 2^(m_old - m_new) runs only on the tiles that raise it.
+constexpr float kRescaleLog2 = 8.f;
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void cp_async_16(uint32_t dst, const void* src) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(dst),
+               "l"(src)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+}
+
+// Four 8x8 b16 matrices; lane l gives the row address of matrix l / 8, row
+// l % 8, and receives of matrix i (in r[i]) row l / 4, columns 2(l % 4)
+// and 2(l % 4) + 1 (.trans: column l / 4, rows 2(l % 4) and 2(l % 4) + 1).
+__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], uint32_t addr) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(addr));
+}
+
+__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4],
+                                                  uint32_t addr) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
+      "[%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(addr));
+}
+
+// c (16x8 f32) += a (16x16 bf16, row) * b (16x8 bf16, col).  With g = lane
+// / 4 and t = lane % 4: a = {(g, 2t..), (g+8, 2t..), (g, 2t+8..),
+// (g+8, 2t+8..)}, b = {(k 2t.., n g), (k 2t+8.., n g)}, c = {(g, 2t),
+// (g, 2t+1), (g+8, 2t), (g+8, 2t+1)}.
+__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4],
+                                         uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  const __nv_bfloat162 x = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&x);
+}
+
+// 2^x in one special-function instruction (results below 2^-126 are 0).
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// Rows [row0, row0 + ROWS) of one (b, h) slice, columns [0, DP), into
+// shared rows of LDS elements; rows past `rows` and columns past D are
+// zero.  vec: row addresses are 16-byte aligned and D % 8 == 0, so 16-byte
+// chunks go by cp.async; otherwise by 2-byte loads.
+template <int ROWS, int DP, int LDS>
+__device__ __forceinline__ void load_tile(bf16* dst,
+                                          const bf16* __restrict__ src,
+                                          long long stride, int row0,
+                                          int rows, int D, bool vec) {
+  if (vec) {
+    constexpr int CH = DP / 8;
+    static_assert(ROWS * CH % kThreads == 0, "whole chunks a thread");
+#pragma unroll
+    for (int it = 0; it < ROWS * CH / kThreads; ++it) {
+      const int i = threadIdx.x + it * kThreads;
+      const int r = i / CH;
+      const int c = (i % CH) * 8;
+      const int row = row0 + r;
+      bf16* d = dst + r * LDS + c;
+      if (row < rows && c < D)
+        cp_async_16(smem_addr(d), src + row * stride + c);
+      else
+        *reinterpret_cast<uint4*>(d) = make_uint4(0u, 0u, 0u, 0u);
+    }
+  } else {
+    for (int i = threadIdx.x; i < ROWS * DP; i += kThreads) {
+      const int r = i / DP;
+      const int c = i % DP;
+      const int row = row0 + r;
+      dst[r * LDS + c] = row < rows && c < D ? src[row * stride + c]
+                                             : __float2bfloat16(0.f);
+    }
+  }
+}
+
+// One tile's online-softmax step for a warp's rows: scale the scores s to
+// log2 units, mask them (kMask), update the running max m (only when some
+// row of the warp rises by more than kRescaleLog2) and the per-thread
+// partial sum l, rescale the output accumulators when m moved, and leave p
+// in s.  pos0: absolute position of row g of the warp's first m tile;
+// key0: key of the thread's first score column.
+template <bool kMask, int MT, int NO>
+__device__ __forceinline__ void online_softmax(float (&s)[MT][8][4],
+                                               float (&m)[MT][2],
+                                               float (&l)[MT][2],
+                                               float (&acc)[MT][NO][4],
+                                               float scale_log2, int pos0,
+                                               int key0, int Skv, int causal,
+                                               int window) {
+  bool vis[MT][2][8][2];
+  float mx[MT][2];
+  bool rise = false;
+#pragma unroll
+  for (int mt = 0; mt < MT; ++mt) {
+#pragma unroll
+    for (int hr = 0; hr < 2; ++hr) {           // rows g and g + 8
+      const int pos = pos0 + 16 * mt + 8 * hr;
+      float x_max = kNegInf;
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          float& x = s[mt][j][2 * hr + e];
+          x *= scale_log2;
+          vis[mt][hr][j][e] = true;
+          if (kMask) {
+            const int key = key0 + 8 * j + e;
+            vis[mt][hr][j][e] = key < Skv && (!causal || key <= pos) &&
+                                (window <= 0 || pos - key < window);
+            if (!vis[mt][hr][j][e]) x = kNegInf;
+          }
+          x_max = fmaxf(x_max, x);
+        }
+      }
+      x_max = fmaxf(x_max, __shfl_xor_sync(0xffffffffu, x_max, 1));
+      x_max = fmaxf(x_max, __shfl_xor_sync(0xffffffffu, x_max, 2));
+      mx[mt][hr] = x_max;
+      rise |= x_max > m[mt][hr] + kRescaleLog2;
+    }
+  }
+  if (__any_sync(0xffffffffu, rise)) {
+#pragma unroll
+    for (int mt = 0; mt < MT; ++mt) {
+#pragma unroll
+      for (int hr = 0; hr < 2; ++hr) {
+        const float m_new = fmaxf(m[mt][hr], mx[mt][hr]);
+        const float alpha = ex2(m[mt][hr] - m_new);
+        m[mt][hr] = m_new;
+        l[mt][hr] *= alpha;
+#pragma unroll
+        for (int dn = 0; dn < NO; ++dn) {
+          acc[mt][dn][2 * hr] *= alpha;
+          acc[mt][dn][2 * hr + 1] *= alpha;
+        }
+      }
+    }
+  }
+#pragma unroll
+  for (int mt = 0; mt < MT; ++mt) {
+#pragma unroll
+    for (int hr = 0; hr < 2; ++hr) {
+      float rs = 0.f;
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          float& x = s[mt][j][2 * hr + e];
+          x = vis[mt][hr][j][e] ? ex2(x - m[mt][hr]) : 0.f;
+          rs += x;
+        }
+      }
+      l[mt][hr] += rs;
+    }
+  }
+}
+
+template <int DP, int MT>
+constexpr int smem_bytes_bf16() {
+  return (16 * MT * kWarps + 4 * kBK) * (DP + 8) * 2;
+}
+
+// DP: head-dim bucket; MT: 16-row m tiles a warp; MB: blocks an SM for the
+// register budget (__launch_bounds__).
+template <int DP, int MT, int MB>
+__global__ void __launch_bounds__(kThreads, MB)
+flash_fwd_bf16(const bf16* __restrict__ q, const bf16* __restrict__ k,
+               const bf16* __restrict__ v, bf16* __restrict__ o, Strides qs,
+               Strides ks, Strides vs, Strides os, int B, int Hq, int G,
+               int Sq, int Skv, int D, int causal, int window,
+               float scale_log2, int vec) {
+  constexpr int WR = 16 * MT;                  // query rows a warp
+  constexpr int BQ = WR * kWarps;              // query rows a block
+  constexpr int LDS = DP + 8;                  // padded shared row
+  constexpr int KD = DP / 16;                  // k steps of Q K^T
+  constexpr int NO = DP / 8;                   // n tiles of O
+  static_assert(DP % 16 == 0 && kBK == 64, "fragment layout");
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  bf16* sQ = reinterpret_cast<bf16*>(smem_raw);  // [BQ][LDS]
+  bf16* sK = sQ + BQ * LDS;                      // [2][kBK][LDS]
+  bf16* sV = sK + 2 * kBK * LDS;                 // [2][kBK][LDS]
+
+  const int nbh = B * Hq;
+  const int qt = gridDim.x / nbh - 1 - blockIdx.x / nbh;  // heaviest first
+  const int h = blockIdx.x % nbh % Hq;
+  const int b = blockIdx.x % nbh / Hq;
+  const int hk = h / G;
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  const int g = lane >> 2;
+  const int t = lane & 3;
+  const int q0 = qt * BQ;
+  const int offs = Skv - Sq;
+
+  const bf16* qb = q + b * qs.b + h * qs.h;
+  const bf16* kb = k + b * ks.b + hk * ks.h;
+  const bf16* vb = v + b * vs.b + hk * vs.h;
+
+  int kt_begin, kt_end;
+  visible_tiles(q0 + offs, min(q0 + BQ, Sq) - 1 + offs, Skv, causal, window,
+                kt_begin, kt_end);
+  const int nt = kt_end - kt_begin;
+
+  // this warp's rows: [wr0, wr0 + WR) of the tile, absolute positions
+  // w_lo..w_hi (rows past Sq left out)
+  const int wr0 = warp * WR;
+  const int w_lo = q0 + wr0 + offs;
+  const int w_hi = min(q0 + wr0 + WR, Sq) - 1 + offs;
+  const bool w_rows = q0 + wr0 < Sq;
+
+  load_tile<BQ, DP, LDS>(sQ, qb, qs.s, q0, Sq, D, vec);
+  if (nt > 0) {
+    load_tile<kBK, DP, LDS>(sK, kb, ks.s, kt_begin * kBK, Skv, D, vec);
+    load_tile<kBK, DP, LDS>(sV, vb, vs.s, kt_begin * kBK, Skv, D, vec);
+  }
+  cp_async_commit();
+
+  float acc[MT][NO][4], m[MT][2], l[MT][2];
+#pragma unroll
+  for (int mt = 0; mt < MT; ++mt) {
+#pragma unroll
+    for (int hr = 0; hr < 2; ++hr) {
+      m[mt][hr] = kNegInf;
+      l[mt][hr] = 0.f;
+    }
+#pragma unroll
+    for (int dn = 0; dn < NO; ++dn)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[mt][dn][e] = 0.f;
+  }
+
+  for (int i = 0; i < nt; ++i) {
+    const int k0 = (kt_begin + i) * kBK;
+    cp_async_wait_all();                       // tile i (and Q) landed here
+    __syncthreads();                           // ... and everywhere; tile
+                                               // i - 1's stage is free
+    if (i + 1 < nt) {                          // tile i + 1 into that stage,
+      const int st = (i + 1) & 1;              // copied while i is computed
+      load_tile<kBK, DP, LDS>(sK + st * kBK * LDS, kb, ks.s, k0 + kBK, Skv,
+                              D, vec);
+      load_tile<kBK, DP, LDS>(sV + st * kBK * LDS, vb, vs.s, k0 + kBK, Skv,
+                              D, vec);
+      cp_async_commit();
+    }
+
+    const bf16* cK = sK + (i & 1) * kBK * LDS;
+    const bf16* cV = sV + (i & 1) * kBK * LDS;
+    // does any row of this warp see a key of this tile?
+    const bool any = w_rows && (!causal || k0 <= w_hi) &&
+                     (window <= 0 || k0 + kBK - 1 > w_lo - window);
+    if (!any) continue;
+
+    float s[MT][8][4];
+#pragma unroll
+    for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) s[mt][j][e] = 0.f;
+
+    // S = Q K^T over D, 16 at a time
+#pragma unroll
+    for (int kd = 0; kd < KD; ++kd) {
+      uint32_t a[MT][4];
+#pragma unroll
+      for (int mt = 0; mt < MT; ++mt)
+        ldmatrix_x4(a[mt], smem_addr(sQ + (wr0 + 16 * mt + (lane & 15)) *
+                                              LDS + 16 * kd +
+                                          (lane >> 4) * 8));
+#pragma unroll
+      for (int np = 0; np < 4; ++np) {         // keys 16 np .. 16 np + 15
+        uint32_t bk[4];
+        ldmatrix_x4(bk, smem_addr(cK + (16 * np + (lane & 7) +
+                                        (lane >> 4) * 8) * LDS +
+                                  16 * kd + ((lane >> 3) & 1) * 8));
+#pragma unroll
+        for (int mt = 0; mt < MT; ++mt) {
+          mma_bf16(s[mt][2 * np], a[mt], bk[0], bk[1]);
+          mma_bf16(s[mt][2 * np + 1], a[mt], bk[2], bk[3]);
+        }
+      }
+    }
+
+    const bool full = k0 + kBK <= Skv && (!causal || k0 + kBK - 1 <= w_lo) &&
+                      (window <= 0 || k0 > w_hi - window);
+    if (full)
+      online_softmax<false, MT, NO>(s, m, l, acc, scale_log2, 0, 0, 0, 0, 0);
+    else
+      online_softmax<true, MT, NO>(s, m, l, acc, scale_log2, w_lo + g,
+                                   k0 + 2 * t, Skv, causal, window);
+
+    // O += P V over the tile's keys, 16 at a time; P from registers
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) {
+      uint32_t pa[MT][4];
+#pragma unroll
+      for (int mt = 0; mt < MT; ++mt) {
+        pa[mt][0] = pack_bf16(s[mt][2 * kk][0], s[mt][2 * kk][1]);
+        pa[mt][1] = pack_bf16(s[mt][2 * kk][2], s[mt][2 * kk][3]);
+        pa[mt][2] = pack_bf16(s[mt][2 * kk + 1][0], s[mt][2 * kk + 1][1]);
+        pa[mt][3] = pack_bf16(s[mt][2 * kk + 1][2], s[mt][2 * kk + 1][3]);
+      }
+#pragma unroll
+      for (int dp = 0; dp < DP / 16; ++dp) {   // columns 16 dp .. 16 dp + 15
+        uint32_t bv[4];
+        ldmatrix_x4_trans(bv, smem_addr(cV + (16 * kk + (lane & 15)) * LDS +
+                                        16 * dp + (lane >> 4) * 8));
+#pragma unroll
+        for (int mt = 0; mt < MT; ++mt) {
+          mma_bf16(acc[mt][2 * dp], pa[mt], bv[0], bv[1]);
+          mma_bf16(acc[mt][2 * dp + 1], pa[mt], bv[2], bv[3]);
+        }
+      }
+    }
+  }
+  cp_async_wait_all();
+  __syncthreads();                             // Q's copies done everywhere
+
+  // normalise, stage the warp's rows in its own Q rows, store
+#pragma unroll
+  for (int mt = 0; mt < MT; ++mt) {
+#pragma unroll
+    for (int hr = 0; hr < 2; ++hr) {
+      float sum = l[mt][hr];
+      sum += __shfl_xor_sync(0xffffffffu, sum, 1);
+      sum += __shfl_xor_sync(0xffffffffu, sum, 2);
+      const float inv = sum > 0.f ? 1.f / sum : 0.f;
+      bf16* row = sQ + (wr0 + 16 * mt + 8 * hr + g) * LDS + 2 * t;
+#pragma unroll
+      for (int dn = 0; dn < NO; ++dn)
+        *reinterpret_cast<uint32_t*>(row + 8 * dn) =
+            pack_bf16(acc[mt][dn][2 * hr] * inv,
+                      acc[mt][dn][2 * hr + 1] * inv);
+    }
+  }
+  __syncwarp();
+  bf16* ob = o + b * os.b + h * os.h;
+  if (vec) {
+    constexpr int CH = DP / 8;
+#pragma unroll
+    for (int it = 0; it < WR * CH / 32; ++it) {
+      const int i = lane + 32 * it;
+      const int r = i / CH;
+      const int c = (i % CH) * 8;
+      const int row = q0 + wr0 + r;
+      if (row < Sq && c < D)
+        *reinterpret_cast<uint4*>(ob + row * os.s + c) =
+            *reinterpret_cast<const uint4*>(sQ + (wr0 + r) * LDS + c);
+    }
+  } else {
+    for (int i = lane; i < WR * DP; i += 32) {
+      const int r = i / DP;
+      const int c = i % DP;
+      const int row = q0 + wr0 + r;
+      if (row < Sq && c < D) ob[row * os.s + c] = sQ[(wr0 + r) * LDS + c];
+    }
+  }
+}
+
+bool aligned16(const void* p) {
+  return (reinterpret_cast<uintptr_t>(p) & 15u) == 0;
+}
+
+template <int DP, int MT, int MB>
+cudaError_t launch_bf16(const void* q, const void* k, const void* v, void* o,
+                        int B, int Hq, int Hkv, int Sq, int Skv, int D,
+                        const long long* st, int causal, int window,
+                        float scale, cudaStream_t stream) {
+  constexpr int BQ = 16 * MT * kWarps;
+  const int smem = smem_bytes_bf16<DP, MT>();
+  cudaError_t err = cudaFuncSetAttribute(
+      flash_fwd_bf16<DP, MT, MB>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      smem);
+  if (err != cudaSuccess) return err;
+  const long long blocks = (long long)((Sq + BQ - 1) / BQ) * Hq * B;
+  if (blocks > INT_MAX) return cudaErrorInvalidValue;
+  bool vec = D % 8 == 0 && aligned16(q) && aligned16(k) && aligned16(v) &&
+             aligned16(o);
+  for (int i = 0; i < 12; ++i) vec = vec && st[i] % 8 == 0;
+  flash_fwd_bf16<DP, MT, MB><<<(unsigned)blocks, kThreads, smem, stream>>>(
+      static_cast<const bf16*>(q), static_cast<const bf16*>(k),
+      static_cast<const bf16*>(v), static_cast<bf16*>(o),
+      Strides{st[0], st[1], st[2]}, Strides{st[3], st[4], st[5]},
+      Strides{st[6], st[7], st[8]}, Strides{st[9], st[10], st[11]}, B, Hq,
+      Hq / Hkv, Sq, Skv, D, causal, window,
+      (float)(scale * 1.4426950408889634), (int)vec);
+  return cudaGetLastError();
+}
+
+// Head-dim buckets: D runs in the smallest DP >= D.
+cudaError_t dispatch_bf16(const void* q, const void* k, const void* v,
+                          void* o, int B, int Hq, int Hkv, int Sq, int Skv,
+                          int D, const long long* st, int causal, int window,
+                          float scale, cudaStream_t stream) {
+  if (D <= 64)
+    return launch_bf16<64, 2, 2>(q, k, v, o, B, Hq, Hkv, Sq, Skv, D, st,
+                                 causal, window, scale, stream);
+  if (D <= 80)
+    return launch_bf16<80, 2, 2>(q, k, v, o, B, Hq, Hkv, Sq, Skv, D, st,
+                                 causal, window, scale, stream);
+  if (D <= 96)
+    return launch_bf16<96, 2, 2>(q, k, v, o, B, Hq, Hkv, Sq, Skv, D, st,
+                                 causal, window, scale, stream);
+  if (D <= 128)
+    return launch_bf16<128, 2, 2>(q, k, v, o, B, Hq, Hkv, Sq, Skv, D, st,
+                                  causal, window, scale, stream);
+  return launch_bf16<256, 1, 1>(q, k, v, o, B, Hq, Hkv, Sq, Skv, D, st,
+                                causal, window, scale, stream);
 }
 
 }  // namespace
@@ -267,8 +748,9 @@ extern "C" {
 
 // q, o: (B, Hq, Sq, D); k, v: (B, Hkv, Skv, D), each with the head_dim
 // stride 1 and the (batch, head, seq) strides in `strides` (12 values in
-// elements: q, k, v, o).  dtype 0 = float32, 1 = bfloat16.  window <= 0
-// means no window.  D <= 256, Hq % Hkv == 0; the wrapper checks both.
+// elements: q, k, v, o).  dtype 0 = float32 (the FP32-core kernel), 1 =
+// bfloat16 (the tensor-core kernel).  window <= 0 means no window.
+// D <= 256, Hq % Hkv == 0; the wrapper checks both.
 int flash_attention_launch(const void* q, const void* k, const void* v,
                            void* o, int dtype, int B, int Hq, int Hkv, int Sq,
                            int Skv, int D, const long long* strides,
@@ -277,11 +759,11 @@ int flash_attention_launch(const void* q, const void* k, const void* v,
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (D < 1 || D > 256 || Hkv < 1 || Hq % Hkv) return cudaErrorInvalidValue;
   if (dtype == 0)
-    return dispatch_d<float>(q, k, v, o, B, Hq, Hkv, Sq, Skv, D, strides,
-                             causal, window, scale, s);
+    return dispatch_f32(q, k, v, o, B, Hq, Hkv, Sq, Skv, D, strides, causal,
+                        window, scale, s);
   if (dtype == 1)
-    return dispatch_d<__nv_bfloat16>(q, k, v, o, B, Hq, Hkv, Sq, Skv, D,
-                                     strides, causal, window, scale, s);
+    return dispatch_bf16(q, k, v, o, B, Hq, Hkv, Sq, Skv, D, strides,
+                         causal, window, scale, s);
   return cudaErrorInvalidValue;
 }
 

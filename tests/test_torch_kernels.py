@@ -139,6 +139,7 @@ ATTN_CASES = [
     (1, 37, 101, 4, 1, 24, True, 9),
     (1, 20, 12, 2, 1, 8, True, None),
     (1, 20, 12, 2, 2, 8, True, 3),
+    (1, 33, 70, 4, 2, 80, True, 20),
 ]
 
 
@@ -420,21 +421,39 @@ def test_cuda_wrappers_reject_what_the_kernel_does_not_take(cuda):
 
 
 def _cuda_attn(cuda, case, dtype, seed=8):
-    B, Sq, Skv, Hq, Hkv, D, causal, window = case
-    q, k, v = (torch.from_numpy(a).to(cuda, dtype)
-               for a in _attn_inputs(B, Sq, Skv, Hq, Hkv, D, seed=seed))
+    """A case's q, k, v on the card; a ninth entry, when present, places
+    each at that many elements into a larger buffer (a view whose base is
+    not 16-byte aligned)."""
+    B, Sq, Skv, Hq, Hkv, D, causal, window, *offset = case
+
+    def put(a):
+        x = torch.from_numpy(a).to(cuda, dtype)
+        if not offset:
+            return x
+        buf = torch.zeros(x.numel() + offset[0], dtype=dtype, device=cuda)
+        buf[offset[0]:] = x.reshape(-1)
+        return buf[offset[0]:].view(x.shape)
+    q, k, v = (put(a) for a in _attn_inputs(B, Sq, Skv, Hq, Hkv, D,
+                                            seed=seed))
     return q, k, v, dict(causal=causal, window=window)
 
 
 # the main path's prefill (4, 1024, 1024, 32, 8, 128, causal) at batch 1,
 # then ragged lengths, windows, GQA 4, Sq < Skv, Sq > Skv and head dims
-# 64, 80, 128, 256
+# 64, 80, 128, 256; Zamba2's prefill (4, 1000, 1000, 32, 32, 80, causal)
+# at batch 1; D = 256 at S = 1024; a window smaller than a tile with
+# Sq > Skv (rows that see no key of a tile their block loads); views offset
+# by one element into a larger buffer (the kernel's unaligned load path)
 GPU_ATTN_CASES = ATTN_CASES + [
     (1, 1024, 1024, 32, 8, 128, True, None),
     (2, 200, 333, 8, 2, 64, True, 50),
     (1, 129, 129, 4, 4, 80, True, None),
     (1, 65, 300, 2, 1, 256, False, None),
     (3, 63, 63, 12, 3, 128, True, 7),
+    (1, 1000, 1000, 32, 32, 80, True, None),
+    (1, 1024, 1024, 8, 2, 256, True, None),
+    (2, 300, 170, 4, 2, 64, True, 5),
+    (2, 150, 200, 8, 2, 128, True, 40, 1),
 ]
 
 
