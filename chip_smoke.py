@@ -61,6 +61,16 @@
    it; a row below that is a tie at f32's resolution, and its token must
    be one of the control's top two).
 
+Kernel times: ``ms`` is the eager loop (CUDA events around 50–200 calls
+enqueued back to back), which for a kernel of a few microseconds times
+the host's enqueue; ``device_ms`` is the device alone (20 calls captured
+in one CUDA graph, replayed 10 times, ``graph_ms``); the library call has
+both.  ``lasso_partial`` is also checked to be one kernel a call (the
+nodes of a CUDA graph that captures one call, ``graph_kernels``) and to
+give the eager call's bits on each of 3 replays of a captured call.
+The launch counts are read outside every captured region (a replay
+adds nothing to them).
+
 Any failure exits nonzero before the last line.  The line before the last
 lists every kernel (``{"kernels": [...]}``); the last line is
 ``{"ok": true, "device": {...}}``.  Everything measured is also written
@@ -136,6 +146,81 @@ def time_ms(torch, fn, iters: int = 200, warmup: int = 10) -> float:
     return a.elapsed_time(b) / iters
 
 
+_CAPTURE_STREAM = None         # graph_ms's one side stream (made on the card)
+
+
+def graph_ms(torch, fn, calls: int = 20, replays: int = 10) -> float:
+    """Device time of one call apart from the host: ``calls`` calls
+    captured in one CUDA graph (after a warm-up call on the capture's
+    side stream, one stream for every capture), the graph replayed once,
+    then ``replays`` times between CUDA events; the time over calls ×
+    replays.  A replay enqueues the whole graph at once, so the host's
+    per-call work (Python, ctypes, launch) drops out.  The graph and
+    its memory are freed on return, and so are the cuBLAS workspaces a
+    capture adds, so the peak memory the main paths report is not the
+    harness's."""
+    global _CAPTURE_STREAM
+    if _CAPTURE_STREAM is None:
+        _CAPTURE_STREAM = torch.cuda.Stream()
+    side = _CAPTURE_STREAM
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    g = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(g, stream=side):
+        for _ in range(calls):
+            fn()
+    g.replay()
+    torch.cuda.synchronize()
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    a.record()
+    for _ in range(replays):
+        g.replay()
+    b.record()
+    torch.cuda.synchronize()
+    del g
+    clear = getattr(torch._C, "_cuda_clearCublasWorkspaces", None)
+    if clear is not None:
+        clear()
+    return a.elapsed_time(b) / (calls * replays)
+
+
+def graph_kernels(torch, fn) -> tuple[int, int]:
+    """Kernel nodes and all nodes of a CUDA graph that captures one call
+    of ``fn``, read with the driver's cuGraphGetNodes and
+    cuGraphNodeGetType: the launches one call makes, without a profiler
+    (whose sessions leave the host's launches slower)."""
+    import ctypes
+    cuda = ctypes.CDLL("libcuda.so.1")
+    g = torch.cuda.CUDAGraph(keep_graph=True)
+    with torch.cuda.graph(g):
+        fn()
+    graph = ctypes.c_void_p(g.raw_cuda_graph())
+    n = ctypes.c_size_t(0)
+    err = cuda.cuGraphGetNodes(graph, None, ctypes.byref(n))
+    nodes = (ctypes.c_void_p * n.value)()
+    err = err or cuda.cuGraphGetNodes(graph, nodes, ctypes.byref(n))
+    kinds = []
+    for node in nodes:
+        kind = ctypes.c_int(-1)
+        err = err or cuda.cuGraphNodeGetType(ctypes.c_void_p(node),
+                                             ctypes.byref(kind))
+        kinds.append(kind.value)
+    check(err == 0, f"CUDA driver error {err} reading a graph's nodes")
+    del g
+    return kinds.count(0), len(kinds)    # 0: CU_GRAPH_NODE_TYPE_KERNEL
+
+
+def offset_view(torch, t):
+    """``t``'s values in a contiguous view one element into a larger
+    buffer: a base that is not 16-byte aligned."""
+    buf = torch.zeros(t.numel() + 1, dtype=t.dtype, device=t.device)
+    buf[1:] = t.reshape(-1)
+    return buf[1:].view(t.shape)
+
+
 def bound(nbytes: float, flops: float) -> tuple[float, str]:
     tb, tf = nbytes / PEAK_BYTES_PER_S, flops / PEAK_F32_FLOPS
     return max(tb, tf) * 1e3, ("bytes" if tb >= tf else "operations")
@@ -148,7 +233,10 @@ def max_err(torch, got, want) -> tuple[float, float]:
 
 def kernel_phase(torch, lc, ref, X, y, W: int, U: int, UP: int, seed: int):
     """Each kernel against its plain version at the main path's shapes
-    (candidate columns gathered out of the real X) and at ragged ones."""
+    (candidate columns gathered out of the real X) and at ragged ones,
+    timed eager and on the device alone; ``lasso_partial`` also on a view
+    one element past 16-byte alignment, and replayed from a captured CUDA
+    graph."""
     n, J = X.shape
     gen = torch.Generator().manual_seed(seed)
     Xw = X.view(W, n // W, J)
@@ -158,6 +246,7 @@ def kernel_phase(torch, lc, ref, X, y, W: int, U: int, UP: int, seed: int):
     Xb = Xw.index_select(-1, cand[:U])              # (W, n/W, U)
     ragged_X = torch.randn((4, 1001, 37), generator=gen).to(X.device)
     ragged_r = torch.randn((4, 1001), generator=gen).to(X.device)
+    Xb_off, rw_off = offset_view(torch, Xb), offset_view(torch, rw)
     cases = {
         "lasso_partial": dict(
             fn=lambda: lc.lasso_partial(Xb, rw),
@@ -165,6 +254,10 @@ def kernel_phase(torch, lc, ref, X, y, W: int, U: int, UP: int, seed: int):
             library=lambda: torch.matmul(Xb.mT, rw.unsqueeze(-1)),
             ragged=(lambda: lc.lasso_partial(ragged_X, ragged_r),
                     lambda: ref.lasso_partial_ref(ragged_X, ragged_r)),
+            # the main path's shapes one element past 16-byte alignment:
+            # the kernel's scalar loads
+            unaligned=(lambda: lc.lasso_partial(Xb_off, rw_off),
+                       lambda: ref.lasso_partial_ref(Xb_off, rw_off)),
             nbytes=4 * (W * (n // W) * (U + 1) + W * U),
             flops=2 * W * (n // W) * U),
         "gram_block": dict(
@@ -193,18 +286,52 @@ def kernel_phase(torch, lc, ref, X, y, W: int, U: int, UP: int, seed: int):
         rerr, rtol = max_err(torch, rg(), rw_())
         check(rerr <= rtol, f"{name}: max abs err {rerr} > {rtol} at "
                             f"ragged shapes (4, 1001, 37)")
+        extra = {}
+        if "unaligned" in c:
+            ug, uw = c["unaligned"]
+            uerr, utol = max_err(torch, ug(), uw())
+            check(uerr <= utol, f"{name}: max abs err {uerr} > {utol} on "
+                                f"a view one element past alignment")
+            extra["unaligned_max_abs_err"] = uerr
+        kernels, nodes = graph_kernels(torch, c["fn"])
+        if name == "lasso_partial":
+            check(kernels == 1 and nodes == 1,
+                  f"lasso_partial: a captured call has {kernels} kernels in "
+                  f"{nodes} graph nodes, not one")
+            # one captured call replayed: the same bits each time (the
+            # per-worker counters are back at 0 after every call)
+            g = torch.cuda.CUDAGraph()
+            with torch.cuda.graph(g):
+                captured = c["fn"]()
+            for _ in range(3):
+                captured.zero_()
+                g.replay()
+                torch.cuda.synchronize()
+                check(torch.equal(captured, got),
+                      "lasso_partial: a graph replay differs from the eager "
+                      "call")
+            del g, captured
+            extra["graph_replays_equal"] = 3
         ms = time_ms(torch, c["fn"])
+        device_ms = graph_ms(torch, c["fn"])
         plain_ms = time_ms(torch, c["plain"])
         library_ms = time_ms(torch, c["library"])
+        library_device_ms = graph_ms(torch, c["library"])
         ms_again = time_ms(torch, c["fn"])
+        device_again = graph_ms(torch, c["fn"])
         bms, by = bound(c["nbytes"], c["flops"])
         out[name] = {
             "name": name, "route": "cuda", "source": SOURCE,
             "replaces": REPLACES[name], "launches": None,
-            "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-            "bound_ms": bms, "bound_by": by, "library_ms": library_ms,
+            "max_abs_err": err, "ms": ms, "device_ms": device_ms,
+            "plain_ms": plain_ms, "bound_ms": bms, "bound_by": by,
+            "library_ms": library_ms,
+            "library_device_ms": library_device_ms,
             "tolerance": tol, "ragged_max_abs_err": rerr,
-            "ms_repeat": ms_again, "bound_share": bms / ms,
+            "ms_repeat": ms_again, "device_ms_repeat": device_again,
+            "bound_share": bms / ms, "device_bound_share": bms / device_ms,
+            "graph_kernels_a_call": kernels, "graph_nodes_a_call": nodes,
+            **extra,
             "shape": list(Xc.shape if name == "gram_block" else Xb.shape)}
     return out
 
@@ -416,17 +543,21 @@ def attention_timing(torch, ops, ref, q, k, v, kw) -> dict:
     library = lambda: F.scaled_dot_product_attention(
         tq(q), tq(k), tq(v), is_causal=True, enable_gqa=True)
     lib_err, _ = rel_err(torch, tq(library()), want)
-    ms = time_ms(torch, lambda: ops.attention(q, k, v, **kw), iters=50)
+    kernel = lambda: ops.attention(q, k, v, **kw)
+    ms = time_ms(torch, kernel, iters=50)
+    device_ms = graph_ms(torch, kernel)
     plain_ms = time_ms(torch, lambda: ref.attention_ref(q, k, v, **kw),
                        iters=20)
     library_ms = time_ms(torch, library, iters=50)
-    ms_again = time_ms(torch, lambda: ops.attention(q, k, v, **kw),
-                       iters=50)
+    library_device_ms = graph_ms(torch, library)
+    ms_again = time_ms(torch, kernel, iters=50)
     bms, by = attention_bound(torch, ref, q, k, kw["causal"], kw["window"])
     return {
-        "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-        "bound_ms": bms, "bound_by": by, "library_ms": library_ms,
+        "max_abs_err": err, "ms": ms, "device_ms": device_ms,
+        "plain_ms": plain_ms, "bound_ms": bms, "bound_by": by,
+        "library_ms": library_ms, "library_device_ms": library_device_ms,
         "max_rel_err": rel, "ms_repeat": ms_again, "bound_share": bms / ms,
+        "device_bound_share": bms / device_ms,
         "library_max_abs_err_vs_plain": lib_err,
         "shape": {"q": list(q.shape), "k": list(k.shape),
                   "dtype": str(q.dtype)}}
@@ -504,6 +635,13 @@ def serve_kernel_phase(torch, ops, ref, first, seed: int):
     out["topk_gating"] = {
         "max_abs_err": gerr,
         "ms": time_ms(torch, lambda: ops.topk_gating(logits, kk)),
+        "device_ms": graph_ms(torch, lambda: ops.topk_gating(logits, kk)),
+        # the decode step's (4, 16) logits: 768 of the main path's 792
+        # launches
+        "decode_shape_ms": time_ms(torch, lambda: ops.topk_gating(
+            dec_logits, kk)),
+        "decode_shape_device_ms": graph_ms(torch, lambda: ops.topk_gating(
+            dec_logits, kk)),
         "plain_ms": time_ms(torch, lambda: ref.topk_gating_ref(logits, kk)),
         "library_ms": None,
         "library": "none: no single PyTorch call computes softmax, top-k "
@@ -515,8 +653,8 @@ def serve_kernel_phase(torch, ops, ref, first, seed: int):
     bms, by = bound(4 * T * E + 8 * T * kk, T * E * (4 + kk))
     out["topk_gating"].update(
         bound_ms=bms, bound_by=by, bound_share=bms / out["topk_gating"]
-        ["ms"], ms_repeat=time_ms(torch, lambda: ops.topk_gating(logits,
-                                                                 kk)))
+        ["ms"], device_bound_share=bms / out["topk_gating"]["device_ms"],
+        ms_repeat=time_ms(torch, lambda: ops.topk_gating(logits, kk)))
     return out
 
 
@@ -772,9 +910,10 @@ def ssm_bound(torch, x, Bm, h0) -> tuple[float, str]:
 
 def ssm_kernel_phase(torch, ops, ref, first, seed: int):
     """``ssm_scan`` against its plain version at layer 0's real inputs,
-    timed, and at ragged shapes (S = 1, 25, 200, 1,000; h0 given and None;
-    N = 16 and 64; C not a multiple of the 64-channel block; bf16 and
-    f32)."""
+    timed (eager and device alone), on those inputs one element past
+    16-byte alignment, and at ragged shapes (S = 1, 25, 200, 1,000; h0
+    given and None; N = 1, 16, 17, 63 and 64; C not a multiple of the
+    32-channel block; bf16 and f32)."""
     gen = torch.Generator().manual_seed(seed + 3)
     args = first["ssm"]
     x, dt, A, Bm, Cm, h0 = args
@@ -787,12 +926,24 @@ def ssm_kernel_phase(torch, ops, ref, first, seed: int):
     err, over = ssm_err(torch, got, want)
     check(over <= 1.0, f"ssm_scan: error {over} of its tolerance at layer "
                        f"0's shapes")
+    # layer 0's inputs, each one element past 16-byte alignment: the
+    # kernel's element loads in place of its 16-byte copies
+    moved = [None if t is None else offset_view(torch, t)
+             if i in (0, 1, 3, 4) else t for i, t in enumerate(args)]
+    uerr, uover = ssm_err(torch, ops.ssm_scan(*moved),
+                          ref.ssm_scan_ref(*moved))
+    check(uover <= 1.0, f"ssm_scan: error {uover} of its tolerance on views "
+                        f"one element past alignment")
+    del moved
     ragged = {}
     for B, S, C, N, with_h0 in [(4, 1, 5120, 64, True),
                                 (2, 25, 130, 16, False),
                                 (3, 200, 257, 64, True),
                                 (1, 1000, 5000, 64, False),
-                                (2, 1000, 96, 16, True)]:
+                                (2, 1000, 96, 16, True),
+                                (2, 300, 70, 1, True),
+                                (3, 200, 200, 17, False),
+                                (1, 1000, 1000, 63, True)]:
         for dtype in (torch.bfloat16, torch.float32):
             r = lambda *shape: torch.randn(shape, generator=gen)
             xs, Bs, Cs = r(B, S, C), r(B, S, N), r(B, S, N)
@@ -807,18 +958,22 @@ def ssm_kernel_phase(torch, ops, ref, first, seed: int):
             check(o <= 1.0, f"ssm_scan: error {o} of its tolerance at {key}")
             ragged[key] = e
     ms = time_ms(torch, lambda: ops.ssm_scan(*args), iters=100)
+    device_ms = graph_ms(torch, lambda: ops.ssm_scan(*args))
     plain_ms = time_ms(torch, lambda: ref.ssm_scan_ref(*args), iters=2,
                        warmup=1)
     ms_again = time_ms(torch, lambda: ops.ssm_scan(*args), iters=100)
     bms, by = ssm_bound(torch, x, Bm, h0)
     return {
-        "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-        "bound_ms": bms, "bound_by": by, "library_ms": None,
+        "max_abs_err": err, "ms": ms, "device_ms": device_ms,
+        "plain_ms": plain_ms, "bound_ms": bms, "bound_by": by,
+        "library_ms": None,
         "library": "none: no single PyTorch call computes a selective scan",
         "tolerance": f"{SSM_TOL} of max(1, max|plain|) for bf16 y, "
                      f"{SSM_TOL_F32} for f32 y and h",
         "max_err_over_tol": over, "ragged_max_abs_err": ragged,
+        "unaligned_max_abs_err": uerr,
         "ms_repeat": ms_again, "bound_share": bms / ms,
+        "device_bound_share": bms / device_ms,
         "shape": {"x": list(x.shape), "B": list(Bm.shape),
                   "dtype": str(x.dtype), "x_strides": list(x.stride()),
                   "h0": None if h0 is None else list(h0.shape)}}
@@ -1216,9 +1371,11 @@ def main() -> int:
     print("zamba2: " + json.dumps({k: v for k, v in zamba.items()
                                    if not k.startswith("profile")}))
     print("ssm_scan at layer 0's inputs: " + json.dumps(
-        {k: skern["ssm_scan"][k] for k in ("ms", "ms_repeat", "plain_ms",
-                                           "bound_ms", "bound_by",
-                                           "bound_share", "max_abs_err")}))
+        {k: skern["ssm_scan"][k] for k in ("ms", "device_ms", "ms_repeat",
+                                           "plain_ms", "bound_ms",
+                                           "bound_by", "bound_share",
+                                           "device_bound_share",
+                                           "max_abs_err")}))
     for w in ("profile_prefill", "profile_decode4"):
         print(f"zamba2 {w}: " + json.dumps(
             {k: v for k, v in zamba[w].items() if k != "top"}))
@@ -1230,9 +1387,11 @@ def main() -> int:
     skern["flash_attention"]["by_shape"][ZAMBA] = \
         zamba.pop("flash_attention_layer0")
     print("flash_attention at layer 0's inputs: " + json.dumps(
-        {name: {k: e[k] for k in ("shape", "ms", "ms_repeat", "plain_ms",
-                                  "library_ms", "bound_ms", "bound_by",
-                                  "bound_share", "max_rel_err")}
+        {name: {k: e[k] for k in ("shape", "ms", "device_ms", "ms_repeat",
+                                  "plain_ms", "library_ms",
+                                  "library_device_ms", "bound_ms",
+                                  "bound_by", "bound_share",
+                                  "device_bound_share", "max_rel_err")}
          for name, e in skern["flash_attention"]["by_shape"].items()}))
 
     # 7. Zamba2 in f32, 12 layers: kernels vs plain, token for token
@@ -1244,8 +1403,8 @@ def main() -> int:
                       "source": SOURCES[name], "replaces": REPLACES[name],
                       **entry}
     keys = ("name", "route", "source", "replaces", "launches",
-            "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
-            "library_ms")
+            "max_abs_err", "ms", "device_ms", "plain_ms", "bound_ms",
+            "bound_by", "library_ms")
     for name, entry in kern.items():
         missing = [k for k in keys if k not in entry]
         check(not missing and entry["launches"],

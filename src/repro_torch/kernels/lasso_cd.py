@@ -1,7 +1,9 @@
 """Hand-written Hopper kernels for the STRADS Lasso round's hot spots.
 
   * ``lasso_partial`` — the push partials z = X_Bᵀr per worker:
-    (W, n, U), (W, n) → (W, U) f32.
+    (W, n, U), (W, n) → (W, U) f32, in one launch that sums its row
+    tiles in the block that finishes last (a workspace and per-worker
+    counters kept per card, see :func:`_workspace`).
   * ``gram_block``    — the ρ-filter Gram block G = X_CᵀX_C per worker:
     (W, n, U′) → (W, U′, U′) f32.
 
@@ -17,7 +19,7 @@ adds one to :data:`LAUNCHES` each time it launches, so a run can show
 that it went through the kernels.  ``block_n`` is the row tile, as on the
 TPU: every value gives the same result up to f32 summation order.
 Neither kernel uses float atomics, so each result is the same bits on
-every run.
+every run, and on every replay of a captured CUDA graph.
 """
 from __future__ import annotations
 
@@ -34,6 +36,9 @@ DEFAULT_BLOCK_N = 256
 LAUNCHES = {"lasso_partial": 0, "gram_block": 0}
 
 _GRID_LIMIT = 65535          # grid y and z
+#: device → ``lasso_partial``'s (partials, tickets); see :func:`_workspace`
+_WORKSPACE: dict = {}
+_RETIRED: list = []
 _TILE = 64                   # gram_block's output tile edge (csrc); the
                              # grid holds tiles·(tiles+1)/2 ≤ 65535 of them
 
@@ -47,7 +52,7 @@ def _lib() -> ctypes.CDLL:
     lib = _build.load("lasso_cd")
     if not getattr(lib, "_typed", False):
         p, i = ctypes.c_void_p, ctypes.c_int
-        lib.lasso_partial_launch.argtypes = [p, p, p, p, i, i, i, i, p]
+        lib.lasso_partial_launch.argtypes = [p, p, p, p, p, i, i, i, i, p]
         lib.lasso_partial_launch.restype = i
         lib.gram_block_launch.argtypes = [p, p, p, i, i, i, i, p]
         lib.gram_block_launch.restype = i
@@ -88,9 +93,33 @@ def _row_tiles(n: int, block_n: int) -> tuple[int, int]:
     return block_n, -(-n // block_n)
 
 
+def _workspace(device: torch.device, floats: int, workers: int):
+    """``lasso_partial``'s scratch on ``device``: (partials, tickets), at
+    least ``floats`` floats and ``workers`` counters.  Kept from call to
+    call and grown only when too small; a replaced pair stays allocated,
+    so a captured CUDA graph that holds its pointers stays valid."""
+    work = _WORKSPACE.get(device)
+    if work is None or work[0].numel() < floats \
+            or work[1].numel() < workers:
+        if torch.cuda.is_current_stream_capturing():
+            raise RuntimeError("lasso_partial: call it once at these shapes "
+                               "before capturing a CUDA graph (its "
+                               "workspace is allocated outside capture)")
+        if work is not None:
+            _RETIRED.append(work)
+            floats = max(floats, 2 * work[0].numel())
+            workers = max(workers, work[1].numel())
+        work = (torch.empty(floats, dtype=torch.float32, device=device),
+                torch.zeros(workers, dtype=torch.int32, device=device))
+        _WORKSPACE[device] = work
+    return work
+
+
 def lasso_partial(Xb: torch.Tensor, r: torch.Tensor,
                   block_n: int = DEFAULT_BLOCK_N) -> torch.Tensor:
-    """z = Xbᵀ r per worker: (W, n, U), (W, n) → (W, U) f32."""
+    """z = Xbᵀ r per worker: (W, n, U), (W, n) → (W, U) f32.  One launch
+    on the current stream; calls on one card share a workspace, so they
+    run in order (one stream)."""
     if Xb.dim() != 3 or r.shape != Xb.shape[:2]:
         raise ValueError(f"lasso_partial wants Xb (W, n, U) and r (W, n); "
                          f"got {tuple(Xb.shape)} and {tuple(r.shape)}")
@@ -107,11 +136,12 @@ def lasso_partial(Xb: torch.Tensor, r: torch.Tensor,
     if n == 0 or U == 0 or W == 0:
         return z.zero_()
     block_n, T = _row_tiles(n, block_n)
-    partials = torch.empty((W, T, U), dtype=torch.float32, device=Xb.device)
+    work, tickets = _workspace(Xb.device, W * T * U, W)
     lib = _lib()
     err = lib.lasso_partial_launch(Xb.data_ptr(), r.data_ptr(),
-                                   partials.data_ptr(), z.data_ptr(),
-                                   W, n, U, block_n, _stream(Xb.device))
+                                   work.data_ptr(), tickets.data_ptr(),
+                                   z.data_ptr(), W, n, U, block_n,
+                                   _stream(Xb.device))
     _raise_on(lib, "lasso_partial", err)
     LAUNCHES["lasso_partial"] += 1
     return z

@@ -3,7 +3,9 @@
 Replaces the Pallas kernel of the JAX package's ``kernels/ssm_scan.py``:
 the diagonal selective scan of a Mamba2 block.  The source is
 ``csrc/ssm_scan.cu`` (the note at its top says what bounds the kernel and
-how it is laid out), built by ``nvcc`` at first use (:mod:`._build`).
+how it is laid out: a channel's states split over lanes, x, dt, B and C
+through a ring of ``cp.async`` tiles), built by ``nvcc`` at first use
+(:mod:`._build`).
 :func:`ssm_scan` takes x, dt (B, S, C) and B, C (B, S, N) as views with
 any batch and sequence strides and a last-axis stride of 1, so the
 model's slices of its conv output go in without a copy.  It launches on
@@ -20,7 +22,8 @@ import torch
 
 from . import _build
 
-MAX_STATE = 64               # N state values a thread keeps in registers
+MAX_STATE = 64               # N state values a channel keeps in registers
+                             # (split over 8 lanes)
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _GRID_LIMIT = 65535          # grid y (batch rows)
 

@@ -33,9 +33,11 @@ from repro_torch.kernels import ssm_scan as tss
 TOL = dict(rtol=1e-5, atol=1e-5)   # f32 sums in a different order
 
 # (rows per worker, columns, block_n): rows not a multiple of block_n,
-# columns not a multiple of 128, and the main path's U = 32 / U′ = 128
+# columns not a multiple of 128, the main path's U = 32 / U′ = 128, and
+# U = 1 and 33 (the CUDA lasso_partial's edges: one column a lane, and one
+# past a whole warp of 4-column loads)
 SHAPES = [(300, 32, 256), (257, 128, 256), (190, 37, 64), (64, 130, 256),
-          (5, 3, 256)]
+          (5, 3, 256), (100, 1, 64), (150, 33, 64)]
 
 
 def _inputs(W, n, U, seed=0):
@@ -274,7 +276,9 @@ def test_kernel_bindings_refuse_cpu_tensors():
 
 # B, S, C, N, h0 given, dtype, the Pallas kernel's chunk: S ragged against
 # the chunk, S below it, h0 given and None, N = 16 (reduced) and 64
-# (Zamba2-2.7B), C not a multiple of the CUDA kernel's 64-channel block
+# (Zamba2-2.7B), C not a multiple of the CUDA kernel's 32-channel block;
+# N = 1, 17 and 63, the edges of the CUDA kernel's split of a channel's
+# states over lanes (one live state, one past a bucket, one short of it)
 SSM_CASES = [
     (2, 37, 24, 16, True, "float32", 16),
     (1, 64, 40, 64, False, "float32", 64),
@@ -283,6 +287,9 @@ SSM_CASES = [
     (1, 1, 16, 16, True, "float32", 64),
     (2, 40, 16, 16, True, "bfloat16", 16),
     (1, 64, 24, 64, False, "bfloat16", 32),
+    (2, 21, 70, 1, True, "float32", 16),
+    (1, 30, 40, 17, False, "bfloat16", 16),
+    (2, 19, 72, 63, True, "float32", 8),
 ]
 
 
@@ -379,6 +386,72 @@ def test_lasso_partial_kernel_matches_plain_on_card(cuda, W, n, U):
     assert torch.equal(got, again)          # no atomics: same bits
     want = tref.lasso_partial_ref(Xt, rt)
     torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-3)
+
+
+def _offset_view(t: torch.Tensor, offset: int = 1) -> torch.Tensor:
+    """``t``'s values in a contiguous view that starts ``offset`` elements
+    into a larger buffer (a base that is not 16-byte aligned)."""
+    buf = torch.zeros(t.numel() + offset, dtype=t.dtype, device=t.device)
+    buf[offset:] = t.reshape(-1)
+    return buf[offset:].view(t.shape)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("U", [32, 37, 1, 33])
+def test_lasso_partial_kernel_takes_unaligned_views_on_card(cuda, U):
+    """A base one element past 16-byte alignment (and U = 37, 1, 33 on any
+    base) takes the kernel's scalar loads; U = 32 aligned takes float4."""
+    X, res = _inputs(4, 12500, U, seed=11)
+    Xt = _offset_view(torch.from_numpy(X).to(cuda))
+    rt = _offset_view(torch.from_numpy(res).to(cuda))
+    assert Xt.data_ptr() % 16 != 0 and Xt.is_contiguous()
+    want = tref.lasso_partial_ref(Xt, rt)
+    for Xa, ra in ((Xt, rt), (Xt.contiguous(), rt.contiguous())):
+        got = tlc.lasso_partial(Xa, ra)
+        torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-3)
+
+
+def _graph_kernel_nodes(fn) -> list:
+    """The node types of a CUDA graph that captures one call of ``fn``
+    (the driver's cuGraphGetNodes / cuGraphNodeGetType; 0 is a kernel)."""
+    import ctypes
+    cu = ctypes.CDLL("libcuda.so.1")
+    g = torch.cuda.CUDAGraph(keep_graph=True)
+    with torch.cuda.graph(g):
+        fn()
+    graph = ctypes.c_void_p(g.raw_cuda_graph())
+    n = ctypes.c_size_t(0)
+    assert cu.cuGraphGetNodes(graph, None, ctypes.byref(n)) == 0
+    nodes = (ctypes.c_void_p * n.value)()
+    assert cu.cuGraphGetNodes(graph, nodes, ctypes.byref(n)) == 0
+    kinds = []
+    for node in nodes:
+        kind = ctypes.c_int(-1)
+        assert cu.cuGraphNodeGetType(ctypes.c_void_p(node),
+                                     ctypes.byref(kind)) == 0
+        kinds.append(kind.value)
+    return kinds
+
+
+@pytest.mark.gpu
+def test_lasso_partial_is_one_launch_and_replays_the_same_bits_on_card(
+        cuda):
+    """One kernel a call (the nodes of a captured call's CUDA graph), and
+    a captured CUDA graph replayed 3 times gives the eager call's bits
+    each time: the per-worker counters are back at 0 after every call."""
+    X, res = _inputs(4, 12500, 32, seed=12)
+    Xt, rt = torch.from_numpy(X).to(cuda), torch.from_numpy(res).to(cuda)
+    want = tlc.lasso_partial(Xt, rt)
+    torch.cuda.synchronize()
+    assert _graph_kernel_nodes(lambda: tlc.lasso_partial(Xt, rt)) == [0]
+    g = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(g):
+        out = tlc.lasso_partial(Xt, rt)
+    for _ in range(3):
+        out.zero_()
+        g.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(out, want)
 
 
 @pytest.mark.gpu
@@ -525,7 +598,7 @@ def _cuda_ssm(cuda, B, S, C, N, with_h0, dtype, seed=9, strided=False):
 
 # the main path's prefill (4, 1000, 5120, 64, bf16, h0 zeros) at batch 1,
 # then S = 1, 25, 200 and 1,000; N = 16 and 64 (and 20 and 33, between the
-# kernel's register buckets); C not a multiple of the 64-channel block;
+# kernel's register buckets); C not a multiple of the 32-channel block;
 # h0 given and None; strided views
 GPU_SSM_CASES = SSM_CASES + [
     (1, 1000, 5120, 64, True, "bfloat16", 0),
@@ -553,6 +626,26 @@ def test_ssm_scan_kernel_matches_plain_on_card(cuda, case, strided):
     assert torch.equal(y, y2) and torch.equal(h, h2)   # same bits
     yr, hr = tref.ssm_scan_ref(*args)
     assert y.dtype == yr.dtype and h.dtype == torch.float32
+    tol = 1e-4 if dtype == "float32" else 1e-2
+    for got, want, t in ((y, yr, tol), (h, hr, 1e-4)):
+        err = (got.float() - want.float()).abs().max().item()
+        assert err <= t * max(1.0, want.float().abs().max().item()), err
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", [(1, 1000, 5120, 64, True, "bfloat16"),
+                                  (2, 77, 70, 17, False, "bfloat16"),
+                                  (2, 40, 96, 63, True, "float32")])
+def test_ssm_scan_kernel_takes_unaligned_views_on_card(cuda, case):
+    """x, dt, Bm, Cm each one element into a larger buffer: the kernel's
+    element loads in place of its 16-byte copies."""
+    B, S, C, N, with_h0, dtype = case
+    args = list(_cuda_ssm(cuda, B, S, C, N, with_h0, getattr(torch, dtype)))
+    for i in (0, 1, 3, 4):
+        args[i] = _offset_view(args[i])
+        assert args[i].data_ptr() % 16 != 0
+    y, h = tops.ssm_scan(*args)
+    yr, hr = tref.ssm_scan_ref(*args)
     tol = 1e-4 if dtype == "float32" else 1e-2
     for got, want, t in ((y, yr, tol), (h, hr, 1e-4)):
         err = (got.float() - want.float()).abs().max().item()
