@@ -12,7 +12,11 @@
 3. The STRADS Lasso round.  Builds the data on the card (dense f32 X of
    n × J, the recipe of ``synthetic_correlated``, from ``--seed``), then
    holds ``lasso_partial`` and ``gram_block`` against their plain
-   versions at the main path's shapes and at ragged ones and times them.
+   versions at the main path's shapes, at ragged ones and on views one
+   element past 16-byte alignment and times them (``gram_block`` also at
+   the ``scan_w1`` run's (1, n, 128), with ``matmul`` beside it), prints
+   the registers and spills of both kernels, and times the floor of a
+   kernel node (one ``add_`` on one element in a CUDA graph).
    Drives the main path through the port's entry points: the plan
    ``examples/plans/lasso_pallas.json`` as checked in (scan, 16 rounds,
    W = 4, the CUDA kernels), the same plan on the loop executor, on
@@ -65,14 +69,18 @@ Kernel times: ``ms`` is the eager loop (CUDA events around 50–200 calls
 enqueued back to back), which for a kernel of a few microseconds times
 the host's enqueue; ``device_ms`` is the device alone (20 calls captured
 in one CUDA graph, replayed 10 times, ``graph_ms``); the library call has
-both.  ``lasso_partial`` is also checked to be one kernel a call (the
-nodes of a CUDA graph that captures one call, ``graph_kernels``) and to
-give the eager call's bits on each of 3 replays of a captured call.
+both.  ``lasso_partial`` and ``gram_block`` are also checked to be one
+kernel a call (the nodes of a CUDA graph that captures one call,
+``graph_kernels``) and to give the eager call's bits on each of 3 replays
+of a captured call; ``gram_block``'s G to be symmetric to the bit.  Each
+kernel's ``floor_bound_ms`` is the larger of its bound and
+``launch_floor_ms``, the device time of a trivial kernel node.
 The launch counts are read outside every captured region (a replay
 adds nothing to them).
 
 Any failure exits nonzero before the last line.  The line before the last
-lists every kernel (``{"kernels": [...]}``); the last line is
+lists every kernel and the floor (``{"kernels": [...], "launch_floor_ms":
+t}``); the last line is
 ``{"ok": true, "device": {...}}``.  Everything measured is also written
 to ``chiprun_out/chip_smoke.json``.  Float32 products run in full f32
 (``allow_tf32`` is set False for matmul and cuDNN).
@@ -233,10 +241,11 @@ def max_err(torch, got, want) -> tuple[float, float]:
 
 def kernel_phase(torch, lc, ref, X, y, W: int, U: int, UP: int, seed: int):
     """Each kernel against its plain version at the main path's shapes
-    (candidate columns gathered out of the real X) and at ragged ones,
-    timed eager and on the device alone; ``lasso_partial`` also on a view
-    one element past 16-byte alignment, and replayed from a captured CUDA
-    graph."""
+    (candidate columns gathered out of the real X), at ragged ones and on
+    a view one element past 16-byte alignment, timed eager and on the
+    device alone, checked to be one kernel node a call and replayed from
+    a captured CUDA graph; ``gram_block`` also at the scan_w1 run's
+    shape."""
     n, J = X.shape
     gen = torch.Generator().manual_seed(seed)
     Xw = X.view(W, n // W, J)
@@ -247,6 +256,7 @@ def kernel_phase(torch, lc, ref, X, y, W: int, U: int, UP: int, seed: int):
     ragged_X = torch.randn((4, 1001, 37), generator=gen).to(X.device)
     ragged_r = torch.randn((4, 1001), generator=gen).to(X.device)
     Xb_off, rw_off = offset_view(torch, Xb), offset_view(torch, rw)
+    Xc_off = offset_view(torch, Xc)
     cases = {
         "lasso_partial": dict(
             fn=lambda: lc.lasso_partial(Xb, rw),
@@ -266,6 +276,8 @@ def kernel_phase(torch, lc, ref, X, y, W: int, U: int, UP: int, seed: int):
             library=lambda: torch.matmul(Xc.mT, Xc),
             ragged=(lambda: lc.gram_block(ragged_X),
                     lambda: ref.gram_ref(ragged_X)),
+            unaligned=(lambda: lc.gram_block(Xc_off),
+                       lambda: ref.gram_ref(Xc_off)),
             # G is symmetric: the upper triangle, U′(U′+1)/2 entries of
             # 2·n/W operations each, is all the function needs
             nbytes=4 * (W * (n // W) * UP + W * UP * UP),
@@ -279,6 +291,9 @@ def kernel_phase(torch, lc, ref, X, y, W: int, U: int, UP: int, seed: int):
         check(lc.LAUNCHES[name] == before + 1,
               f"{name}: the wrapper did not launch its kernel")
         check(torch.equal(got, c["fn"]()), f"{name}: two launches differ")
+        if name == "gram_block":
+            check(torch.equal(got, got.mT), "gram_block: G is not symmetric "
+                                            "to the bit")
         err, tol = max_err(torch, got, want)
         check(err <= tol, f"{name}: max abs err {err} > {tol} at the main "
                           f"path's shapes")
@@ -294,24 +309,22 @@ def kernel_phase(torch, lc, ref, X, y, W: int, U: int, UP: int, seed: int):
                                 f"a view one element past alignment")
             extra["unaligned_max_abs_err"] = uerr
         kernels, nodes = graph_kernels(torch, c["fn"])
-        if name == "lasso_partial":
-            check(kernels == 1 and nodes == 1,
-                  f"lasso_partial: a captured call has {kernels} kernels in "
-                  f"{nodes} graph nodes, not one")
-            # one captured call replayed: the same bits each time (the
-            # per-worker counters are back at 0 after every call)
-            g = torch.cuda.CUDAGraph()
-            with torch.cuda.graph(g):
-                captured = c["fn"]()
-            for _ in range(3):
-                captured.zero_()
-                g.replay()
-                torch.cuda.synchronize()
-                check(torch.equal(captured, got),
-                      "lasso_partial: a graph replay differs from the eager "
-                      "call")
-            del g, captured
-            extra["graph_replays_equal"] = 3
+        check(kernels == 1 and nodes == 1,
+              f"{name}: a captured call has {kernels} kernels in {nodes} "
+              f"graph nodes, not one")
+        # one captured call replayed: the same bits each time (the
+        # counters are back at 0 after every call)
+        g = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(g):
+            captured = c["fn"]()
+        for _ in range(3):
+            captured.zero_()
+            g.replay()
+            torch.cuda.synchronize()
+            check(torch.equal(captured, got),
+                  f"{name}: a graph replay differs from the eager call")
+        del g, captured
+        extra["graph_replays_equal"] = 3
         ms = time_ms(torch, c["fn"])
         device_ms = graph_ms(torch, c["fn"])
         plain_ms = time_ms(torch, c["plain"])
@@ -333,6 +346,62 @@ def kernel_phase(torch, lc, ref, X, y, W: int, U: int, UP: int, seed: int):
             "graph_kernels_a_call": kernels, "graph_nodes_a_call": nodes,
             **extra,
             "shape": list(Xc.shape if name == "gram_block" else Xb.shape)}
+    # the scan_w1 run's shape: one worker over all n rows
+    out["gram_block"]["by_shape"] = {"scan_w1": gram_at(
+        torch, lc, ref, X.view(1, n, J).index_select(-1, cand))}
+    return out
+
+
+def gram_at(torch, lc, ref, Xc) -> dict:
+    """``gram_block`` at one shape: within KERNEL_TOL of its plain
+    version, symmetric to the bit, timed eager and on the device, with
+    ``matmul``'s device time and the bound."""
+    W, n, U = Xc.shape
+    got = lc.gram_block(Xc)
+    err, tol = max_err(torch, got, ref.gram_ref(Xc))
+    check(err <= tol, f"gram_block: max abs err {err} > {tol} at "
+                      f"{tuple(Xc.shape)}")
+    check(torch.equal(got, got.mT) and torch.equal(got, lc.gram_block(Xc)),
+          f"gram_block: not symmetric or not the same bits at "
+          f"{tuple(Xc.shape)}")
+    device_ms = graph_ms(torch, lambda: lc.gram_block(Xc))
+    bms, by = bound(4 * (W * n * U + W * U * U), W * n * U * (U + 1))
+    return {"shape": [W, n, U], "max_abs_err": err, "tolerance": tol,
+            "ms": time_ms(torch, lambda: lc.gram_block(Xc)),
+            "device_ms": device_ms, "bound_ms": bms, "bound_by": by,
+            "device_bound_share": bms / device_ms,
+            "library_device_ms": graph_ms(
+                torch, lambda: torch.matmul(Xc.mT, Xc))}
+
+
+def ptxas_kernels(log: str) -> dict:
+    """Registers, spill bytes and shared bytes of each entry function in
+    an ``nvcc -Xptxas -v`` report, by its (demangled-enough) name."""
+    import re
+    out, name = {}, None
+    for ln in log.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", ln)
+        if m:
+            name = m.group(1)
+            if name.startswith("_ZN"):       # the last nested component
+                i, parts = 3, []
+                while i < len(name) and name[i].isdigit():
+                    j = i
+                    while name[j].isdigit():
+                        j += 1
+                    parts.append(name[j:j + int(name[i:j])])
+                    i = j + int(name[i:j])
+                name = parts[-1] if parts else name
+            out[name] = {}
+        elif name and "spill stores" in ln:
+            st, ld = re.findall(r"(\d+) bytes spill", ln)
+            out[name].update(spill_store_bytes=int(st),
+                             spill_load_bytes=int(ld))
+        elif name and "Used" in ln and "registers" in ln:
+            out[name]["registers"] = int(re.search(r"Used (\d+) registers",
+                                                   ln).group(1))
+            sm = re.search(r"(\d+) bytes smem", ln)
+            out[name]["static_smem_bytes"] = int(sm.group(1)) if sm else 0
     return out
 
 
@@ -1236,6 +1305,19 @@ def main() -> int:
     torch.cuda.reset_peak_memory_stats()
     kern = kernel_phase(torch, lc, ref, X, y, W, U, UP, args.seed)
     kern_peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    regs = ptxas_kernels(_build.build_log["lasso_cd"]["ptxas"])
+    for name, fn in (("lasso_partial", "lasso_partial_fused"),
+                     ("gram_block", "gram_fused")):
+        kern[name]["ptxas"] = regs.get(fn)
+        print(f"{fn}: {json.dumps(regs.get(fn))}")
+    print("gram_block by shape: " + json.dumps(kern["gram_block"]["by_shape"]))
+    # the floor of a kernel node: one trivial kernel (add_ on one element)
+    # in the same CUDA-graph timing as every kernel's device_ms
+    one = torch.zeros(1, device=DEVICE)
+    launch_floor_ms = graph_ms(torch, lambda: one.add_(1.0))
+    print(f"launch floor (one add_ kernel node, device): "
+          f"{launch_floor_ms:.6f} ms")
+    del one
 
     # 4. the main path
     with open(os.path.join(ROOT, "examples", "plans",
@@ -1409,7 +1491,15 @@ def main() -> int:
         missing = [k for k in keys if k not in entry]
         check(not missing and entry["launches"],
               f"{name}: missing {missing} or never launched on its path")
+        # the least a launch can take in a graph: the bound or the floor
+        entry["floor_bound_ms"] = max(entry["bound_ms"], launch_floor_ms)
+        entry["device_floor_share"] = (entry["floor_bound_ms"]
+                                       / entry["device_ms"])
+    tg = kern["topk_gating"]
+    tg["decode_shape_floor_share"] = (max(tg["bound_ms"], launch_floor_ms)
+                                      / tg["decode_shape_device_ms"])
     result.update(kernels=list(kern.values()), main=main, profile=prof,
+                  launch_floor_ms=launch_floor_ms,
                   small={"objective": got, "reference_cd": want},
                   serve=serve, f32_parity=parity, zamba2=zamba,
                   zamba2_f32_parity=zparity)
@@ -1417,7 +1507,8 @@ def main() -> int:
     with open(os.path.join(ROOT, "chiprun_out", "chip_smoke.json"),
               "w") as f:
         json.dump(result, f, indent=1)
-    print(json.dumps({"kernels": list(kern.values())}))
+    print(json.dumps({"kernels": list(kern.values()),
+                      "launch_floor_ms": launch_floor_ms}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

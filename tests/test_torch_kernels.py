@@ -123,6 +123,51 @@ def test_backends_agree_and_reject_bad_shapes(jx):
         build_kernels("pallas")
 
 
+def _gram_footprint(W, n, U, C, S):
+    """What ``gram_fused`` touches, from csrc/lasso_cd.cu's indexing: the
+    rows of each slice, the highest workspace float written + 1 (a
+    cluster's partial takes a slot of 8704 floats, of which block ``rank``
+    writes piece ``rank``), and the highest counter + 1."""
+    panels = -(-U // 128)
+    jobs, groups = panels * panels, S // C
+    rps = -(-n // S)
+    rows = [min(n, min(n, s * rps) + rps) - min(n, s * rps)
+            for s in range(S)]
+    top = 0
+    for w in range(W):
+        for job in range(jobs):
+            piece = 64 * (136 if job < panels else 128) // C
+            for q in range(groups):
+                for rank in range(C):
+                    top = max(top, ((w * jobs + job) * groups + q) * 8704
+                              + rank * piece + piece)
+    return rows, top, W * jobs * C
+
+
+@pytest.mark.parametrize("W,n,U,slots", [
+    (4, 12500, 128, 120), (1, 50000, 128, 120), (4, 12500, 128, 132),
+    (1, 50000, 128, 132), (4, 1001, 37, 120), (2, 300, 130, 120),
+    (3, 77, 5, 132), (1, 5, 256, 112), (64, 4000, 128, 120),
+    (2, 1000, 1, 16)])
+def test_gram_plan_fills_the_card_within_its_workspace(W, n, U, slots):
+    """The launch plan for a card that runs ``slots`` blocks at once: a
+    cluster of 4 or 8 and S a multiple of it; the slices cover every row
+    once; the workspace and the counters it promises are what the
+    kernel's indexing reaches (to within the last slot of 8704 floats,
+    which an off-diagonal job fills to 8192); and the main path's shapes
+    fill the card in one wave."""
+    C, S, floats, counters = tlc._gram_plan(W, n, U, slots)
+    assert C in (4, 8) and S >= C and S % C == 0
+    rows, top, need = _gram_footprint(W, n, U, C, S)
+    assert sum(rows) == n and min(rows) >= 0
+    assert floats - 8704 < top <= floats and counters == need
+    blocks = S * (-(-U // 128)) ** 2 * W
+    assert blocks <= max(slots, C * (-(-U // 128)) ** 2 * W)
+    if (n, U) in ((12500, 128), (50000, 128)):
+        assert blocks >= 0.9 * slots
+        assert max(rows) <= 450             # ≤ 15 stages of 32 rows a block
+
+
 # ---------------------------------------------------------------------------
 # Attention and gating (the model zoo's kernels), plain versions on the CPU
 # ---------------------------------------------------------------------------
@@ -469,6 +514,75 @@ def test_gram_block_kernel_matches_plain_on_card(cuda, W, n, U):
     assert torch.equal(got, got.mT)         # upper triangle, mirrored
     want = tref.gram_ref(Xt)
     torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-2)
+
+
+@pytest.mark.gpu
+def test_gram_block_is_one_launch_and_replays_the_same_bits_on_card(cuda):
+    """One kernel a call, G symmetric to the bit, and a captured call
+    replayed 3 times gives the eager call's bits each time: the counters
+    are back at 0 after every call."""
+    X, _ = _inputs(4, 12500, 128, seed=13)
+    Xt = torch.from_numpy(X).to(cuda)
+    want = tlc.gram_block(Xt)
+    torch.cuda.synchronize()
+    assert torch.equal(want, want.mT)
+    assert _graph_kernel_nodes(lambda: tlc.gram_block(Xt)) == [0]
+    g = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(g):
+        out = tlc.gram_block(Xt)
+    for _ in range(3):
+        out.zero_()
+        g.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(out, want)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("U", [128, 37])
+def test_gram_block_kernel_takes_unaligned_views_on_card(cuda, U):
+    """A base one element past 16-byte alignment (and U′ = 37 on any base)
+    takes the kernel's 4-byte copies; U′ = 128 aligned takes 16-byte
+    ones."""
+    X, _ = _inputs(4, 12500, U, seed=14)
+    Xt = _offset_view(torch.from_numpy(X).to(cuda))
+    assert Xt.data_ptr() % 16 != 0 and Xt.is_contiguous()
+    want = tref.gram_ref(Xt)
+    for Xa in (Xt, Xt.contiguous()):
+        got = tlc.gram_block(Xa)
+        assert torch.equal(got, got.mT)
+        torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-2)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("U", [1, 8, 127, 129, 256])
+def test_gram_block_kernel_matches_plain_at_every_width_on_card(cuda, U):
+    """One column, a single 8-column tile, a panel less one column, and
+    two panels (ragged and whole: diagonal and off-diagonal jobs)."""
+    X, _ = _inputs(2, 3000, U, seed=15)
+    Xt = torch.from_numpy(X).to(cuda)
+    got = tlc.gram_block(Xt)
+    torch.cuda.synchronize()
+    assert torch.equal(got, tlc.gram_block(Xt))
+    assert torch.equal(got, got.mT)
+    torch.testing.assert_close(got, tref.gram_ref(Xt), rtol=1e-4, atol=1e-2)
+
+
+@pytest.mark.gpu
+def test_gram_block_shares_its_workspace_soundly_on_card(cuda):
+    """Calls at two shapes, interleaved with lasso_partial (which shares
+    the workspace and counters), give the first call's bits again."""
+    X4, res = _inputs(4, 12500, 128, seed=16)
+    X1, _ = _inputs(1, 50000, 128, seed=17)
+    X4t, X1t = torch.from_numpy(X4).to(cuda), torch.from_numpy(X1).to(cuda)
+    Xb, rt = X4t[..., :32].contiguous(), torch.from_numpy(res).to(cuda)
+    first4, first1 = tlc.gram_block(X4t), tlc.gram_block(X1t)
+    z = tlc.lasso_partial(Xb, rt)
+    for _ in range(2):
+        assert torch.equal(tlc.gram_block(X4t), first4)
+        assert torch.equal(tlc.lasso_partial(Xb, rt), z)
+        assert torch.equal(tlc.gram_block(X1t), first1)
+    torch.testing.assert_close(first1, tref.gram_ref(X1t), rtol=1e-4,
+                               atol=1e-2)
 
 
 @pytest.mark.gpu
