@@ -25,7 +25,43 @@
    within the stated tolerance and that the objective is finite and
    falls; then times where a round goes and runs the repo's convergence
    check (``tests/test_lasso.py``) on the card at a small size.
-4. Model-zoo serving of Phi-3.5-MoE at its published widths, depth cut to
+4. STRADS MF at the Netflix Prize shape: 17,770 movies, 1.18 % of the
+   entries observed, the users cut to MF_USERS (131,072: the dense
+   layout holds A, the mask and R, 9.3 GB each), rank 40, λ = 0.05, W = 4,
+   planted rank 20, data made on the card from ``--seed``.  One sweep
+   (80 rounds) on scan, then on loop (equal to the bit), then at W = 1
+   (within MF_W_TOL); the objective falls every round within
+   MF_MONO_TOL; rounds/s, the peak memory and a profiler window of 4
+   rounds; then ALS (2 iterations) beside STRADS on the first 8,192
+   users.  MF runs plain torch ops: it has no kernel.
+5. STRADS LDA at the UCI NYTimes shape: 299,776 documents (2,342 a
+   worker), 102,660 words, 99.5 M tokens (777,344 a worker), K = 1,000,
+   W = 128 workers, a planted corpus made on the card from ``--seed``.
+   ``lda_gibbs`` against its plain version at the chip shape on round 0
+   with one explicit Gumbel tensor (z, B, D and s̃ equal to the bit; a
+   difference is reported with its top-2 margin and fails), at ragged
+   shapes (K = 1, 7, 33, a worker with no active token, one with a
+   single document, an unaligned B) in both noise modes, for STRADS's
+   rotation and for the baseline's one block over the vocabulary on
+   replicas of B; the sampler's Philox draws are Gumbel (10⁸ of the
+   plain version's, made on the card: mean within 1e-3 of γ, variance
+   within 1e-2 of π²/6).  Then the main path:
+   one rotation (128 rounds) on scan and on loop, with the launch counts
+   set to 0 just before and read after (128 each), equal to the bit;
+   D, B, s recounted from z equal to the state; the log-likelihood up;
+   z in [0, K); every count below 2²⁴.  The kernel timed at round 0's
+   shape against two bounds: the roofline (the distinct B and D rows the
+   round touches read once at 3.35 TB/s, or its operations at 67
+   TFLOP/s with each logf at the cost of its SASS, the larger) and the
+   chain (the longest chain times one step); a profiler window of 4
+   rounds that must hold every launch; the Philox kernel's
+   log-likelihood after a rotation within LDA_BAND of the plain
+   version's with torch's draws, at a smaller size; the data-parallel
+   baseline (1 round, W = 16) beside one STRADS rotation on the first
+   eighth of the corpus, its sweep first held against the plain version
+   to the bit at its chip shape (the leading 2,048 tokens of 4
+   workers).
+6. Model-zoo serving of Phi-3.5-MoE at its published widths, depth cut to
    ``--layers`` (24 of 32: the bf16 weights must fit the card), through
    the port's ``launch/serve_lm``: batch 4, prompt 1,024, 32 greedy
    tokens.  First a prefill and one decode step in which every launch of
@@ -38,11 +74,11 @@
    and first decode step with the plain versions, and with a float64
    attention as a control of how far a 24-layer bf16 model amplifies
    rounding; then profiler windows over a prefill and 4 decode steps.
-5. The same model in float32 with two layers, at full width: the first
+7. The same model in float32 with two layers, at full width: the first
    token and the logits of the prefill and the first decode step with the
    kernels equal those with the plain versions, within the stated
    tolerance.
-6. Model-zoo serving of Zamba2-2.7B at its published widths and full
+8. Model-zoo serving of Zamba2-2.7B at its published widths and full
    depth (54 mamba layers, the shared attention block applied 9 times),
    bf16, after the Phi-3.5-MoE weights are freed: batch 4, prompt 1,000
    (longer than 128 and not a multiple of it, so every mamba layer of a
@@ -57,7 +93,7 @@
    prefill and first decode step with the plain versions (printed, not
    asserted: a bf16 model at depth amplifies rounding); profiler windows
    over a prefill and 4 decode steps.
-7. Zamba2-2.7B in float32 with 12 layers (2 groups, so the shared
+9. Zamba2-2.7B in float32 with 12 layers (2 groups, so the shared
    block's cache is stacked over 2 applications), at full width: logits
    within the stated tolerance, kernels against plain versions, and the
    first tokens equal in every row that f32 can decide (the top-2 margin
@@ -111,22 +147,30 @@ SSM_TOL = 1e-2                 # |kernel − plain| ≤ SSM_TOL·max(1, max|plai
 SSM_TOL_F32 = 1e-4             # the same for f32 y and for h (f32 sums in
                                # another order over up to 1,000 steps)
 DEVICE = "cuda"
+PROFILE_PRIMERS = 64           # empty kernels a profiler window launches
+                               # first: a session loses its first device
+                               # records, more as the process ages
+                               # (tools/profile_window_check.py)
 SOURCE = "src/repro_torch/kernels/csrc/lasso_cd.cu"
 SOURCES = {"lasso_partial": SOURCE, "gram_block": SOURCE,
            "flash_attention":
                "src/repro_torch/kernels/csrc/flash_attention.cu",
            "topk_gating": "src/repro_torch/kernels/csrc/moe_gating.cu",
-           "ssm_scan": "src/repro_torch/kernels/csrc/ssm_scan.cu"}
+           "ssm_scan": "src/repro_torch/kernels/csrc/ssm_scan.cu",
+           "lda_gibbs": "src/repro_torch/kernels/csrc/lda_gibbs.cu"}
 REPLACES = {"lasso_partial": "src/repro/kernels/lasso_cd.py:50",
             "gram_block": "src/repro/kernels/lasso_cd.py:94",
             "flash_attention": "src/repro/kernels/flash_attention.py:100",
             "topk_gating": "src/repro/kernels/moe_gating.py:56",
-            "ssm_scan": "src/repro/kernels/ssm_scan.py:67"}
+            "ssm_scan": "src/repro/kernels/ssm_scan.py:67",
+            # no Pallas kernel: the lax.scan of _gibbs_scan
+            "lda_gibbs": "src/repro/apps/lda.py:73"}
 ARCH = "phi3.5-moe-42b-a6.6b"
 BATCH, PROMPT, GEN = 4, 1024, 32
 ZAMBA = "zamba2-2.7b"
 ZPROMPT = 1000                 # > 128 and not a multiple of 128: the scan path
-BUILD = ("lasso_cd", "flash_attention", "moe_gating", "ssm_scan")
+BUILD = ("lasso_cd", "flash_attention", "moe_gating", "ssm_scan",
+         "lda_gibbs")
 
 
 class SmokeFailure(Exception):
@@ -463,12 +507,9 @@ def round_breakdown(torch, eng, state, data, seed: int, reps: int = 5):
     return {k: sorted(v)[len(v) // 2] for k, v in times.items()}
 
 
-def profile_rounds(torch, lasso, cfg, plan, X, y, seed: int):
-    """Device busy share over a 4-round window, from torch.profiler: the
-    summed time of the device's own events (kernels, copies) over the
-    window's wall time (the profiler's host overhead included)."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
+def profile_rounds(torch, lasso, lc, cfg, plan, X, y, seed: int):
+    """Device busy share over a 4-round window (``profile_window``), every
+    launch of both Lasso kernels in it."""
     eng = lasso.make_engine(cfg, workers=plan.workers, device=DEVICE)
     data = eng.shard_data({"X": X, "y": y})
     state = eng.init_state(y=y)
@@ -476,25 +517,652 @@ def profile_rounds(torch, lasso, cfg, plan, X, y, seed: int):
     gen.manual_seed(seed)
     short = type(plan).from_json(dict(plan.to_json(), rounds=4))
     eng.execute(state, data, gen, short)                  # warm
+    return profile_window(
+        torch, lambda: eng.execute(state, data, gen, short),
+        {"lasso_partial": (lc.LAUNCHES, ("lasso_partial_fused",)),
+         "gram_block": (lc.LAUNCHES, ("gram_fused",))})
+
+# ---------------------------------------------------------------------------
+# STRADS MF at the Netflix Prize shape, STRADS LDA at the NYTimes shape
+# ---------------------------------------------------------------------------
+
+# Netflix Prize: 100,480,507 ratings of 17,770 movies by 480,189 users
+NETFLIX = dict(users=480_189, movies=17_770, ratings=100_480_507)
+MF_USERS = 131_072             # users cut to what the dense layout holds
+MF_RANK, MF_PLANTED, MF_LAM, MF_WORKERS = 40, 20, 0.05, 4
+MF_ALS_USERS = 8_192
+MF_W_TOL = 1e-3                # W = 1 vs W = 4: |Δx| ≤ MF_W_TOL·max|x| (f32
+                               # sums over other row splits, 80 CD rounds)
+MF_MONO_TOL = 1e-6             # obj(t+1) ≤ obj(t)·(1 + MF_MONO_TOL)
+# UCI NYTimes bag of words: 299,752 documents, 102,660 words, ~99.5 M tokens
+NYTIMES = dict(docs=299_752, vocab=102_660)
+LDA_TOPICS, LDA_WORKERS = 1_000, 128
+LDA_TOKENS_PER_WORKER = 777_344     # 128 × 777,344 = 99,500,032 tokens
+LDA_DOCS_PER_WORKER = 2_342         # 128 × 2,342 ≥ 299,752 documents
+LDA_SEED = 17                       # StradsLDA's Philox seed (lda.STRADS_SEED)
+LDA_BAND = 0.10                # |LL(Philox) − LL(plain, torch draws)| after a
+                               # rotation ≤ LDA_BAND × the plain path's climb
+LDA_BAND_CFG = dict(vocab=5_000, num_topics=100, num_workers=16,
+                    tokens_per_worker=16_000, docs_per_worker=500)
+LDA_BASELINE_WORKERS = 16      # the baseline on the corpus's first eighth
+LDA_BASELINE_CHECK = (4, 2_048)     # its workers and leading tokens held
+                                    # against the plain version
+GUMBEL_DRAWS = (LDA_WORKERS, 800)   # slots × K = 1.024e8 Philox draws
+EULER_GAMMA = 0.5772156649015329
+LDA_LOGF_PER_TOPIC = 4         # log(γ + B), log(α + D), two in the Gumbel draw
+LDA_OTHER_OPS_PER_TOPIC = 6    # 5 adds, 1 compare (Philox's integer work and
+                               # log(vg + s̃), kept per topic, not counted)
+SFU_SLOTS = 8                  # an SFU (MUFU) result takes 8 FMA lanes' time
+                               # on sm_90: 16 a clock an SM against 128 (CUDA
+                               # C++ Programming Guide, instruction throughput)
+LOGF_PROBE = r"""
+extern "C" __global__ void probe_logf(const float* x, float* y) {
+  y[threadIdx.x] = logf(x[threadIdx.x]);
+}
+extern "C" __global__ void probe_copy(const float* x, float* y) {
+  y[threadIdx.x] = x[threadIdx.x];
+}
+"""
+
+
+def mf_phase(torch, mf, ExecutionPlan, seed: int) -> dict:
+    """STRADS MF at the Netflix Prize shape with the users cut to
+    MF_USERS: one full sweep (2K rounds) on scan, then on loop (equal to
+    the bit), then at W = 1; the objective must fall every round within
+    MF_MONO_TOL; rounds/s, a profiler window of 4 rounds and the peak
+    memory; then ALS and STRADS side by side on the first MF_ALS_USERS
+    users."""
+    N, M, K, P = MF_USERS, NETFLIX["movies"], MF_RANK, MF_WORKERS
+    density = NETFLIX["ratings"] / (NETFLIX["users"] * NETFLIX["movies"])
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    A, mask = mf.synthetic_ratings_device(seed, N, M, MF_PLANTED,
+                                          density=density, device=DEVICE)
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        eng.execute(state, data, gen, short)
+    res = {"users": N, "movies": M, "rank": K, "planted_rank": MF_PLANTED,
+           "lam": MF_LAM, "workers": P, "density": density,
+           "observed": int(mask.sum().item()),
+           "data_seconds": time.perf_counter() - t0,
+           "dense_gb_each": A.numel() * 4 / 1e9,
+           "data_peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9}
+    print(f"mf: A, mask ({N}, {M}) f32, {res['dense_gb_each']:.2f} GB each, "
+          f"{res['observed']} ratings, built in {res['data_seconds']:.2f} s")
+    cfg = mf.MFConfig(num_rows=N, num_cols=M, rank=K, lam=MF_LAM)
+    R = 2 * K
+
+    def gen():
+        return torch.Generator(device=DEVICE).manual_seed(seed)
+
+    def run(workers, executor, rounds=R, collect=True):
+        eng = mf.make_engine(cfg, workers=workers, device=DEVICE)
+        data = eng.shard_data({"A": A, "mask": mask})
+        state = eng.init_state(A=A, mask=mask, generator=gen())
+        obj = eng.app.objective_collect()
+        obj0 = float(obj(state))
+        torch.cuda.reset_peak_memory_stats()
         torch.cuda.synchronize()
-        wall_us = (time.perf_counter() - t0) * 1e6
-    per_name: dict = {}
-    for e in prof.events():
-        if e.device_type == DeviceType.CUDA:
-            d, c = per_name.get(e.name, (0.0, 0))
-            per_name[e.name] = (d + e.time_range.elapsed_us(), c + 1)
-    busy_us = sum(d for d, _ in per_name.values())
-    rows = sorted(((d, k, c) for k, (d, c) in per_name.items()),
-                  reverse=True)
-    return {"wall_ms": wall_us / 1e3, "device_busy_ms": busy_us / 1e3,
-            "device_idle_share": (1 - busy_us / wall_us) if busy_us else None,
-            "top": [{"name": k, "device_ms": d / 1e3, "count": c}
-                    for d, k, c in rows[:15]]}
+        t0 = time.perf_counter()
+        rep = eng.execute(state, data, None, ExecutionPlan(
+            executor=executor, rounds=rounds, workers=workers),
+            collect=obj if collect else None)
+        torch.cuda.synchronize()
+        return (eng, data, rep, time.perf_counter() - t0, obj0,
+                torch.cuda.max_memory_allocated() / 1e9)
+
+    run(P, "scan", rounds=2, collect=False)               # warm-up
+    eng, data, scan, secs, obj0, peak = run(P, "scan")
+    _, _, loop, loop_secs, _, _ = run(P, "loop")
+    for k in ("W", "H", "R"):
+        check(torch.equal(scan.state[k], loop.state[k]),
+              f"mf: loop and scan differ in {k} on the card")
+    check(torch.equal(scan.trace, loop.trace), "mf: the objective traces of "
+                                               "loop and scan differ")
+    del loop
+    trace = scan.trace.cpu().tolist()
+    check(len(trace) == R and all(map(math.isfinite, trace)),
+          "mf: the objective trace is not finite")
+    rises = [t for t in range(R) if trace[t] > (trace[t - 1] if t else obj0)
+             * (1 + MF_MONO_TOL)]
+    check(not rises, f"mf: the objective rose in rounds {rises}")
+    check(trace[-1] < obj0, f"mf: the objective did not fall: {trace[-1]} "
+                            f">= {obj0}")
+    _, _, one, one_secs, _, _ = run(1, "scan")
+    diffs = {}
+    for k in ("W", "H", "R"):
+        a = scan.state[k].reshape(-1)
+        b = one.state[k].reshape(-1)
+        diffs[k] = float((a - b).abs().max() / a.abs().max())
+        check(diffs[k] <= MF_W_TOL, f"mf: W = 1 and W = {P} differ in {k} by "
+                                    f"{diffs[k]} of its largest value > "
+                                    f"{MF_W_TOL}")
+    obj_w1 = float(one.trace[-1])
+    del one
+    obj_fn = eng.app.objective_collect()
+    res.update(
+        rounds=R, objective_start=obj0, objective_end=trace[-1],
+        objective_w1_end=obj_w1, loop_equals_scan=True,
+        max_rel_diff_w1_vs_w4=diffs,
+        rounds_per_s={"scan": R / secs, "loop": R / loop_secs,
+                      "scan_w1": R / one_secs},
+        seconds={"scan": secs, "loop": loop_secs, "scan_w1": one_secs},
+        objective_ms=time_ms(torch, lambda: obj_fn(scan.state), iters=10,
+                             warmup=2),
+        peak_memory_gb=peak)
+    # the profiler window last: a session slows the host's later launches
+    st = scan.state
+    res["profile"] = profile_window(torch, lambda: eng.execute(
+        st, data, None, ExecutionPlan(executor="scan", rounds=4, workers=P)))
+    del scan, st, data, eng
+    torch.cuda.empty_cache()
+
+    # ALS against STRADS on the first MF_ALS_USERS users
+    n = min(MF_ALS_USERS, N)
+    A8, m8 = A[:n], mask[:n]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    _, als_trace = mf.als_fit(A8, m8, K, MF_LAM, 2, generator=gen(),
+                              device=DEVICE)
+    torch.cuda.synchronize()
+    als_s = time.perf_counter() - t0
+    cfg8 = mf.MFConfig(num_rows=n, num_cols=M, rank=K, lam=MF_LAM)
+    t0 = time.perf_counter()
+    _, s_trace = mf.fit(cfg8, A8, m8, plan=ExecutionPlan(
+        executor="scan", rounds=R, workers=P, collect_every=R),
+        generator=gen(), device=DEVICE)
+    torch.cuda.synchronize()
+    strads_s = time.perf_counter() - t0
+    check(all(math.isfinite(v) for _, v in als_trace + s_trace),
+          "mf: an ALS or STRADS objective is not finite")
+    res["als_vs_strads"] = {
+        "users": n, "als_iterations": 2,
+        "als_objective": [v for _, v in als_trace], "als_seconds": als_s,
+        "strads_rounds": R, "strads_objective": s_trace[-1][1],
+        "strads_seconds": strads_s}
+    del A, mask, A8, m8
+    torch.cuda.empty_cache()
+    return res
+
+
+def lda_counts(torch, words, docs, z, n_slabs: int, rows: int, dpw: int,
+               K: int):
+    """B (n_slabs, rows, K), D (P, dpw, K) and s counted from (P, T)
+    words, docs and z, word w in slab w // rows."""
+    P, T = words.shape
+    on = words >= 0
+    w, k = words[on].long(), z[on].long()
+    p = torch.arange(P, device=words.device)[:, None].expand(P, T)[on]
+    one = torch.ones(k.shape, device=words.device)
+    B = torch.zeros((n_slabs, rows, K), device=words.device)
+    B.index_put_((w // rows, w % rows, k), one, accumulate=True)
+    D = torch.zeros((P, dpw, K), device=words.device)
+    D.index_put_((p, docs[on].long(), k), one, accumulate=True)
+    return B, D, B.sum((0, 1))
+
+
+def gumbel_noise(torch, gen, shape):
+    u = torch.rand(shape, generator=gen, device=DEVICE)
+    return -torch.log(-torch.log(u.clamp_min_(1.1754944e-38)))
+
+
+def lda_kernel_vs_plain(torch, lg, ref, words, docs, z, order, offsets, B,
+                        D, s, kw, gumbel=None) -> dict:
+    """``lda_gibbs`` and its plain version on copies of the same state and
+    the same noise: z, B, D and s̃ must be equal to the bit."""
+    kz, kB, kD = z.clone(), B.clone(), D.clone()
+    pz, pB, pD = z.clone(), B.clone(), D.clone()
+    before = lg.LAUNCHES["lda_gibbs"]
+    ks = lg.lda_gibbs(words, docs, kz, order, offsets, kB, kD, s,
+                      gumbel=gumbel, **kw)
+    torch.cuda.synchronize()
+    check(lg.LAUNCHES["lda_gibbs"] == before + 1,
+          "lda_gibbs: the wrapper did not launch its kernel")
+    t0 = time.perf_counter()
+    ps = ref.lda_gibbs_ref(words, docs, pz, order, offsets, pB, pD, s,
+                           gumbel=gumbel, **kw)
+    torch.cuda.synchronize()
+    plain_s = time.perf_counter() - t0
+    out = {"z_mismatches": int((kz != pz).sum()),
+           "max_abs_err": max(float((a - b).abs().max()) for a, b in
+                              ((kB, pB), (kD, pD), (ks, ps))),
+           "plain_seconds": plain_s, "kernel": (kz, kB, kD, ks),
+           "plain": (pz, pB, pD, ps)}
+    out["equal"] = (out["z_mismatches"] == 0 and torch.equal(kB, pB)
+                    and torch.equal(kD, pD) and torch.equal(ks, ps))
+    return out
+
+
+def first_mismatch(torch, ref, words, docs, z, order, offsets, B, D, s, kw,
+                   gumbel, kz, pz) -> dict:
+    """Where the kernel and the plain version first part: the worker and
+    position of the first differing token, and the top-2 margin of its
+    noisy logits in the plain version's replay up to it."""
+    blocks, slots, counts = ref.gibbs_active(order, offsets, kw["phase"])
+    L = slots.shape[1]
+    valid = torch.arange(L, device=slots.device)[None] < counts[:, None]
+    diff = (kz.gather(1, slots) != pz.gather(1, slots)) & valid
+    j = int(torch.nonzero(diff.any(0))[0])
+    p = int(torch.nonzero(diff[:, j])[0])
+    blk = int(blocks[p])
+    off = offsets[p:p + 1].clone()
+    off[0, blk + 1] = off[0, blk] + j
+    z1, B1, D1 = z[p:p + 1].clone(), B.clone(), D[p:p + 1].clone()
+    st = ref.lda_gibbs_ref(words[p:p + 1], docs[p:p + 1], z1,
+                           order[p:p + 1], off, B1, D1, s,
+                           **dict(kw, phase=blk), gumbel=gumbel[p:p + 1, :j])
+    slot = int(slots[p, j])
+    v = int(words[p, slot]) - blk * kw["block_vocab"]
+    d, zi = int(docs[p, slot]), int(z1[0, slot])
+    b, dd, s_ = B1[blk, v].clone(), D1[0, d].clone(), st[0].clone()
+    b[zi] -= 1
+    dd[zi] -= 1
+    s_[zi] -= 1
+    x = gumbel[p, j] + ((torch.log(kw["gamma"] + b)
+                         - torch.log(kw["vg"] + s_))
+                        + torch.log(kw["alpha"] + dd))
+    top = x.topk(2).values if x.numel() > 1 else x
+    return {"mismatched_tokens": int(diff.sum()), "worker": p,
+            "position": j, "kernel_z": int(kz[p, slot]),
+            "plain_z": int(pz[p, slot]),
+            "top2_margin": float(top[0] - top[-1])}
+
+
+def lda_ragged(torch, lg, ref, seed: int) -> dict:
+    """``lda_gibbs`` against its plain version at ragged shapes: K = 1, 7,
+    33; a worker with no active token; a worker whose tokens all share
+    one document; B on a view one element past 16-byte alignment; both
+    noise modes; STRADS's rotation over nb blocks and the baseline's one
+    block over the whole vocabulary on a replica of B a worker."""
+    P, T, nb, Vb, dpw = 4, 600, 4, 12, 6
+    V = nb * Vb
+    gen = torch.Generator(device=DEVICE).manual_seed(seed + 3)
+    words = torch.randint(0, V, (P, T), generator=gen, device=DEVICE,
+                          dtype=torch.int32)
+    words[2] = -1                              # no active token at all
+    docs = torch.randint(0, dpw, (P, T), generator=gen, device=DEVICE,
+                         dtype=torch.int32)
+    docs[1] = 0                                # every token in one document
+    index = {True: lg.gibbs_index(words, Vb, nb),
+             False: lg.gibbs_index(words, V, 1)}
+    out = {}
+    for K in (1, 7, 33):
+        z0 = torch.randint(0, K, (P, T), generator=gen, device=DEVICE,
+                           dtype=torch.int32)
+        B, D, s = lda_counts(torch, words, docs, z0, nb, Vb, dpw, K)
+        for rotate in (True, False):
+            order, offsets = index[rotate]
+            Br = B if rotate else B.reshape(1, V, K).expand(P, V, K) \
+                .contiguous()
+            for phase in (0, 3):
+                kw = dict(phase=phase, rotate=rotate,
+                          block_vocab=Vb if rotate else V, vg=V * 0.1,
+                          alpha=0.1, gamma=0.1, seed=LDA_SEED)
+                L = int(lg.active_counts(offsets, phase).max())
+                for mode in ("explicit", "philox", "unaligned"):
+                    g = (gumbel_noise(torch, gen, (P, L, K))
+                         if mode == "explicit" else None)
+                    Bm = offset_view(torch, Br) if mode == "unaligned" \
+                        else Br
+                    r = lda_kernel_vs_plain(torch, lg, ref, words, docs, z0,
+                                            order, offsets, Bm, D, s, kw, g)
+                    name = (f"K{K}_{'rotate' if rotate else 'baseline'}_"
+                            f"phase{phase}_{mode}")
+                    check(r["equal"], f"lda_gibbs: kernel and plain differ "
+                                      f"at {name}: {r['z_mismatches']} "
+                                      f"topics, max abs err "
+                                      f"{r['max_abs_err']}")
+                    out[name] = r["max_abs_err"]
+    return out
+
+
+def lda_baseline_vs_plain(torch, lg, ref, lda, cfg, data, state,
+                          seed: int) -> dict:
+    """The data-parallel baseline's sweep at its chip shape (one block
+    spanning the padded vocabulary, a replica of B a worker) against its
+    plain version on one explicit Gumbel tensor, to the bit: the first
+    LDA_BASELINE_CHECK[1] tokens of the first LDA_BASELINE_CHECK[0]
+    workers (the plain version steps one token a Python iteration)."""
+    P, J = LDA_BASELINE_CHECK
+    Vp, K = cfg.padded_vocab, cfg.num_topics
+    words, docs = data["words"][:P], data["docs"][:P]
+    order, offsets = lg.gibbs_index(words, Vp, 1)
+    offsets[:, 1].clamp_(max=J)
+    replica = state["B"].expand(P, Vp, K).contiguous()
+    gen = torch.Generator(device=DEVICE).manual_seed(seed + 13)
+    g = gumbel_noise(torch, gen, (P, J, K))
+    kw = dict(phase=0, rotate=False, block_vocab=Vp, vg=Vp * cfg.gamma,
+              alpha=cfg.alpha, gamma=cfg.gamma, seed=lda.BASELINE_SEED)
+    r = lda_kernel_vs_plain(torch, lg, ref, words, docs, state["z"][:P],
+                            order, offsets, replica, state["D"][:P],
+                            state["s"], kw, g)
+    check(r["equal"], f"lda_gibbs: the baseline's sweep and its plain "
+                      f"version differ at the chip shape: "
+                      f"{r['z_mismatches']} topics, max abs err "
+                      f"{r['max_abs_err']}")
+    return {"workers": P, "tokens_each": J, "replica_shape": [P, Vp, K],
+            "max_abs_err": r["max_abs_err"], "equal": True,
+            "plain_seconds": r["plain_seconds"]}
+
+
+def logf_cost() -> dict:
+    """Operations of one full-precision ``logf`` as nvcc compiles it for
+    sm_90a with the kernels' own flags (no fast math): the SASS
+    instructions (``cuobjdump -sass``) that a kernel taking one logf has
+    beyond one that copies, an FFMA counted as 2 operations, a MUFU as
+    2·SFU_SLOTS and any other as 1 (a floor: each takes an issue slot)."""
+    import re
+    import shutil
+    from collections import Counter
+    from repro_torch.kernels import _build
+    d = _build.build_dir()
+    d.mkdir(parents=True, exist_ok=True)
+    src, lib = d / "logf_probe.cu", d / "logf_probe.so"
+    src.write_text(LOGF_PROBE)
+    subprocess.run([_build._nvcc(), *_build.NVCC_FLAGS, "-o", str(lib),
+                    str(src)], check=True, capture_output=True)
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    sass = subprocess.run([tool, "-sass", str(lib)], check=True,
+                          capture_output=True, text=True).stdout
+    ops = {}
+    for part in sass.split("Function : ")[1:]:
+        name = part.split()[0]
+        ops[name] = Counter(re.findall(
+            r"/\*[0-9a-f]{4}\*/\s+(?:@!?U?P[T0-9]+\s+)?([A-Z][A-Z0-9_]*)",
+            part))
+    check({"probe_logf", "probe_copy"} <= set(ops),
+          f"logf probe: functions {sorted(ops)} in the SASS")
+    extra = ops["probe_logf"] - ops["probe_copy"]
+    extra.pop("NOP", None)
+    flops = sum(n * (2 if op == "FFMA" else 2 * SFU_SLOTS if op == "MUFU"
+                     else 1) for op, n in extra.items())
+    check(flops > 0, "logf probe: no instructions for a logf in the SASS")
+    return {"instructions": sum(extra.values()), "flops": flops,
+            "mix": dict(extra)}
+
+
+def lda_round_bytes(torch, ref, words, docs, order, offsets, phase: int,
+                    rotate: bool, K: int, vocab: int, dpw: int,
+                    changed: int) -> tuple[float, dict]:
+    """The least bytes one round of ``lda_gibbs`` moves on these inputs:
+    each distinct (slab, word) row of B and (worker, doc) row of D that
+    the round's active tokens touch, read once; each active token's slot,
+    word, doc and topic read once; for each of the ``changed`` tokens
+    whose topic moves, its topic and the four counts it moves written
+    once; s read and each worker's s̃ written once."""
+    blocks, slots, counts = ref.gibbs_active(order, offsets, phase)
+    P, L = slots.shape
+    on = torch.arange(L, device=slots.device)[None] < counts[:, None]
+    p = torch.arange(P, device=slots.device)[:, None].expand(P, L)
+    slab = (blocks[:, None].expand(P, L) if rotate else p)[on]
+    w = words.gather(1, slots)[on].long()
+    d = docs.gather(1, slots)[on].long()
+    rows_b = int(torch.unique(slab * vocab + w).numel())
+    rows_d = int(torch.unique(p[on] * dpw + d).numel())
+    n = int(on.sum())
+    nbytes = 4 * K * (rows_b + rows_d) + 16 * n + 20 * changed \
+        + 4 * K * (1 + P)
+    return nbytes, {"b_rows": rows_b, "d_rows": rows_d, "tokens": n,
+                    "changed_tokens": changed, "gb": nbytes / 1e9}
+
+
+def lda_step_us(torch, lg, K: int, seed: int, tokens: int = 20_000) -> float:
+    """µs a token of one worker's chain (one thread block alone on the
+    card) at K topics: the latency of one step of the kernel."""
+    gen = torch.Generator(device=DEVICE).manual_seed(seed)
+    V, dpw = 64, 16
+    words = torch.randint(0, V, (1, tokens), generator=gen, device=DEVICE,
+                          dtype=torch.int32)
+    docs = torch.randint(0, dpw, (1, tokens), generator=gen, device=DEVICE,
+                         dtype=torch.int32)
+    z = torch.randint(0, K, (1, tokens), generator=gen, device=DEVICE,
+                      dtype=torch.int32)
+    B, D, s = lda_counts(torch, words, docs, z, 1, V, dpw, K)
+    order, offsets = lg.gibbs_index(words, V, 1)
+    kw = dict(phase=0, rotate=True, block_vocab=V, vg=V * 0.1, alpha=0.1,
+              gamma=0.1, seed=LDA_SEED)
+    ms = time_ms(torch, lambda: lg.lda_gibbs(words, docs, z, order, offsets,
+                                             B, D, s, **kw), iters=5,
+                 warmup=1)
+    return ms * 1e3 / tokens
+
+
+def lda_phase(torch, lda, lg, ref, ExecutionPlan, KernelSpec, seed: int):
+    """STRADS LDA at the NYTimes shape, K = 1,000, W = 128 workers;
+    returns (the kernel's entry for the kernels line, the phase's
+    numbers)."""
+    U, K = LDA_WORKERS, LDA_TOPICS
+    cfg = lda.LDAConfig(vocab=NYTIMES["vocab"], num_topics=K,
+                        num_workers=U, tokens_per_worker=LDA_TOKENS_PER_WORKER,
+                        docs_per_worker=LDA_DOCS_PER_WORKER)
+    Vb, Vp, T = cfg.block_vocab, cfg.padded_vocab, cfg.tokens_per_worker
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    words, docs, z0 = lda.synthetic_corpus_device(seed, cfg, device=DEVICE)
+    torch.cuda.synchronize()
+    res = {"docs": U * cfg.docs_per_worker, "vocab": cfg.vocab,
+           "tokens": U * T, "topics": K, "workers": U,
+           "tokens_per_worker": T, "docs_per_worker": cfg.docs_per_worker,
+           "block_vocab": Vb, "padded_vocab": Vp,
+           "data_seconds": time.perf_counter() - t0}
+    print(f"lda: {U * T} tokens over {cfg.vocab} words and "
+          f"{U * cfg.docs_per_worker} documents, K = {K}, W = {U} "
+          f"(V_b = {Vb}, V_p = {Vp}), built in {res['data_seconds']:.2f} s")
+    eng = lda.make_engine(cfg, device=DEVICE)
+    data = eng.shard_data({"words": words, "docs": docs})
+    order, offsets = lg.gibbs_index(data["words"], Vb, U)
+    counts = torch.stack([lg.active_counts(offsets, ph).long()
+                          for ph in range(U)])        # (round, worker)
+    res["active_tokens"] = {
+        "max_per_worker_round": int(counts.max()),
+        "mean_per_worker_round": float(counts.double().mean()),
+        "round0_max": int(counts[0].max()),
+        "round0_total": int(counts[0].sum()),
+        "chain_tokens_a_rotation": int(counts.max(1).values.sum())}
+    init = eng.init_state(words=words, docs=docs, z0=z0)
+    loop_init = {k: v.clone() for k, v in init.items()}
+    kw = dict(phase=0, rotate=True, block_vocab=Vb, vg=Vp * cfg.gamma,
+              alpha=cfg.alpha, gamma=cfg.gamma, seed=LDA_SEED)
+
+    # the kernel against its plain version at the chip shape, round 0, on
+    # one explicit Gumbel tensor of the active slots
+    L = res["active_tokens"]["round0_max"]
+    gen = torch.Generator(device=DEVICE).manual_seed(seed + 7)
+    gumbel = gumbel_noise(torch, gen, (U, L, K))
+    res["explicit_noise_gb"] = gumbel.numel() * 4 / 1e9
+    args = (data["words"], data["docs"], init["z"], order, offsets,
+            init["B"], init["D"], init["s"])
+    r = lda_kernel_vs_plain(torch, lg, ref, *args, kw, gumbel)
+    if not r["equal"]:
+        res["mismatch"] = first_mismatch(torch, ref, *args, kw, gumbel,
+                                         r["kernel"][0], r["plain"][0])
+        print("lda mismatch: " + json.dumps(res["mismatch"]))
+    check(r["equal"], f"lda_gibbs: kernel and plain differ at the chip "
+                      f"shape: {r['z_mismatches']} topics, max abs err "
+                      f"{r['max_abs_err']}")
+    plain_ms = r["plain_seconds"] * 1e3
+    entry = {"max_abs_err": r["max_abs_err"], "plain_ms": plain_ms,
+             "z_mismatches": 0}
+    del r, gumbel
+    torch.cuda.empty_cache()
+    entry["ragged_max_abs_err"] = lda_ragged(torch, lg, ref, seed)
+
+    # the sampler's Philox draws are Gumbel: the plain version's draws,
+    # made on the card (the kernel's are the same bits: it equals the
+    # plain version in Philox mode, above)
+    slots = torch.arange(GUMBEL_DRAWS[0] * GUMBEL_DRAWS[1],
+                         device=DEVICE).view(*GUMBEL_DRAWS)
+    dk = ref.philox_gumbel(LDA_SEED, 3, slots, K)
+    mean, var = float(dk.double().mean()), float(dk.double().var())
+    check(abs(mean - EULER_GAMMA) <= 1e-3 and abs(var - math.pi ** 2 / 6)
+          <= 1e-2, f"lda_gibbs: Philox draws are not Gumbel: mean {mean}, "
+                   f"variance {var}")
+    res["philox"] = {"draws": dk.numel(), "mean": mean, "variance": var}
+    del dk, slots
+
+    # the main path: one rotation on scan, then on loop, from one state
+    warm = {k: v.clone() for k, v in init.items()}
+    eng.execute(warm, data, None, ExecutionPlan(executor="loop", rounds=1))
+    del warm
+    ll0 = float(lda.log_likelihood(cfg, init))
+    runs = {}
+    torch.cuda.reset_peak_memory_stats()
+    lg.reset_launch_counts()
+    for ex, state in (("scan", init), ("loop", loop_init)):
+        before = lg.LAUNCHES["lda_gibbs"]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        rep = eng.execute(state, data, None, ExecutionPlan(
+            executor=ex, rounds=U), collect=lambda s: s["s_err"])
+        torch.cuda.synchronize()
+        runs[ex] = (rep, time.perf_counter() - t0)
+        check(lg.LAUNCHES["lda_gibbs"] - before == U,
+              f"lda {ex}: lda_gibbs launched "
+              f"{lg.LAUNCHES['lda_gibbs'] - before} times in {U} rounds")
+    launches = lg.LAUNCHES["lda_gibbs"]
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    a, b = runs["scan"][0], runs["loop"][0]
+    for k in ("z", "D", "B", "s", "s_err"):
+        check(torch.equal(a.state[k], b.state[k]),
+              f"lda: loop and scan differ in {k} on the card")
+    check(torch.equal(a.trace, b.trace), "lda: the s-error traces of loop "
+                                         "and scan differ")
+    flat = eng.unshard(a.state)
+    rec = lda.build_state(cfg, words, docs, flat["z"], device=DEVICE)
+    for k in ("D", "B", "s"):
+        check(torch.equal(rec[k], flat[k]),
+              f"lda: {k} recounted from z differs from the state")
+    z = flat["z"]
+    check(int(z.min()) >= 0 and int(z.max()) < K, "lda: z out of [0, K)")
+    s_max = float(flat["s"].max())
+    check(s_max < 2 ** 24, f"lda: a topic count {s_max} is not exact in f32")
+    ll1 = float(lda.log_likelihood(cfg, a.state))
+    check(math.isfinite(ll1) and ll1 > ll0,
+          f"lda: the log-likelihood did not rise: {ll0} → {ll1}")
+    s_errs = a.trace.cpu().tolist()
+    res.update(
+        rounds=U, launches=launches, loop_equals_scan=True,
+        counts_recount_exactly=True, loglik_start=ll0, loglik_end=ll1,
+        s_max=s_max, s_err_last=s_errs[-1], s_err_max=max(s_errs),
+        s_err_mean=sum(s_errs) / len(s_errs),
+        rounds_per_s={ex: U / s for ex, (_, s) in runs.items()},
+        seconds={ex: s for ex, (_, s) in runs.items()}, peak_memory_gb=peak)
+    del b, runs, loop_init, rec, flat
+
+    # the kernel timed at round 0's shape on the main path's state
+    st = a.state
+
+    def fn():
+        return lg.lda_gibbs(data["words"], data["docs"], st["z"], order,
+                            offsets, st["B"], st["D"], st["s"], **kw)
+    z_before = st["z"].clone()
+    fn()
+    changed = int((st["z"] != z_before).sum())
+    del z_before
+    ms = time_ms(torch, fn, iters=10, warmup=2)
+    device_ms = graph_ms(torch, fn, calls=5, replays=4)
+    n_act = res["active_tokens"]["round0_total"]
+    nbytes, rows = lda_round_bytes(torch, ref, data["words"], data["docs"],
+                                   order, offsets, 0, True, K, Vp,
+                                   cfg.docs_per_worker, changed)
+    logf = logf_cost()
+    flops = n_act * K * (LDA_LOGF_PER_TOPIC * logf["flops"]
+                         + LDA_OTHER_OPS_PER_TOPIC)
+    bms, by = bound(nbytes, flops)
+    step1 = lda_step_us(torch, lg, 1, seed)
+    stepK = lda_step_us(torch, lg, K, seed)
+    chain_ms = res["active_tokens"]["round0_max"] * step1 / 1e3
+    entry.update(
+        name="lda_gibbs", route="cuda", source=SOURCES["lda_gibbs"],
+        replaces=REPLACES["lda_gibbs"], pallas_counterpart=None,
+        launches=launches, ms=ms, device_ms=device_ms,
+        ms_repeat=time_ms(torch, fn, iters=10, warmup=1),
+        device_ms_repeat=graph_ms(torch, fn, calls=5, replays=4),
+        bound_ms=bms, bound_by=by, library_ms=None,
+        bound_share=bms / ms, device_bound_share=bms / device_ms,
+        bytes_bound_ms=nbytes / PEAK_BYTES_PER_S * 1e3,
+        ops_bound_ms=flops / PEAK_F32_FLOPS * 1e3, bound_rows=rows,
+        logf=logf, gflop=flops / 1e9, step_us_k1=step1, step_us=stepK,
+        chain_floor_ms=chain_ms,
+        chain_floor_share=chain_ms / device_ms,
+        shape={"workers": U, "tokens_per_worker": T, "topics": K,
+               "active_tokens_round0": n_act,
+               "longest_chain_round0": res["active_tokens"]["round0_max"]})
+    # the profiler window last: a session slows the host's later launches
+    res["profile"] = profile_window(torch, lambda: eng.execute(
+        st, data, None, ExecutionPlan(executor="scan", rounds=4)),
+        {"lda_gibbs": (lg.LAUNCHES, ("lda_gibbs_kernel",))})
+    del a, st, init, data, eng
+    torch.cuda.empty_cache()
+
+    # Philox draws against torch's, through one rotation at a smaller
+    # size: the kernel's log-likelihood within LDA_BAND of the plain
+    # version's, driven by torch.Generator draws
+    bcfg = lda.LDAConfig(**LDA_BAND_CFG)
+    bw, bd, bz = lda.synthetic_corpus_device(seed + 1, bcfg, device=DEVICE)
+    tg = torch.Generator(device=DEVICE).manual_seed(seed + 11)
+    shape = (bcfg.num_workers, bcfg.tokens_per_worker, bcfg.num_topics)
+    band = {}
+    for name, kwargs in (
+            ("kernel_philox", {}),
+            ("plain_torch_draws", dict(
+                kernels=KernelSpec(kind="reference"),
+                noise=lambda phase: gumbel_noise(torch, tg, shape)))):
+        e = lda.make_engine(bcfg, device=DEVICE, **kwargs)
+        d = e.shard_data({"words": bw, "docs": bd})
+        s0 = e.init_state(words=bw, docs=bd, z0=bz)
+        band["loglik_start"] = float(lda.log_likelihood(bcfg, s0))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        rep = e.execute(s0, d, None, ExecutionPlan(
+            executor="scan", rounds=bcfg.num_workers))
+        torch.cuda.synchronize()
+        band[name] = {"loglik": float(lda.log_likelihood(bcfg, rep.state)),
+                      "seconds": time.perf_counter() - t0}
+    climb = band["plain_torch_draws"]["loglik"] - band["loglik_start"]
+    gap = band["kernel_philox"]["loglik"] - band["plain_torch_draws"][
+        "loglik"]
+    check(climb > 0 and abs(gap) <= LDA_BAND * climb,
+          f"lda: after a rotation the Philox kernel's log-likelihood is "
+          f"{gap} from the plain path's, outside {LDA_BAND} of its climb "
+          f"{climb}")
+    band.update(config=LDA_BAND_CFG, gap=gap, climb=climb,
+                gap_share_of_climb=gap / climb, band=LDA_BAND)
+    res["philox_vs_torch_draws"] = band
+    del bw, bd, bz, e, d, s0, rep
+
+    # the data-parallel baseline on the corpus's first eighth, one round,
+    # beside one STRADS rotation on the same sub-corpus
+    Ub = LDA_BASELINE_WORKERS
+    scfg = lda.LDAConfig(vocab=cfg.vocab, num_topics=K, num_workers=Ub,
+                         tokens_per_worker=T,
+                         docs_per_worker=cfg.docs_per_worker)
+    sub = (words[:Ub * T], docs[:Ub * T], z0[:Ub * T])
+    side = {"workers": Ub, "tokens": Ub * T}
+    for name, baseline, rounds in (("baseline", True, 1),
+                                   ("strads", False, Ub)):
+        e = lda.make_engine(scfg, device=DEVICE, baseline=baseline)
+        d = e.shard_data({"words": sub[0], "docs": sub[1]})
+        s0 = e.init_state(words=sub[0], docs=sub[1], z0=sub[2])
+        if baseline:
+            entry["baseline_vs_plain"] = lda_baseline_vs_plain(
+                torch, lg, ref, lda, scfg, d, s0, seed)
+        side["loglik_start"] = float(lda.log_likelihood(scfg, s0))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        rep = e.execute(s0, d, None, ExecutionPlan(
+            executor="loop" if baseline else "scan", rounds=rounds))
+        torch.cuda.synchronize()
+        side[name] = {"rounds": rounds,
+                      "seconds": time.perf_counter() - t0,
+                      "loglik": float(lda.log_likelihood(scfg, rep.state))}
+        check(math.isfinite(side[name]["loglik"]),
+              f"lda: the {name} log-likelihood is not finite")
+        del e, d, s0, rep
+        torch.cuda.empty_cache()
+    res["baseline_vs_strads"] = side
+    del words, docs, z0, sub
+    torch.cuda.empty_cache()
+    return entry, res
+
 
 # ---------------------------------------------------------------------------
 # Model-zoo serving: flash_attention and topk_gating
@@ -727,30 +1395,58 @@ def serve_kernel_phase(torch, ops, ref, first, seed: int):
     return out
 
 
-def profile_window(torch, fn) -> dict:
-    """Device busy share over one call of ``fn`` (which synchronises),
-    from torch.profiler: the device's own events over the wall time."""
+def profile_window(torch, fn, kernels=None) -> dict:
+    """Device busy share over one call of ``fn``, from torch.profiler: the
+    device's own events over the wall time of the call.  The window
+    first launches PROFILE_PRIMERS empty kernels and waits for them: a
+    session loses the first device records it would keep, and the
+    primers take that loss (at least one must be kept, so none of the
+    call's records was lost).  ``kernels`` maps a launch counter ``key``
+    of a ``LAUNCHES`` dict to (that dict, the kernels' names): the window
+    must hold one event named with one of those names for each launch
+    the counter adds over the call."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
+    kernels = kernels or {}
+    before = {k: c[k] for k, (c, _) in kernels.items()}
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
+        for _ in range(PROFILE_PRIMERS):
+            torch.cuda._sleep(0)
+        torch.cuda.synchronize()
         t0 = time.perf_counter()
         fn()
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
     per_name: dict = {}
+    primers = 0
     for e in prof.events():
-        if e.device_type == DeviceType.CUDA:
-            d, c = per_name.get(e.name, (0.0, 0))
-            per_name[e.name] = (d + e.time_range.elapsed_us(), c + 1)
+        if e.device_type != DeviceType.CUDA:
+            continue
+        if "spin_kernel" in e.name:
+            primers += 1
+            continue
+        d, c = per_name.get(e.name, (0.0, 0))
+        per_name[e.name] = (d + e.time_range.elapsed_us(), c + 1)
+    check(primers > 0, f"profiler window: all {PROFILE_PRIMERS} primer "
+                       f"kernels lost; the call's first records may be too")
+    recorded = {}
+    for k, (c, names) in kernels.items():
+        recorded[k] = sum(m for name, (_, m) in per_name.items()
+                          if any(n in name for n in names))
+        check(recorded[k] == c[k] - before[k],
+              f"profiler window: {recorded[k]} {k} events for "
+              f"{c[k] - before[k]} launches")
     busy_us = sum(d for d, _ in per_name.values())
     rows = sorted(((d, k, c) for k, (d, c) in per_name.items()),
                   reverse=True)
     return {"wall_ms": wall_us / 1e3, "device_busy_ms": busy_us / 1e3,
             "device_idle_share": (1 - busy_us / wall_us) if busy_us else None,
+            "kernel_events": recorded,
+            "primers_lost": PROFILE_PRIMERS - primers,
             "top": [{"name": k[:120], "device_ms": d / 1e3, "count": c}
-                    for d, k, c in rows[:12]]}
+                    for d, k, c in rows[:15]]}
 
 
 def first_step(torch, M, cfg, params, batch, cache_len, tok=None):
@@ -794,8 +1490,9 @@ def main_path(torch, ops, M, srv, want: dict) -> tuple:
         launches=launches, sample_tokens=toks[0, :16].tolist())
 
 
-def profile_serving(torch, M, srv) -> dict:
-    """Profiler windows over a prefill and over 4 decode steps."""
+def profile_serving(torch, ops, M, srv) -> dict:
+    """Profiler windows over a prefill and over 4 decode steps, every
+    launch of the model kernels in them."""
     cfg, prm, batch = srv.cfg, srv.params, srv.batch
     lg, cache = M.prefill(cfg, prm, batch, cache_len=srv.cache_len)
     tok = lg[:, :cfg.vocab_size].argmax(-1)
@@ -805,10 +1502,14 @@ def profile_serving(torch, M, srv) -> dict:
         for i in range(4):
             M.decode_step(cfg, prm, cache, tok, start + i)
     decode4()
+    kernels = {"flash_attention": (ops.LAUNCHES, ("flash_fwd_bf16",
+                                                  "flash_fwd_f32")),
+               "topk_gating": (ops.LAUNCHES, ("topk_gating_rows",)),
+               "ssm_scan": (ops.LAUNCHES, ("ssm_scan_fwd",))}
     return {"profile_prefill": profile_window(
                 torch, lambda: M.prefill(cfg, prm, batch,
-                                         cache_len=srv.cache_len)),
-            "profile_decode4": profile_window(torch, decode4)}
+                                         cache_len=srv.cache_len), kernels),
+            "profile_decode4": profile_window(torch, decode4, kernels)}
 
 
 def serve_phase(torch, ops, ref, M, serve_lm, layers: int, seed: int):
@@ -888,7 +1589,7 @@ def serve_phase(torch, ops, ref, M, serve_lm, layers: int, seed: int):
         top2 = lp[:, :cfg.vocab_size].topk(2, -1).values
         res["plain_top2_margins"] = (top2[:, 0] - top2[:, 1]).tolist()
 
-        res.update(profile_serving(torch, M, srv))
+        res.update(profile_serving(torch, ops, M, srv))
     del srv, prm, cfg
     return kern, res
 
@@ -1122,7 +1823,7 @@ def zamba_phase(torch, ops, ref, M, serve_lm, layers: int, seed: int):
             "max_abs_logit": lp.abs().max().item(),
             "plain_top2_margins": (top2[:, 0] - top2[:, 1]).tolist()}
 
-        res.update(profile_serving(torch, M, srv))
+        res.update(profile_serving(torch, ops, M, srv))
     kern["launches"] = res["launches"]["ssm_scan"]
     del srv, prm, cfg
     return kern, res
@@ -1247,11 +1948,12 @@ def main() -> int:
         return 2
     sys.path.insert(0, src)
     from repro_torch import data as tdata
-    from repro_torch.apps import lasso
+    from repro_torch.apps import lasso, lda, mf
     from repro_torch.configs import get_config
     from repro_torch.core import ExecutionPlan
     from repro_torch.kernels import KernelSpec, _build, ops, ref
     from repro_torch.kernels import lasso_cd as lc
+    from repro_torch.kernels import lda_gibbs as lg
     from repro_torch.launch import serve_lm
     from repro_torch.models import model as M
 
@@ -1397,7 +2099,7 @@ def main() -> int:
     main["breakdown_ms"] = round_breakdown(torch, eng, runs["scan_w4"][0]
                                            .state, data, args.seed)
     print("round breakdown (ms): " + json.dumps(main["breakdown_ms"]))
-    prof = profile_rounds(torch, lasso, cfg, plan, X, y, args.seed)
+    prof = profile_rounds(torch, lasso, lc, cfg, plan, X, y, args.seed)
     print("profile (4 rounds): " + json.dumps(
         {k: v for k, v in prof.items() if k != "top"}))
     del X, y, data, runs, eng
@@ -1428,7 +2130,31 @@ def main() -> int:
     del st, Xs, ys
     torch.cuda.empty_cache()
 
-    # 4. model-zoo serving: Phi-3.5-MoE at full width, bf16
+    # 4. STRADS MF at the Netflix Prize shape (no kernel of its own)
+    mfres = mf_phase(torch, mf, ExecutionPlan, args.seed)
+    print("mf: " + json.dumps({k: v for k, v in mfres.items()
+                               if k != "profile"}))
+    print("mf profile (4 rounds): " + json.dumps(
+        {k: v for k, v in mfres["profile"].items() if k != "top"}))
+    for row in mfres["profile"]["top"][:6]:
+        print(f"    {row['device_ms']:9.3f} ms  x{row['count']:<5d} "
+              f"{row['name'][:90]}")
+
+    # 5. STRADS LDA at the NYTimes shape: lda_gibbs
+    kern["lda_gibbs"], ldares = lda_phase(
+        torch, lda, lg, ref, ExecutionPlan, KernelSpec, args.seed)
+    kern["lda_gibbs"]["ptxas"] = ptxas_kernels(
+        _build.build_log["lda_gibbs"]["ptxas"]).get("lda_gibbs_kernel")
+    print("lda: " + json.dumps({k: v for k, v in ldares.items()
+                                if k != "profile"}))
+    print("lda profile (4 rounds): " + json.dumps(
+        {k: v for k, v in ldares["profile"].items() if k != "top"}))
+    for row in ldares["profile"]["top"][:6]:
+        print(f"    {row['device_ms']:9.3f} ms  x{row['count']:<5d} "
+              f"{row['name'][:90]}")
+    print("lda_gibbs: " + json.dumps(kern["lda_gibbs"]))
+
+    # 6. model-zoo serving: Phi-3.5-MoE at full width, bf16
     skern, serve = serve_phase(torch, ops, ref, M, serve_lm, args.layers,
                                args.seed)
     torch.cuda.empty_cache()
@@ -1441,12 +2167,12 @@ def main() -> int:
             print(f"    {row['device_ms']:9.3f} ms  x{row['count']:<5d} "
                   f"{row['name'][:90]}")
 
-    # 5. the same model in f32, 2 layers: kernels vs plain, token for token
+    # 7. the same model in f32, 2 layers: kernels vs plain, token for token
     parity = parity_phase(torch, ops, ref, M, get_config, tdata, args.seed)
     print("f32 parity (2 layers, full width): " + json.dumps(parity))
     torch.cuda.empty_cache()
 
-    # 6. model-zoo serving: Zamba2-2.7B at full width and depth, bf16
+    # 8. model-zoo serving: Zamba2-2.7B at full width and depth, bf16
     skern["ssm_scan"], zamba = zamba_phase(torch, ops, ref, M, serve_lm,
                                            args.zamba_layers, args.seed)
     torch.cuda.empty_cache()
@@ -1476,7 +2202,7 @@ def main() -> int:
                                   "device_bound_share", "max_rel_err")}
          for name, e in skern["flash_attention"]["by_shape"].items()}))
 
-    # 7. Zamba2 in f32, 12 layers: kernels vs plain, token for token
+    # 9. Zamba2 in f32, 12 layers: kernels vs plain, token for token
     zparity = zamba_parity_phase(torch, ops, ref, M, get_config, tdata,
                                  args.seed)
 
@@ -1501,6 +2227,7 @@ def main() -> int:
     result.update(kernels=list(kern.values()), main=main, profile=prof,
                   launch_floor_ms=launch_floor_ms,
                   small={"objective": got, "reference_cd": want},
+                  mf=mfres, lda=ldares,
                   serve=serve, f32_parity=parity, zamba2=zamba,
                   zamba2_f32_parity=zparity)
     os.makedirs(os.path.join(ROOT, "chiprun_out"), exist_ok=True)

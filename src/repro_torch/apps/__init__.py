@@ -1,5 +1,4 @@
-"""STRADS applications on the port (Lasso first; MF and LDA follow in
-ROADMAP.md queue 1, step 8)."""
-from . import lasso
+"""STRADS applications on the port: the paper's Lasso, MF and LDA."""
+from . import lasso, lda, mf
 
-__all__ = ["lasso"]
+__all__ = ["lasso", "lda", "mf"]

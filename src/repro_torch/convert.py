@@ -1,8 +1,8 @@
 """Carry state from the JAX package into the port.
 
-Two carriers: :func:`lasso_from_jax` for a STRADS Lasso run, and
+Carriers: :func:`lasso_from_jax`, :func:`mf_from_jax` and
+:func:`lda_from_jax` for the STRADS apps' runs, and
 :func:`model_params_from_jax` for the model zoo's parameters.
-
 
 The JAX package keeps β replicated, r and the data row-sharded over a
 ``data`` mesh axis, and the dynamic-priority scheduler's Δβ history in
@@ -50,6 +50,45 @@ def lasso_from_jax(state: dict, X: np.ndarray, y: np.ndarray, *,
     sc = (None if sched_carry is None else
           torch.tensor(np.asarray(sched_carry, np.float32), device=device))
     return out_state, data, EngineCarry(t=int(t), sched_carry=sc)
+
+
+def mf_from_jax(state: dict, A: np.ndarray, mask: np.ndarray, *,
+                t: int = 0, workers: int = 1, device="cuda"):
+    """``state`` is the JAX MF state ``{"W": (N, K), "H": (K, M), "R":
+    (N, M)}`` and ``t`` the next round index.  Returns ``(state, data,
+    carry)``: W (P, N/P, K), H (K, M), R (P, N/P, M), A and the mask
+    (P, N/P, M), for P = ``workers``."""
+    device = resolve_device(device)
+    out_state = {
+        "W": _rows(state["W"], workers, device),
+        "H": torch.tensor(np.asarray(state["H"], np.float32), device=device),
+        "R": _rows(state["R"], workers, device),
+    }
+    data = {"A": _rows(A, workers, device),
+            "mask": _rows(mask, workers, device)}
+    return out_state, data, EngineCarry(t=int(t))
+
+
+def lda_from_jax(state: dict, words: np.ndarray, docs: np.ndarray, *,
+                 t: int = 0, workers: int = 1, device="cuda"):
+    """``state`` is the JAX STRADS LDA state ``{"z": (U·T_p,), "D":
+    (U·dpw, K), "B": (V_p, K), "s": (K,), "s_err": ()}`` and ``t`` the
+    next round index.  Returns ``(state, data, carry)`` in the worker
+    layout: z, words, docs (U, T_p) int32, D (U, dpw, K), and B
+    (U, V_b, K) by home block, for U = ``workers``."""
+    device = resolve_device(device)
+
+    def ints(x):
+        x = torch.tensor(np.asarray(x, np.int32), device=device)
+        return x.reshape(workers, -1)
+
+    out_state = {"z": ints(state["z"]),
+                 "D": _rows(state["D"], workers, device),
+                 "B": _rows(state["B"], workers, device),
+                 **{k: torch.tensor(np.asarray(state[k], np.float32),
+                                    device=device) for k in ("s", "s_err")}}
+    data = {"words": ints(words), "docs": ints(docs)}
+    return out_state, data, EngineCarry(t=int(t))
 
 
 def _tensor(x, dtype: torch.dtype, device) -> torch.Tensor:

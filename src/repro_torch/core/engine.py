@@ -13,7 +13,10 @@ pair becomes per-worker partials and a ``.sum(0)``.
 port run the same round body in a Python loop, so ``loop`` ≡ ``scan``
 bit for bit, as in the JAX package.  ``loop`` takes a per-round host
 callback; ``scan`` takes none and never syncs with the host (capturing
-its rounds as one CUDA graph is later work).  Plan fields and executors
+its rounds as one CUDA graph is later work).  Apps whose rounds cycle
+through static phases (``phase_period``: MF's H/W alternation is 2,
+LDA's rotation U) run on both; ``scan`` holds them to the JAX scan's
+rule that a run starts on a phase boundary.  Plan fields and executors
 the port does not run yet raise ``NotImplementedError`` naming the
 ROADMAP.md step that ports them; nothing silently runs something else.
 
@@ -21,7 +24,9 @@ Randomness: the JAX engine splits a PRNG key per round and draws the
 scheduler's Gumbel noise from it.  The port draws one (J,) Gumbel vector
 per round from a ``torch.Generator`` on the engine's device, or takes it
 from a ``noise(t)`` source the caller passes (the parity tests feed the
-JAX package's own draws that way).
+JAX package's own draws that way).  An app that keys its draws itself
+(``own_noise``: MF draws once per H/W cycle) gets ``None`` when the
+caller passes no source.
 """
 from __future__ import annotations
 
@@ -155,6 +160,11 @@ class StradsEngine:
         self._active_kern_spec = resolved
         return backend
 
+    @property
+    def phase_period(self) -> int:
+        """Length of the app's static-phase cycle (1 = phaseless)."""
+        return int(getattr(self.app, "phase_period", 1))
+
     def _app_default(self, name: str):
         fn = getattr(self.app, name, None)
         return fn() if callable(fn) else None
@@ -216,6 +226,8 @@ class StradsEngine:
         if noise is not None:
             return torch.as_tensor(noise(t), dtype=torch.float32,
                                    device=self.device)
+        if self.app.own_noise:
+            return None
         u = torch.rand((self.app.num_schedulable(),), generator=generator,
                        device=self.device)
         return -torch.log(-torch.log(u.clamp_min_(_TINY)))
@@ -325,6 +337,10 @@ class StradsEngine:
                                  f"plan's {plan.rounds} to run")
             if carry.rng_state is not None:
                 generator.set_state(carry.rng_state)
+        period = self.phase_period
+        if plan.executor == "scan" and t0 % period:
+            raise ValueError(f"t0 must be a multiple of the phase period "
+                             f"({period}) so phases stay static; got {t0}")
         # loop and scan share this body; scan has no callback and nothing
         # in it reads a device value on the host
         ys: list = []

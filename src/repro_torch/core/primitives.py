@@ -45,6 +45,10 @@ class StradsAppBase:
     supported_kernel_kinds = None
     #: the engine's device (set by the engine)
     device = torch.device("cpu")
+    #: True: without a caller's noise source the engine hands ``propose``
+    #: no noise, and the app draws its own (MF keys its draws on the
+    #: H/W cycle, so both halves of a cycle schedule the same block)
+    own_noise = False
 
     def static_phase(self, t: int) -> int:
         return 0

@@ -1,11 +1,13 @@
 """Kernel backends: what a resolved :class:`~repro_torch.kernels.spec.
 KernelSpec` executes.
 
-A backend is a frozen value exposing the round body's two hot spots,
-each taking a leading worker axis:
+A backend is a frozen value exposing the apps' hot spots, each taking a
+leading worker axis:
 
-    lasso_partial(Xb, r)  ->  (W, U)     f32   z = X_Bᵀ r     (push, f₃)
+    lasso_partial(Xb, r)  ->  (W, U)     f32   z = X_Bᵀ r     (Lasso push)
     gram_block(Xc)        ->  (W, U′,U′) f32   G = X_CᵀX_C    (ρ-filter)
+    lda_gibbs(...)        ->  (W, K)     f32   s̃ after each worker's
+                                               Gibbs sweep     (LDA push)
 
 ``build_kernels(spec)`` is the registry entry point; the engine calls it
 at injection time (``StradsEngine.set_kernels``) and hands the result to
@@ -22,6 +24,7 @@ from typing import Callable, Dict
 import torch
 
 from . import lasso_cd as _lc
+from . import lda_gibbs as _lg
 from . import ref
 from .spec import _KIND_MSG, KernelSpec
 
@@ -38,11 +41,15 @@ class ReferenceKernels:
     def gram_block(self, Xc: torch.Tensor):
         return ref.gram_ref(Xc)
 
+    def lda_gibbs(self, *args, **kw):
+        return ref.lda_gibbs_ref(*args, **kw)
+
 
 @dataclasses.dataclass(frozen=True)
 class PallasKernels:
     """The hand-written CUDA kernels (:mod:`repro_torch.kernels.
-    lasso_cd`), row-tiled at ``spec.block_n``."""
+    lasso_cd`, row-tiled at ``spec.block_n``, and
+    :mod:`repro_torch.kernels.lda_gibbs`)."""
 
     spec: KernelSpec
 
@@ -51,6 +58,9 @@ class PallasKernels:
 
     def gram_block(self, Xc: torch.Tensor):
         return _lc.gram_block(Xc, block_n=self.spec.block_n)
+
+    def lda_gibbs(self, *args, **kw):
+        return _lg.lda_gibbs(*args, **kw)
 
 
 # kind → factory(spec).  A new backend kind registers a factory here (and

@@ -123,3 +123,127 @@ def gram_ref(Xc: torch.Tensor) -> torch.Tensor:
     """Candidate Gram block: (…, n, U′) → (…, U′, U′) f32."""
     Xf = Xc.float()
     return Xf.mT @ Xf
+
+
+# ---------------------------------------------------------------------------
+# LDA's collapsed Gibbs sweep (``kernels/csrc/lda_gibbs.cu``)
+# ---------------------------------------------------------------------------
+
+_MASK32 = 0xFFFFFFFF
+_PHILOX_M = (0xD2511F53, 0xCD9E8D57)
+_PHILOX_W = (0x9E3779B9, 0xBB67AE85)
+
+
+def _mulhilo(a: int, b: torch.Tensor):
+    """(hi, lo) 32-bit words of a·b for a constant a < 2³² and int64 b in
+    [0, 2³²), in int64 arithmetic that never overflows."""
+    p1 = b * (a & 0xFFFF)                       # < 2⁴⁸
+    p2 = b * (a >> 16)                          # < 2⁴⁸
+    t = ((p2 & 0xFFFF) << 16) + p1              # < 2⁴⁹
+    return (p2 >> 16) + (t >> 32), t & _MASK32
+
+
+def philox4x32(counter, key: int):
+    """Philox-4x32-10 (Salmon et al., SC 2011) of four int64 tensors of
+    32-bit counter words under the 64-bit ``key``: the four output words
+    as int64 tensors.  The CUDA kernel's ``philox4x32_10`` bit for bit."""
+    c0, c1, c2, c3 = counter
+    k0, k1 = key & _MASK32, (key >> 32) & _MASK32
+    for r in range(10):
+        if r:
+            k0, k1 = (k0 + _PHILOX_W[0]) & _MASK32, \
+                (k1 + _PHILOX_W[1]) & _MASK32
+        hi0, lo0 = _mulhilo(_PHILOX_M[0], c0)
+        hi1, lo1 = _mulhilo(_PHILOX_M[1], c2)
+        c0, c1, c2, c3 = hi1 ^ c1 ^ k0, lo1, hi0 ^ c3 ^ k1, lo0
+    return c0, c1, c2, c3
+
+
+def philox_gumbel(seed: int, phase: int, slots: torch.Tensor,
+                  K: int) -> torch.Tensor:
+    """The Gibbs kernel's own Gumbel draws: for worker p's token in slot
+    ``slots[p, j]``, topic k takes word k % 4 of Philox-4x32-10 at counter
+    (k // 4, slot, p, phase) under key ``seed``; a word x becomes
+    u = (2·(x >> 9) + 1)·2⁻²⁴ ∈ (0, 1), exact in f32, and
+    g = −log(−log u).  ``slots`` (P, L) → (P, L, K) f32."""
+    P, L = slots.shape
+    dev = slots.device
+    chunks = -(-K // 4)
+    shape = (P, L, chunks)
+    c0 = torch.arange(chunks, device=dev).expand(shape)
+    c1 = slots.long()[:, :, None].expand(shape)
+    c2 = torch.arange(P, device=dev)[:, None, None].expand(shape)
+    c3 = torch.full(shape, int(phase), dtype=torch.int64, device=dev)
+    words = torch.stack(philox4x32((c0, c1, c2, c3), int(seed)), dim=-1)
+    u = ((words >> 9) * 2 + 1).to(torch.float32) * 2.0 ** -24
+    g = -torch.log(-torch.log(u))
+    return g.reshape(P, L, chunks * 4)[..., :K].contiguous()
+
+
+def gibbs_active(order: torch.Tensor, offsets: torch.Tensor, phase: int):
+    """Worker p's block this round, ``(p + phase) % n_blocks``, and the
+    slots of its active tokens in slot order: ``(blocks (P,), slots
+    (P, L) int64 padded with 0, counts (P,))`` for L the largest count."""
+    P = order.shape[0]
+    n_blocks = offsets.shape[1] - 1
+    p = torch.arange(P, device=order.device)
+    blocks = (p + phase) % n_blocks
+    start = offsets[p, blocks].long()
+    counts = offsets[p, blocks + 1].long() - start
+    L = int(counts.max()) if P else 0
+    j = torch.arange(L, device=order.device)
+    pos = (start[:, None] + j).clamp_max_(order.shape[1] - 1)
+    slots = torch.where(j < counts[:, None], order.gather(1, pos).long(), 0)
+    return blocks, slots, counts
+
+
+def lda_gibbs_ref(words, docs, z, order, offsets, B, D, s, *, phase: int,
+                  rotate: bool, block_vocab: int, vg: float, alpha: float,
+                  gamma: float, gumbel: Optional[torch.Tensor] = None,
+                  seed: int = 0) -> torch.Tensor:
+    """Sequential collapsed Gibbs over every worker's active tokens, the
+    workers side by side (the JAX package's ``_gibbs_scan`` and
+    ``_full_gibbs_scan``, ``apps/lda.py``, without the inactive slots,
+    which are exact no-ops there).
+
+    Worker p samples the tokens of vocabulary block
+    ``b = (p + phase) % n_blocks`` (``n_blocks = offsets.shape[1] − 1``),
+    in slot order, against ``B[b]`` when ``rotate`` (STRADS: B is
+    (n_blocks, V_b, K) by home block) or ``B[p]`` otherwise (the
+    baseline's replicas), ``D[p]`` (dpw, K) and its own copy s̃ of s.
+    Per token: remove its topic from B, D and s̃; logits
+    (log(γ + B[v]) − log(vg + s̃)) + log(α + D[d]); the new topic is the
+    first argmax of Gumbel noise + logits; add it back.  The noise is
+    ``gumbel`` (P, L, K), row j for the worker's j-th active token, or
+    :func:`philox_gumbel` of (``seed``, ``phase``) when None.
+
+    words, docs and z are (P, T) int32; ``order`` and ``offsets`` come
+    from :func:`repro_torch.kernels.lda_gibbs.gibbs_index`.  Updates z, B
+    and D in place; returns s̃ (P, K)."""
+    P = words.shape[0]
+    K = B.shape[-1]
+    p = torch.arange(P, device=words.device)
+    blocks, slots, counts = gibbs_active(order, offsets, phase)
+    if gumbel is None:
+        gumbel = philox_gumbel(seed, phase, slots, K)
+    slabs = blocks if rotate else p
+    vbase = blocks * block_vocab
+    st = s.float().expand(P, K).clone()
+    for j in range(slots.shape[1]):
+        act = j < counts
+        w, slot = p[act], slots[act, j]
+        sl = slabs[act]
+        v = words[w, slot].long() - vbase[act]
+        d = docs[w, slot].long()
+        zi = z[w, slot].long()
+        B[sl, v, zi] -= 1.0
+        D[w, d, zi] -= 1.0
+        st[w, zi] -= 1.0
+        logits = ((torch.log(gamma + B[sl, v]) - torch.log(vg + st[w]))
+                  + torch.log(alpha + D[w, d]))
+        znew = torch.argmax(gumbel[w, j] + logits, dim=-1)
+        B[sl, v, znew] += 1.0
+        D[w, d, znew] += 1.0
+        st[w, znew] += 1.0
+        z[w, slot] = znew.to(z.dtype)
+    return st

@@ -2,12 +2,12 @@
 :class:`SchedulerSpec` resolves through."""
 from .protocol import SchedulerBase
 from .schedulers import (DynamicPriorityScheduler, RandomScheduler,
-                         RoundRobinScheduler, build_scheduler,
-                         dependency_filter, priority_weights,
-                         sample_candidates)
+                         RotationScheduler, RoundRobinScheduler,
+                         build_scheduler, dependency_filter,
+                         priority_weights, sample_candidates)
 from .spec import SCHEDULER_KINDS, SchedulerSpec
 
 __all__ = ["SCHEDULER_KINDS", "DynamicPriorityScheduler", "RandomScheduler",
-           "RoundRobinScheduler", "SchedulerBase", "SchedulerSpec",
-           "build_scheduler", "dependency_filter", "priority_weights",
-           "sample_candidates"]
+           "RotationScheduler", "RoundRobinScheduler", "SchedulerBase",
+           "SchedulerSpec", "build_scheduler", "dependency_filter",
+           "priority_weights", "sample_candidates"]

@@ -1,10 +1,12 @@
-"""Schedulers of the Lasso round, ported from the JAX package's
+"""Schedulers of the STRADS apps, ported from the JAX package's
 ``sched/schedulers.py``:
 
 * :class:`RoundRobinScheduler` — fixed cyclic blocks (Lasso-cyclic).
 * :class:`RandomScheduler` — uniform random blocks (the Lasso-RR
   baseline): the top U of the round's Gumbel noise, which is a uniform
   draw without replacement.
+* :class:`RotationScheduler` — word rotation over U disjoint blocks
+  (STRADS LDA): worker p owns block ``(p + t) mod U`` at round t.
 * :class:`DynamicPriorityScheduler` — the STRADS Lasso strategy: sample
   U′ candidates with probability ∝ |Δβ| + η by Gumbel top-k, then
   greedily keep at most U whose pairwise |x_jᵀx_k| is below ρ.
@@ -45,6 +47,62 @@ class RandomScheduler(SchedulerBase):
     def propose(self, carry, noise, t, phase, device=None):
         return sample_candidates(noise, torch.ones_like(noise),
                                  self.block_size)
+
+
+@dataclasses.dataclass(frozen=True)
+class RotationScheduler(SchedulerBase):
+    """Word rotation over U disjoint variable blocks (STRADS LDA).
+
+    Block u is ``[bounds[u], bounds[u+1])``; worker p works on block
+    ``block_for_worker(p, t) = (p + t) mod U`` at round t, so every
+    worker visits every block once per U rounds and concurrent workers
+    never share a block.  The JAX package moves the blocks between
+    devices with two static ``ppermute`` calls; here the workers are a
+    tensor axis, so the rotation is indexing: :meth:`forward_perm` and
+    :meth:`backward_perm` are index maps over that axis, and on one
+    device nothing moves (LDA reads block ``block_for_worker(p, t)`` of
+    the home-ordered table in place)."""
+    num_vars: int
+    num_workers: int
+
+    needs_noise = False
+
+    @property
+    def bounds(self) -> torch.Tensor:
+        """(U+1,) int32 block edges: ``jnp.linspace(0, J, U+1)`` in f32,
+        rounded half to even, as in the JAX package."""
+        U = self.num_workers
+        step = torch.arange(U, dtype=torch.float32) / U
+        edges = torch.cat([step * float(self.num_vars),
+                           torch.tensor([float(self.num_vars)])])
+        return torch.round(edges).to(torch.int32)
+
+    def block_for_worker(self, p, t):
+        return (p + t) % self.num_workers
+
+    def block_mask(self, block: int) -> torch.Tensor:
+        """(J,) bool: which variables lie in ``block``."""
+        b = self.bounds
+        j = torch.arange(self.num_vars)
+        return (j >= b[block]) & (j < b[block + 1])
+
+    def forward_perm(self, phase: int) -> torch.Tensor:
+        """(U,) index map: ``x[forward_perm(t)]`` puts block
+        ``block_for_worker(d, t)`` at worker d (the JAX pairs
+        ``((d + t) % U, d)``)."""
+        return (torch.arange(self.num_workers) + phase) % self.num_workers
+
+    def backward_perm(self, phase: int) -> torch.Tensor:
+        """(U,) index map: ``y[backward_perm(t)]`` sends each worker's
+        block home (the JAX pairs ``(d, (d + t) % U)``)."""
+        return (torch.arange(self.num_workers) - phase) % self.num_workers
+
+    def propose(self, carry, noise, t, phase, device=None):
+        # the rotation lives in the app's indexing; nothing to propose
+        return None
+
+    def finalize(self, candidates, stats):
+        return candidates, None
 
 
 def priority_weights(delta: torch.Tensor, eta: float) -> torch.Tensor:
@@ -130,7 +188,7 @@ def build_scheduler(spec: SchedulerSpec, *, num_vars: int,
                     num_workers: int):
     """Materialize the policy a :class:`SchedulerSpec` declares for a
     concrete app (``num_vars`` schedulable variables, ``num_workers``
-    workers).  The port has the Lasso round's three kinds."""
+    workers).  The port has every kind but ``block_structural``."""
     if not isinstance(spec, SchedulerSpec):
         raise TypeError(f"build_scheduler wants a SchedulerSpec; got "
                         f"{type(spec).__name__}")
@@ -148,11 +206,13 @@ def build_scheduler(spec: SchedulerSpec, *, num_vars: int,
         return RoundRobinScheduler(num_vars, spec.block_size)
     if spec.kind == "random":
         return RandomScheduler(num_vars, spec.block_size)
+    if spec.kind == "rotation":
+        return RotationScheduler(num_vars, num_workers)
     if spec.kind == "dynamic_priority":
         return DynamicPriorityScheduler(
             num_vars=num_vars, num_candidates=spec.num_candidates,
             block_size=spec.block_size, rho=spec.rho, eta=spec.eta)
     raise NotImplementedError(
         f"scheduler kind {spec.kind!r} is not ported yet (ROADMAP.md "
-        f"queue 1: 'rotation' comes with LDA in step 8, "
-        f"'block_structural' with the model zoo in step 13)")
+        f"queue 1: 'block_structural' comes with the model zoo's "
+        f"training slice in step 13c)")

@@ -10,6 +10,11 @@ gating indices are equal.  The selective scan: rtol = 1e-5 and atol =
 1e-5 of the largest value for f32 y and every h (f32 sums in a different
 order over up to 64 steps), 1e-2 for bf16 y (one bf16 rounding).
 
+LDA's Gibbs sweep (``lda_gibbs``, no Pallas counterpart) is held against
+the JAX ``_gibbs_scan`` in ``tests/test_torch_lda.py``; here its kernel
+equals its plain version to the bit on the same noise (both use the
+card's ``logf``).
+
 The tests marked ``gpu`` hold the CUDA kernels against the plain versions
 on the card; they skip where no card is present.  Run them there with
 ``PYTHONPATH=src pytest -m gpu tests/test_torch_kernels.py``: the machine
@@ -25,6 +30,7 @@ import torch
 from repro_torch.kernels import KernelSpec, build_kernels
 from repro_torch.kernels import flash_attention as tfa
 from repro_torch.kernels import lasso_cd as tlc
+from repro_torch.kernels import lda_gibbs as tlg
 from repro_torch.kernels import moe_gating as tmg
 from repro_torch.kernels import ops as tops
 from repro_torch.kernels import ref as tref
@@ -781,3 +787,166 @@ def test_ssm_scan_kernel_rejects_what_it_does_not_take(cuda):
         tops.ssm_scan(x.mT.contiguous().mT, dt, A, Bm, Cm, h0)
     with pytest.raises(ValueError, match="one card"):
         tops.ssm_scan(x, dt, A.cpu(), Bm, Cm, h0)
+
+
+# ---------------------------------------------------------------------------
+# LDA's Gibbs sweep
+# ---------------------------------------------------------------------------
+
+def _lda_case(device, K, P=4, T=600, nb=4, Vb=12, dpw=6, seed=21,
+              rotate=True):
+    """Words, docs, z and their counts for P workers over nb vocabulary
+    blocks of Vb words: worker 2 has no active token, worker 1 all its
+    tokens in document 0, and one slot in nine is padding (word −1).
+    ``rotate=False`` gives the data-parallel baseline's layout instead:
+    one block spanning all nb·Vb words and a replica of B a worker."""
+    g = torch.Generator().manual_seed(seed)
+    words = torch.randint(0, nb * Vb, (P, T), generator=g, dtype=torch.int32)
+    words[:, ::9] = -1
+    words[2] = -1
+    docs = torch.randint(0, dpw, (P, T), generator=g, dtype=torch.int32)
+    docs[1] = 0
+    z = torch.randint(0, K, (P, T), generator=g, dtype=torch.int32)
+    on = words >= 0
+    w, k = words[on].long(), z[on].long()
+    p = torch.arange(P)[:, None].expand(P, T)[on]
+    B = torch.zeros((nb, Vb, K))
+    B.index_put_((w // Vb, w % Vb, k), torch.ones(k.shape), accumulate=True)
+    D = torch.zeros((P, dpw, K))
+    D.index_put_((p, docs[on].long(), k), torch.ones(k.shape),
+                 accumulate=True)
+    V = nb * Vb
+    if not rotate:
+        B = B.reshape(1, V, K).expand(P, V, K).clone()
+        nb, Vb = 1, V
+    order, offsets = tlg.gibbs_index(words, Vb, nb)
+    kw = dict(rotate=rotate, block_vocab=Vb, vg=V * 0.1, alpha=0.1,
+              gamma=0.1, seed=17)
+    t = dict(words=words, docs=docs, z=z, order=order, offsets=offsets,
+             B=B, D=D, s=D.sum((0, 1)))
+    return {k: v.to(device) for k, v in t.items()}, kw
+
+
+def _lda_run(fn, c, phase, kw, gumbel=None, **over):
+    """``fn`` on copies of the case's z, B, D (or the views ``over``
+    gives, used as they are): (z, B, D, s̃)."""
+    z, B, D = (over[k] if k in over else c[k].clone()
+               for k in ("z", "B", "D"))
+    st = fn(c["words"], c["docs"], z, c["order"], c["offsets"], B, D,
+            c["s"], phase=phase, gumbel=gumbel, **kw)
+    return z, B, D, st
+
+
+def test_lda_gibbs_cpu_wrapper_takes_the_plain_version_and_backends_agree():
+    before = dict(tlg.LAUNCHES)
+    refk = build_kernels(KernelSpec(kind="reference"))
+    hop = build_kernels(KernelSpec.default_for("pallas"))
+    for rotate in (True, False):
+        c, kw = _lda_case("cpu", 7, rotate=rotate)
+        for phase in (0, 1):
+            want = _lda_run(tref.lda_gibbs_ref, c, phase, kw)
+            for fn in (tlg.lda_gibbs, refk.lda_gibbs, hop.lda_gibbs):
+                got = _lda_run(fn, c, phase, kw)
+                assert all(torch.equal(a, b) for a, b in zip(got, want))
+    assert tlg.LAUNCHES == before
+    # the philox draws the plain version makes are its own helper's
+    _, slots, _ = tref.gibbs_active(c["order"], c["offsets"], 1)
+    g = tref.philox_gumbel(17, 1, slots, 7)
+    want = _lda_run(tref.lda_gibbs_ref, c, 1, kw)
+    got = _lda_run(tref.lda_gibbs_ref, c, 1, kw, gumbel=g)
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("K", [1, 7, 33, 1000])
+@pytest.mark.parametrize("noise", ["explicit", "philox"])
+def test_lda_gibbs_kernel_matches_plain_on_card(cuda, K, noise):
+    """Equal to the bit: z, B, D and s̃, with a worker that has no active
+    token and one whose tokens share one document; STRADS's rotation and
+    the baseline's one block over the whole vocabulary on replicas."""
+    for rotate in (True, False):
+        c, kw = _lda_case(cuda, K, rotate=rotate)
+        for phase in (0, 1, 3):
+            g = None
+            if noise == "explicit":
+                L = int(tlg.active_counts(c["offsets"], phase).max())
+                g = torch.randn((4, L, K), device=cuda)
+            before = tlg.LAUNCHES["lda_gibbs"]
+            got = _lda_run(tlg.lda_gibbs, c, phase, kw, g)
+            torch.cuda.synchronize()
+            assert tlg.LAUNCHES["lda_gibbs"] == before + 1
+            want = _lda_run(tref.lda_gibbs_ref, c, phase, kw, g)
+            for a, b in zip(got, want):
+                assert torch.equal(a, b)
+
+
+@pytest.mark.gpu
+def test_lda_gibbs_kernel_takes_unaligned_views_on_card(cuda):
+    c, kw = _lda_case(cuda, 33)
+    L = int(tlg.active_counts(c["offsets"], 2).max())
+    g = torch.randn((4, L, 33), device=cuda)
+    want = _lda_run(tref.lda_gibbs_ref, c, 2, kw, g)
+    views = {k: _offset_view(c[k]) for k in ("B", "D")}
+    assert all(v.data_ptr() % 16 for v in views.values())
+    got = _lda_run(tlg.lda_gibbs, c, 2, kw, _offset_view(g), **views)
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.gpu
+def test_lda_gibbs_is_one_launch_and_replays_the_same_bits_on_card(cuda):
+    """One kernel node a call, and a captured call replayed 3 times from
+    the same state gives the eager call's bits each time."""
+    c, kw = _lda_case(cuda, 33)
+    want = _lda_run(tlg.lda_gibbs, c, 1, kw)
+    z, B, D = (c[k].clone() for k in ("z", "B", "D"))
+
+    def call():
+        return tlg.lda_gibbs(c["words"], c["docs"], z, c["order"],
+                             c["offsets"], B, D, c["s"], phase=1, **kw)
+    call()                                   # warm, outside the capture
+    torch.cuda.synchronize()
+    assert _graph_kernel_nodes(call) == [0]
+    g = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(g):
+        st = call()
+    for _ in range(3):
+        for k, t in (("z", z), ("B", B), ("D", D)):
+            t.copy_(c[k])
+        g.replay()
+        torch.cuda.synchronize()
+        for a, b in zip((z, B, D, st), want):
+            assert torch.equal(a, b)
+
+
+@pytest.mark.gpu
+def test_lda_philox_draws_are_gumbel_on_card(cuda):
+    """10⁷ of the sampler's Philox draws, made on the card: mean within
+    1e-3 of Euler's γ and variance within 1e-2 of π²/6.  (The kernel's
+    draws are these bits: it equals the plain version in Philox mode.)"""
+    slots = torch.arange(128 * 100, device=cuda).view(128, 100)
+    g = tref.philox_gumbel(17, 5, slots, 1000)
+    assert abs(float(g.double().mean()) - 0.5772156649) < 1e-3
+    assert abs(float(g.double().var()) - np.pi ** 2 / 6) < 1e-2
+
+
+@pytest.mark.gpu
+def test_lda_gibbs_rejects_what_it_does_not_take_on_card(cuda):
+    c, kw = _lda_case(cuda, 7)
+    args = [c[k] for k in ("words", "docs", "z", "order", "offsets", "B",
+                           "D", "s")]
+    with pytest.raises(TypeError, match="int32"):
+        tlg.lda_gibbs(args[0].long(), *args[1:], phase=0, **kw)
+    with pytest.raises(ValueError, match="contiguous"):
+        tlg.lda_gibbs(*args[:6], args[6].mT.contiguous().mT, args[7],
+                      phase=0, **kw)
+    with pytest.raises(ValueError, match="one card"):
+        tlg.lda_gibbs(*args[:7], args[7].cpu(), phase=0, **kw)
+    with pytest.raises(ValueError, match="fewer than its active"):
+        tlg.lda_gibbs(*args, phase=0, gumbel=torch.zeros((4, 1, 7),
+                                                         device=cuda), **kw)
+    K = tlg.MAX_TOPICS + 1
+    with pytest.raises(ValueError, match="topics"):
+        tlg.lda_gibbs(*args[:5], torch.zeros((4, 12, K), device=cuda),
+                      torch.zeros((4, 6, K), device=cuda),
+                      torch.zeros(K, device=cuda), phase=0, **kw)

@@ -112,6 +112,56 @@ def test_round_robin_and_random_blocks():
     with pytest.raises(ValueError, match="exceeds"):
         ts.build_scheduler(SchedulerSpec(kind="random", block_size=11),
                            num_vars=10, num_workers=1)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        ts.build_scheduler(SchedulerSpec(kind="rotation"), num_vars=10,
-                           num_workers=2)
+    assert isinstance(ts.build_scheduler(SchedulerSpec(kind="rotation"),
+                                         num_vars=10, num_workers=2),
+                      ts.RotationScheduler)
+    with pytest.raises(NotImplementedError, match="ROADMAP.md") as err:
+        ts.build_scheduler(SchedulerSpec.default_for("block_structural",
+                                                     block_size=2),
+                           num_vars=10, num_workers=2)
+    assert "step 8" not in str(err.value)
+
+
+def _ppermute(x: np.ndarray, pairs: list) -> np.ndarray:
+    """What ``lax.ppermute`` does to a leading device axis."""
+    out = np.zeros_like(x)
+    for src, dst in pairs:
+        out[dst] = x[src]
+    return out
+
+
+@pytest.mark.parametrize("U", [1, 3, 4, 7])
+@pytest.mark.parametrize("J", [53, 10, 4 * 7 * 3])
+def test_rotation_scheduler_matches(U, J):
+    """The same bounds, blocks and permutations as the JAX class, for a
+    J that U divides and ones it does not (10 over 4 puts edges on
+    exact halves: both round them to even)."""
+    jsch = js.build_scheduler(JSpec(kind="rotation"), num_vars=J,
+                              num_workers=U)
+    tsch = ts.build_scheduler(SchedulerSpec(kind="rotation"), num_vars=J,
+                              num_workers=U)
+    assert tsch.needs_noise is False
+    np.testing.assert_array_equal(tsch.bounds.numpy(),
+                                  np.asarray(jsch.bounds))
+    assert tsch.bounds.dtype == torch.int32
+    x = np.arange(U * 5).reshape(U, 5)
+    for t in range(2 * U + 1):
+        for p in range(U):
+            assert tsch.block_for_worker(p, t) == int(
+                jsch.block_for_worker(jnp.int32(p), jnp.int32(t)))
+            assert torch.equal(tsch.block_for_worker(torch.tensor(p), t),
+                               torch.tensor(int(jsch.block_for_worker(p, t))))
+        phase = t % U
+        np.testing.assert_array_equal(
+            x[tsch.forward_perm(phase).numpy()],
+            _ppermute(x, jsch.forward_perm(phase)))
+        np.testing.assert_array_equal(
+            x[tsch.backward_perm(phase).numpy()],
+            _ppermute(x, jsch.backward_perm(phase)))
+        fwd = x[tsch.forward_perm(phase).numpy()]
+        back = tsch.backward_perm(phase).numpy()
+        np.testing.assert_array_equal(fwd[back], x)
+    for u in range(U):
+        np.testing.assert_array_equal(tsch.block_mask(u).numpy(),
+                                      np.asarray(jsch.block_mask(u)))
+    assert tsch.propose(None, None, 0, 0) is None
