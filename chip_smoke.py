@@ -40,10 +40,13 @@
    ``lda_gibbs`` against its plain version at the chip shape on round 0
    with one explicit Gumbel tensor (z, B, D and s̃ equal to the bit; a
    difference is reported with its top-2 margin and fails), at ragged
-   shapes (K = 1, 7, 33, a worker with no active token, one with a
-   single document, an unaligned B) in both noise modes, for STRADS's
-   rotation and for the baseline's one block over the vocabulary on
-   replicas of B; the sampler's Philox draws are Gumbel (10⁸ of the
+   shapes (K = 1, 7, 33 and K = 2,049, 3,000, 4,500, 16,384, where the
+   kernel's ring depth is 6, 4, 2 and 0; a worker with no active token,
+   one with a single document, an unaligned B) in both noise modes, for
+   STRADS's rotation and for the baseline's one block over the
+   vocabulary on replicas of B, and at K = 1,000 on a corpus of runs of
+   one word in one document (each token changes the rows the next ones
+   read); the sampler's Philox draws are Gumbel (10⁸ of the
    plain version's, made on the card: mean within 1e-3 of γ, variance
    within 1e-2 of π²/6).  Then the main path:
    one rotation (128 rounds) on scan and on loop, with the launch counts
@@ -52,8 +55,11 @@
    z in [0, K); every count below 2²⁴.  The kernel timed at round 0's
    shape against two bounds: the roofline (the distinct B and D rows the
    round touches read once at 3.35 TB/s, or its operations at 67
-   TFLOP/s with each logf at the cost of its SASS, the larger) and the
-   chain (the longest chain times one step); a profiler window of 4
+   TFLOP/s with each logf at the cost of its SASS, the larger), the
+   chain (the longest chain times one step at K = 1) and the longest
+   chain's operations on one SM (``worker_ops_floor_ms``), and once more
+   on round 0's first sweep from the planted start, where nearly every
+   token changes topic; a profiler window of 4
    rounds that must hold every launch; the Philox kernel's
    log-likelihood after a rotation within LDA_BAND of the plain
    version's with torch's draws, at a smaller size; the data-parallel
@@ -435,7 +441,11 @@ def ptxas_kernels(log: str) -> dict:
                         j += 1
                     parts.append(name[j:j + int(name[i:j])])
                     i = j + int(name[i:j])
+                targs = re.match(r"I((?:Li-?\d+E)+)E", name[i:])
                 name = parts[-1] if parts else name
+                if targs:                    # a template's arguments
+                    name += "<" + ",".join(re.findall(
+                        r"Li(-?\d+)E", targs.group(1))) + ">"
             out[name] = {}
         elif name and "spill stores" in ln:
             st, ld = re.findall(r"(\d+) bytes spill", ln)
@@ -766,12 +776,17 @@ def first_mismatch(torch, ref, words, docs, z, order, offsets, B, D, s, kw,
             "top2_margin": float(top[0] - top[-1])}
 
 
+LDA_RAGGED_TOPICS = (1, 7, 33, 2049, 3000, 4500, 16384)
+
+
 def lda_ragged(torch, lg, ref, seed: int) -> dict:
     """``lda_gibbs`` against its plain version at ragged shapes: K = 1, 7,
-    33; a worker with no active token; a worker whose tokens all share
-    one document; B on a view one element past 16-byte alignment; both
-    noise modes; STRADS's rotation over nb blocks and the baseline's one
-    block over the whole vocabulary on a replica of B a worker."""
+    33, and K where the kernel's ring depth changes (2,049: more topics
+    than threads; 16,384 has no ring); a worker with no active token; a
+    worker whose tokens all share one document; B on a view one element
+    past 16-byte alignment; both noise modes; STRADS's rotation over nb
+    blocks and the baseline's one block over the whole vocabulary on a
+    replica of B a worker."""
     P, T, nb, Vb, dpw = 4, 600, 4, 12, 6
     V = nb * Vb
     gen = torch.Generator(device=DEVICE).manual_seed(seed + 3)
@@ -783,8 +798,9 @@ def lda_ragged(torch, lg, ref, seed: int) -> dict:
     docs[1] = 0                                # every token in one document
     index = {True: lg.gibbs_index(words, Vb, nb),
              False: lg.gibbs_index(words, V, 1)}
-    out = {}
-    for K in (1, 7, 33):
+    out = {"ring_depth": {}}
+    for K in LDA_RAGGED_TOPICS:
+        out["ring_depth"][K] = lg.ring_depth(K)
         z0 = torch.randint(0, K, (P, T), generator=gen, device=DEVICE,
                            dtype=torch.int32)
         B, D, s = lda_counts(torch, words, docs, z0, nb, Vb, dpw, K)
@@ -811,6 +827,73 @@ def lda_ragged(torch, lg, ref, seed: int) -> dict:
                                       f"topics, max abs err "
                                       f"{r['max_abs_err']}")
                     out[name] = r["max_abs_err"]
+    return out
+
+
+def repeat_corpus(torch, gen, P: int, T: int, V: int, dpw: int):
+    """(P, T) words and docs made of runs: a word repeated 1..12 times in
+    one document, a word at j and j + 2 with another between, and single
+    tokens, so a token's B and D rows are often the ones the tokens just
+    before it changed."""
+    seg = torch.randint(1, 13, (P, T), generator=gen, device=DEVICE)
+    kind = torch.randint(0, 3, (P, T), generator=gen, device=DEVICE)
+    seg = torch.where(kind == 0, seg, torch.where(kind == 1, 3, 1))
+    v0 = torch.randint(0, V, (P, T), generator=gen, device=DEVICE)
+    d0 = torch.randint(0, dpw, (P, T), generator=gen, device=DEVICE)
+    words = torch.empty((P, T), dtype=torch.int32, device=DEVICE)
+    docs = torch.empty((P, T), dtype=torch.int32, device=DEVICE)
+    seg, kind, v0, d0 = (t.cpu() for t in (seg, kind, v0, d0))
+    for p in range(P):
+        out_w, out_d, i = [], [], 0
+        while len(out_w) < T:
+            v, d, n, k = (int(v0[p, i]), int(d0[p, i]), int(seg[p, i]),
+                          int(kind[p, i]))
+            if k == 1:                          # v, another word, v
+                out_w += [v, (v + 1) % V, v]
+                out_d += [d, (d + i) % dpw, d]
+            else:
+                out_w += [v] * n
+                out_d += [d] * n
+            i += 1
+        words[p] = torch.tensor(out_w[:T], dtype=torch.int32)
+        docs[p] = torch.tensor(out_d[:T], dtype=torch.int32)
+    return words, docs
+
+
+def lda_repeats(torch, lg, ref, seed: int, K: int = 1000) -> dict:
+    """``lda_gibbs`` against its plain version at K = 1,000 on a corpus of
+    runs (``repeat_corpus``): both noise modes, STRADS's rotation and the
+    baseline's replicas, to the bit.  Each token's update lands in the
+    ring slots of the next ones, which the kernel must patch."""
+    P, T, nb, Vb, dpw = 4, 2000, 4, 64, 8
+    V = nb * Vb
+    gen = torch.Generator(device=DEVICE).manual_seed(seed + 5)
+    words, docs = repeat_corpus(torch, gen, P, T, V, dpw)
+    z0 = torch.randint(0, K, (P, T), generator=gen, device=DEVICE,
+                       dtype=torch.int32)
+    B, D, s = lda_counts(torch, words, docs, z0, nb, Vb, dpw, K)
+    out = {"workers": P, "tokens_each": T, "topics": K,
+           "ring_depth": lg.ring_depth(K)}
+    for rotate in (True, False):
+        order, offsets = (lg.gibbs_index(words, Vb, nb) if rotate
+                          else lg.gibbs_index(words, V, 1))
+        Br = B if rotate else B.reshape(1, V, K).expand(P, V, K).contiguous()
+        kw = dict(phase=1, rotate=rotate, block_vocab=Vb if rotate else V,
+                  vg=V * 0.1, alpha=0.1, gamma=0.1, seed=LDA_SEED)
+        L = int(lg.active_counts(offsets, 1).max())
+        for mode in ("explicit", "philox"):
+            g = (gumbel_noise(torch, gen, (P, L, K)) if mode == "explicit"
+                 else None)
+            r = lda_kernel_vs_plain(torch, lg, ref, words, docs, z0, order,
+                                    offsets, Br, D, s, kw, g)
+            name = f"{'rotate' if rotate else 'baseline'}_{mode}"
+            check(r["equal"], f"lda_gibbs: kernel and plain differ on the "
+                              f"runs corpus at {name}: {r['z_mismatches']} "
+                              f"topics, max abs err {r['max_abs_err']}")
+            out[name] = {"max_abs_err": r["max_abs_err"],
+                         "changed_topics": int((r["kernel"][0] != z0)
+                                               .sum()),
+                         "plain_seconds": r["plain_seconds"]}
     return out
 
 
@@ -984,6 +1067,7 @@ def lda_phase(torch, lda, lg, ref, ExecutionPlan, KernelSpec, seed: int):
     del r, gumbel
     torch.cuda.empty_cache()
     entry["ragged_max_abs_err"] = lda_ragged(torch, lg, ref, seed)
+    entry["repeats_vs_plain"] = lda_repeats(torch, lg, ref, seed)
 
     # the sampler's Philox draws are Gumbel: the plain version's draws,
     # made on the card (the kernel's are the same bits: it equals the
@@ -1067,9 +1151,35 @@ def lda_phase(torch, lda, lg, ref, ExecutionPlan, KernelSpec, seed: int):
     flops = n_act * K * (LDA_LOGF_PER_TOPIC * logf["flops"]
                          + LDA_OTHER_OPS_PER_TOPIC)
     bms, by = bound(nbytes, flops)
+    # round 0's first sweep from the planted start, where nearly every
+    # token changes topic (the calls above repeat round 0, whose draws are
+    # the same each time, so after the first call few tokens change)
+    fresh = eng.init_state(words=words, docs=docs, z0=z0)
+    first = {k: fresh[k].clone() for k in ("z", "B", "D")}
+    first_ms, first_changed = [], 0
+    for _ in range(3):
+        for k in ("z", "B", "D"):
+            first[k].copy_(fresh[k])
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+        torch.cuda.synchronize()
+        ev[0].record()
+        lg.lda_gibbs(data["words"], data["docs"], first["z"], order, offsets,
+                     first["B"], first["D"], fresh["s"], **kw)
+        ev[1].record()
+        torch.cuda.synchronize()
+        first_ms.append(ev[0].elapsed_time(ev[1]))
+        first_changed = int((first["z"] != fresh["z"]).sum())
+    del fresh, first
+    torch.cuda.empty_cache()
     step1 = lda_step_us(torch, lg, 1, seed)
     stepK = lda_step_us(torch, lg, K, seed)
     chain_ms = res["active_tokens"]["round0_max"] * step1 / 1e3
+    # the longest chain's operations on the one SM that runs it
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    worker_ops_ms = (res["active_tokens"]["round0_max"] * K
+                     * (LDA_LOGF_PER_TOPIC * logf["flops"]
+                        + LDA_OTHER_OPS_PER_TOPIC)
+                     / (PEAK_F32_FLOPS / sms) * 1e3)
     entry.update(
         name="lda_gibbs", route="cuda", source=SOURCES["lda_gibbs"],
         replaces=REPLACES["lda_gibbs"], pallas_counterpart=None,
@@ -1083,6 +1193,12 @@ def lda_phase(torch, lda, lg, ref, ExecutionPlan, KernelSpec, seed: int):
         logf=logf, gflop=flops / 1e9, step_us_k1=step1, step_us=stepK,
         chain_floor_ms=chain_ms,
         chain_floor_share=chain_ms / device_ms,
+        worker_ops_floor_ms=worker_ops_ms,
+        worker_ops_floor_share=worker_ops_ms / device_ms,
+        changed_tokens=changed,
+        device_ms_first_sweep=sorted(first_ms)[1],
+        changed_tokens_first_sweep=first_changed,
+        ring_depth=lg.ring_depth(K), threads=lg.block_threads(K),
         shape={"workers": U, "tokens_per_worker": T, "topics": K,
                "active_tokens_round0": n_act,
                "longest_chain_round0": res["active_tokens"]["round0_max"]})
@@ -2143,8 +2259,10 @@ def main() -> int:
     # 5. STRADS LDA at the NYTimes shape: lda_gibbs
     kern["lda_gibbs"], ldares = lda_phase(
         torch, lda, lg, ref, ExecutionPlan, KernelSpec, args.seed)
-    kern["lda_gibbs"]["ptxas"] = ptxas_kernels(
-        _build.build_log["lda_gibbs"]["ptxas"]).get("lda_gibbs_kernel")
+    kern["lda_gibbs"]["ptxas"] = {
+        k: v for k, v in ptxas_kernels(
+            _build.build_log["lda_gibbs"]["ptxas"]).items()
+        if k.startswith("lda_gibbs_kernel")}
     print("lda: " + json.dumps({k: v for k, v in ldares.items()
                                 if k != "profile"}))
     print("lda profile (4 rounds): " + json.dumps(

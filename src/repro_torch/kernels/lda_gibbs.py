@@ -4,10 +4,13 @@ with ctypes.
 It has no Pallas counterpart: it replaces the ``lax.scan`` of
 ``_gibbs_scan`` and ``_full_gibbs_scan`` in the JAX package's
 ``apps/lda.py``.  The source is ``csrc/lda_gibbs.cu`` (the note at its
-top says what bounds it: the bytes of each token's rows, and the chain of
-a worker's tokens), built by ``nvcc`` at first use (:mod:`._build`).  One
-launch samples every worker's active tokens of one round, one thread
-block a worker.
+top says what bounds it: the logf of each topic, and the chain of a
+worker's tokens on one SM), built by ``nvcc`` at first use
+(:mod:`._build`).  One launch samples every worker's active tokens of
+one round, one thread block a worker, software-pipelined: a ring of
+:func:`ring_depth` tokens' rows arrives by cp.async while the block
+samples, and the next token's logits are computed before the current
+token's argmax.
 
 :func:`gibbs_index` sorts each worker's token slots by vocabulary block
 once; :func:`lda_gibbs` then walks only the block a worker owns this
@@ -32,6 +35,8 @@ LAUNCHES = {"lda_gibbs": 0}
 
 MAX_TOPICS = 16384           # s̃ and log(vg + s̃) in shared memory: 128 KB
 
+_depths: dict = {}
+
 
 def reset_launch_counts() -> None:
     for k in LAUNCHES:
@@ -45,8 +50,10 @@ def _lib() -> ctypes.CDLL:
         ll, ull = ctypes.c_longlong, ctypes.c_ulonglong
         lib.lda_gibbs_launch.argtypes = [p, p, p, p, p, p, p, p, p, p, i, i,
                                          i, i, i, i, ll, i, i, i, f, f, f,
-                                         ull, p]
+                                         ull, i, i, p]
         lib.lda_gibbs_launch.restype = i
+        lib.lda_gibbs_depth.argtypes = [i]
+        lib.lda_gibbs_depth.restype = i
         lib.lda_gibbs_error_string.argtypes = [i]
         lib.lda_gibbs_error_string.restype = ctypes.c_char_p
         lib._typed = True
@@ -58,6 +65,27 @@ def _raise_on(lib, err: int) -> None:
         msg = lib.lda_gibbs_error_string(err).decode()
         raise RuntimeError(f"lda_gibbs: kernel launch failed: CUDA error "
                            f"{err} ({msg})")
+
+
+def ring_depth(K: int, device=None) -> int:
+    """Tokens in the kernel's cp.async ring at K topics on ``device``'s
+    card: the deepest of 6, 4 and 2 whose block fits the card's shared
+    memory (a slot holds a token's B, D and noise rows), else 0, the
+    variant that reads each row from device memory at its turn."""
+    dev = torch.device("cuda" if device is None else device)
+    idx = dev.index if dev.index is not None else torch.cuda.current_device()
+    key = (idx, int(K))
+    if key not in _depths:
+        with torch.cuda.device(idx):
+            _depths[key] = _lib().lda_gibbs_depth(int(K))
+    return _depths[key]
+
+
+def block_threads(K: int, device=None) -> int:
+    """Threads of the kernel's block (one worker) at K topics: 256 that
+    own the topics, and with a ring of 4 or more slots 256 more that copy
+    the rows and draw the Philox noise ahead."""
+    return 512 if ring_depth(K, device) >= 4 else 256
 
 
 def gibbs_index(words: torch.Tensor, block_vocab: int, n_blocks: int):
@@ -157,7 +185,8 @@ def lda_gibbs(words: torch.Tensor, docs: torch.Tensor, z: torch.Tensor,
         s_tilde.data_ptr(), None if gumbel is None else gumbel.data_ptr(),
         P, T, K, n_blocks, int(bool(rotate)), block_vocab,
         B.shape[1] * K, D.shape[1], int(phase), L, vg, alpha, gamma,
-        int(seed), torch.cuda.current_stream(dev).cuda_stream)
+        int(seed), block_threads(K, dev), ring_depth(K, dev),
+        torch.cuda.current_stream(dev).cuda_stream)
     _raise_on(lib, err)
     LAUNCHES["lda_gibbs"] += 1
     return s_tilde

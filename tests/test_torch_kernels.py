@@ -793,18 +793,49 @@ def test_ssm_scan_kernel_rejects_what_it_does_not_take(cuda):
 # LDA's Gibbs sweep
 # ---------------------------------------------------------------------------
 
+def _repeat_words(g, P, T, V, dpw):
+    """(P, T) words and docs made of runs: a word repeated 1..12 times in
+    one document, a word at j and j + 2 with another between, and single
+    tokens; every token's rows are the ones its neighbours change."""
+    words = torch.empty((P, T), dtype=torch.int32)
+    docs = torch.empty((P, T), dtype=torch.int32)
+    for p in range(P):
+        i = 0
+        while i < T:
+            v = int(torch.randint(0, V, (), generator=g))
+            d = int(torch.randint(0, dpw, (), generator=g))
+            kind = int(torch.randint(0, 3, (), generator=g))
+            if kind == 0:
+                seg = [(v, d)] * int(torch.randint(1, 13, (), generator=g))
+            elif kind == 1:
+                d2 = int(torch.randint(0, dpw, (), generator=g))
+                seg = [(v, d), ((v + 1) % V, d if d2 % 2 else d2), (v, d)]
+            else:
+                seg = [(v, d)]
+            for v_, d_ in seg[:T - i]:
+                words[p, i], docs[p, i] = v_, d_
+                i += 1
+    return words, docs
+
+
 def _lda_case(device, K, P=4, T=600, nb=4, Vb=12, dpw=6, seed=21,
-              rotate=True):
+              rotate=True, repeats=False):
     """Words, docs, z and their counts for P workers over nb vocabulary
     blocks of Vb words: worker 2 has no active token, worker 1 all its
     tokens in document 0, and one slot in nine is padding (word −1).
     ``rotate=False`` gives the data-parallel baseline's layout instead:
-    one block spanning all nb·Vb words and a replica of B a worker."""
+    one block spanning all nb·Vb words and a replica of B a worker.
+    ``repeats`` draws the words as runs (``_repeat_words``) instead of
+    uniformly."""
     g = torch.Generator().manual_seed(seed)
-    words = torch.randint(0, nb * Vb, (P, T), generator=g, dtype=torch.int32)
+    if repeats:
+        words, docs = _repeat_words(g, P, T, nb * Vb, dpw)
+    else:
+        words = torch.randint(0, nb * Vb, (P, T), generator=g,
+                              dtype=torch.int32)
+        docs = torch.randint(0, dpw, (P, T), generator=g, dtype=torch.int32)
     words[:, ::9] = -1
     words[2] = -1
-    docs = torch.randint(0, dpw, (P, T), generator=g, dtype=torch.int32)
     docs[1] = 0
     z = torch.randint(0, K, (P, T), generator=g, dtype=torch.int32)
     on = words >= 0
@@ -857,15 +888,9 @@ def test_lda_gibbs_cpu_wrapper_takes_the_plain_version_and_backends_agree():
     assert all(torch.equal(a, b) for a, b in zip(got, want))
 
 
-@pytest.mark.gpu
-@pytest.mark.parametrize("K", [1, 7, 33, 1000])
-@pytest.mark.parametrize("noise", ["explicit", "philox"])
-def test_lda_gibbs_kernel_matches_plain_on_card(cuda, K, noise):
-    """Equal to the bit: z, B, D and s̃, with a worker that has no active
-    token and one whose tokens share one document; STRADS's rotation and
-    the baseline's one block over the whole vocabulary on replicas."""
+def _lda_kernel_equals_plain(cuda, K, noise, repeats, **case):
     for rotate in (True, False):
-        c, kw = _lda_case(cuda, K, rotate=rotate)
+        c, kw = _lda_case(cuda, K, rotate=rotate, repeats=repeats, **case)
         for phase in (0, 1, 3):
             g = None
             if noise == "explicit":
@@ -881,10 +906,44 @@ def test_lda_gibbs_kernel_matches_plain_on_card(cuda, K, noise):
 
 
 @pytest.mark.gpu
-def test_lda_gibbs_kernel_takes_unaligned_views_on_card(cuda):
-    c, kw = _lda_case(cuda, 33)
+@pytest.mark.parametrize("K", [1, 7, 33, 1000, 2049, 3000, 4500])
+@pytest.mark.parametrize("noise", ["explicit", "philox"])
+@pytest.mark.parametrize("repeats", [False, True])
+def test_lda_gibbs_kernel_matches_plain_on_card(cuda, K, noise, repeats):
+    """Equal to the bit: z, B, D and s̃, with a worker that has no active
+    token and one whose tokens share one document; STRADS's rotation and
+    the baseline's one block over the whole vocabulary on replicas; words
+    drawn uniformly or as runs that share rows token after token.  K
+    spans the kernel's ring depths (6 up to K = 2,049, more topics than
+    threads; 4 at 3,000; 2 at 4,500)."""
+    _lda_kernel_equals_plain(cuda, K, noise, repeats)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("noise", ["explicit", "philox"])
+def test_lda_gibbs_kernel_without_a_ring_matches_plain_on_card(cuda, noise):
+    """K = 16,384 (``MAX_TOPICS``): no ring slot fits, and the kernel
+    reads each row at its turn; equal to the bit on a tiny corpus."""
+    assert tlg.ring_depth(tlg.MAX_TOPICS, cuda) == 0
+    _lda_kernel_equals_plain(cuda, tlg.MAX_TOPICS, noise, True, T=60)
+
+
+@pytest.mark.gpu
+def test_lda_gibbs_ring_depth_follows_the_topics_on_card(cuda):
+    """The depths the tests above cover, on an H100's 227 KB a block."""
+    Ks = (1, 1000, 2049, 3000, 4500, 16384)
+    assert [tlg.ring_depth(K, cuda) for K in Ks] == [6, 6, 6, 4, 2, 0]
+    assert [tlg.block_threads(K, cuda) for K in Ks] == [512] * 4 + [256] * 2
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("K", [33, 1000])
+def test_lda_gibbs_kernel_takes_unaligned_views_on_card(cuda, K):
+    """B, D and the noise one element past 16-byte alignment: the ring
+    takes 4-byte copies (at K = 1,000 the rows would be aligned)."""
+    c, kw = _lda_case(cuda, K, repeats=K == 1000)
     L = int(tlg.active_counts(c["offsets"], 2).max())
-    g = torch.randn((4, L, 33), device=cuda)
+    g = torch.randn((4, L, K), device=cuda)
     want = _lda_run(tref.lda_gibbs_ref, c, 2, kw, g)
     views = {k: _offset_view(c[k]) for k in ("B", "D")}
     assert all(v.data_ptr() % 16 for v in views.values())
@@ -894,10 +953,15 @@ def test_lda_gibbs_kernel_takes_unaligned_views_on_card(cuda):
 
 
 @pytest.mark.gpu
-def test_lda_gibbs_is_one_launch_and_replays_the_same_bits_on_card(cuda):
+@pytest.mark.parametrize("K, repeats", [(33, False), (1000, True),
+                                        (4500, True), (16384, True)])
+def test_lda_gibbs_is_one_launch_and_replays_the_same_bits_on_card(
+        cuda, K, repeats):
     """One kernel node a call, and a captured call replayed 3 times from
-    the same state gives the eager call's bits each time."""
-    c, kw = _lda_case(cuda, 33)
+    the same state gives the eager call's bits each time, at each ring
+    depth."""
+    c, kw = _lda_case(cuda, K, repeats=repeats,
+                      T=60 if K > 4500 else 600)
     want = _lda_run(tlg.lda_gibbs, c, 1, kw)
     z, B, D = (c[k].clone() for k in ("z", "B", "D"))
 

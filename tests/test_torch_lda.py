@@ -43,6 +43,35 @@ def _corpus(cfg_kw, seed=0, true_topics=6):
                                  true_topics=true_topics)
 
 
+def _repeat_corpus(cfg_kw, seed=0):
+    """A corpus of runs: a word repeated 1..12 times in one document, a
+    word at j and j + 2 with another word between (in the same document
+    or another), and single tokens, laid out as ``_corpus``'s shards.
+    Consecutive tokens share their word or their document far more often
+    than in the planted corpus."""
+    rng = np.random.default_rng(seed)
+    U, T = cfg_kw["num_workers"], cfg_kw["tokens_per_worker"]
+    V, dpw, K = (cfg_kw["vocab"], cfg_kw["docs_per_worker"],
+                 cfg_kw["num_topics"])
+    words, docs = np.empty(U * T, np.int32), np.empty(U * T, np.int32)
+    for u in range(U):
+        i = u * T
+        while i < (u + 1) * T:
+            v, d = int(rng.integers(V)), int(rng.integers(dpw))
+            kind = int(rng.integers(3))
+            if kind == 0:                       # a run in one document
+                seg = [(v, d)] * int(rng.integers(1, 13))
+            elif kind == 1:                     # v, other, v
+                d2 = d if rng.integers(2) else int(rng.integers(dpw))
+                seg = [(v, d), ((v + 1) % V, d2), (v, d)]
+            else:
+                seg = [(v, d)]
+            for v_, d_ in seg[:(u + 1) * T - i]:
+                words[i], docs[i] = v_, d_
+                i += 1
+    return words, docs, rng.integers(0, K, size=U * T).astype(np.int32)
+
+
 def slot_draws(key, T: int, K: int) -> np.ndarray:
     """The (T, K) Gumbel draws ``_gibbs_scan`` makes from ``key``: one
     split per slot, ``categorical``'s ``gumbel(sub, (K,))``."""
@@ -130,14 +159,19 @@ def test_build_state_and_loglik_match(cfg_kw):
 
 @pytest.mark.parametrize("K", [1, 6, 33])
 @pytest.mark.parametrize("phase", [0, 2])
-def test_one_worker_sweep_equals_jax_gibbs_scan(K, phase):
+@pytest.mark.parametrize("corpus", ["planted", "repeats"])
+def test_one_worker_sweep_equals_jax_gibbs_scan(K, phase, corpus):
     """Worker p = 1 of U = 3 samples block (1 + phase) % 3 of a corpus
     where the other blocks' tokens are inactive; z, the block of B, D and
-    s̃ equal the JAX scan's, fed its own draws."""
+    s̃ equal the JAX scan's, fed its own draws.  ``repeats`` is a corpus
+    of runs of one word in one document (some longer than 8) and of a
+    word at j and j + 2 but not j + 1, where each token changes the rows
+    the next ones read."""
     cfg_kw = dict(vocab=50, num_topics=K, num_workers=3,
                   tokens_per_worker=500, docs_per_worker=9)
     cfg = jlda.LDAConfig(**cfg_kw)
-    words, docs, z0 = _corpus(cfg_kw)
+    words, docs, z0 = (_corpus(cfg_kw) if corpus == "planted"
+                       else _repeat_corpus(cfg_kw))
     st = jlda.build_state(cfg, words, docs, z0)
     U, T, dpw, Vb, p = 3, 500, 9, cfg.block_vocab, 1
     blk = (p + phase) % U
