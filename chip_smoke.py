@@ -23,17 +23,31 @@
    W = 1, and with ``kind="reference"``.  It checks that both kernels
    were launched, that loop ≡ scan bit for bit, that the other runs agree
    within the stated tolerance and that the objective is finite and
-   falls; then times where a round goes and runs the repo's convergence
+   falls.  Then the pipelined executor and the checkpoints
+   (``lasso_pipelined_phase``, ``lasso_loadbal_phase``): the plan
+   ``examples/plans/pipelined.json`` as checked in (the launch counts
+   it implies, 17 ``gram_block`` for 16 ``lasso_partial``; split 8 + 8
+   through the carry, equal to the bit; within STATE_TOL of the plain
+   kernels; round 0 on scan's schedule, the later rounds compared with
+   scan's; the objective descending every round) and
+   ``examples/plans/lasso_loadbal.json`` with a temporary ``ckpt_dir``
+   (4 files; the rebalances' versions and load spreads; the host ms of
+   a boundary and the files' bytes and write ms; equal to the scan run
+   to the bit; a fresh engine resumed from step 8's file equal to the
+   bit).  Then times where a round goes and runs the repo's convergence
    check (``tests/test_lasso.py``) on the card at a small size.
 4. STRADS MF at the Netflix Prize shape: 17,770 movies, 1.18 % of the
    entries observed, the users cut to MF_USERS (131,072: the dense
    layout holds A, the mask and R, 9.3 GB each), rank 40, λ = 0.05, W = 4,
    planted rank 20, data made on the card from ``--seed``.  One sweep
-   (80 rounds) on scan, then on loop (equal to the bit), then at W = 1
-   (within MF_W_TOL); the objective falls every round within
-   MF_MONO_TOL; rounds/s, the peak memory and a profiler window of 4
-   rounds; then ALS (2 iterations) beside STRADS on the first 8,192
-   users.  MF runs plain torch ops: it has no kernel.
+   (80 rounds) on scan, then on loop and on pipelined (each equal to
+   the bit: the round-robin schedule reads no state), a checkpointed
+   ``load_balanced`` sweep (``mf_checkpoint_run``: two files of 9.3 GB,
+   equal to scan, and a fresh engine resumed from the middle file equal
+   too), then at W = 1 (within MF_W_TOL); the objective falls every
+   round within MF_MONO_TOL; rounds/s, the peak memory and a profiler
+   window of 4 rounds; then ALS (2 iterations) beside STRADS on the
+   first 8,192 users.  MF runs plain torch ops: it has no kernel.
 5. STRADS LDA at the UCI NYTimes shape: 299,776 documents (2,342 a
    worker), 102,660 words, 99.5 M tokens (777,344 a worker), K = 1,000,
    W = 128 workers, a planted corpus made on the card from ``--seed``.
@@ -50,7 +64,9 @@
    plain version's, made on the card: mean within 1e-3 of γ, variance
    within 1e-2 of π²/6).  Then the main path:
    one rotation (128 rounds) on scan and on loop, with the launch counts
-   set to 0 just before and read after (128 each), equal to the bit;
+   set to 0 just before and read after (128 each), equal to the bit, and
+   on pipelined (counts set to 0 again: 128; equal to scan to the bit,
+   as the rotation reads no state);
    D, B, s recounted from z equal to the state; the log-likelihood up;
    z in [0, K); every count below 2²⁴.  The kernel timed at round 0's
    shape against two bounds: the roofline (the distinct B and D rows the
@@ -142,6 +158,7 @@ PEAK_BYTES_PER_S = 3.35e12     # H100 SXM HBM3, data sheet
 PEAK_F32_FLOPS = 67e12         # H100 SXM FP32 outside the tensor cores
 KERNEL_TOL = 1e-4              # max |kernel − plain| ≤ KERNEL_TOL·max(1, max|plain|)
 STATE_TOL = 1e-4               # |β|, |r| between runs that sum in another order
+LASSO_MONO_TOL = 1e-6          # obj(t+1) ≤ obj(t)·(1 + LASSO_MONO_TOL)
 PEAK_BF16_FLOPS = 989e12       # H100 SXM bf16 tensor cores, dense
 ATTN_TOL = 2e-2                # |kernel − plain| ≤ ATTN_TOL·max(1, max|plain|)
                                # for bf16 attention (one bf16 rounding)
@@ -459,14 +476,19 @@ def ptxas_kernels(log: str) -> dict:
     return out
 
 
-def run_plan(torch, lasso, cfg, plan, X, y, seed: int):
+def run_plan(torch, lasso, cfg, plan, X, y, seed: int, pushed=None):
     """One run of a plan through the port's entry points; returns the
-    report, its wall time and the objective trace."""
+    report, its wall time and the objective trace.  ``pushed`` (a list)
+    collects the schedule of every round the run pushes."""
     eng = lasso.make_engine(cfg, workers=plan.workers, device=DEVICE)
     data = eng.shard_data({"X": X, "y": y})
     state = eng.init_state(y=y)
     gen = torch.Generator(device=DEVICE)
     gen.manual_seed(seed)
+    if pushed is not None:
+        push = eng.app.push
+        eng.app.push = lambda d, s, sched, ph: (pushed.append(sched),
+                                                push(d, s, sched, ph))[1]
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     rep = eng.execute(state, data, gen, plan,
@@ -531,6 +553,298 @@ def profile_rounds(torch, lasso, lc, cfg, plan, X, y, seed: int):
         torch, lambda: eng.execute(state, data, gen, short),
         {"lasso_partial": (lc.LAUNCHES, ("lasso_partial_fused",)),
          "gram_block": (lc.LAUNCHES, ("gram_fused",))})
+
+def lasso_pipelined_phase(torch, lasso, lc, ExecutionPlan, KernelSpec, cfg,
+                          X, y, seed: int) -> dict:
+    """``examples/plans/pipelined.json`` as checked in (pipelined, 16
+    rounds, W = 4, the app's default kernels: the CUDA ones on the card),
+    with the launch counts set to 0 just before each run and read just
+    after.  The counts the code implies:
+
+    - a fresh run of R rounds: R + 1 ``gram_block`` (round 0's schedule
+      is made before the first round, and round R − 1 prefetches round
+      R's, which no round runs) and R ``lasso_partial``;
+    - the same plan as two ``execute`` calls of R/2 rounds through the
+      carry: R/2 + 1 and R/2 ``gram_block`` (the second call takes round
+      R/2's schedule from the carry), R/2 and R/2 ``lasso_partial``;
+    - the plan with ``kind="reference"``: none.
+
+    Checks: the split run equals the whole one to the bit; β and r within
+    STATE_TOL of the reference run's; round 0 pushes the round-0 schedule
+    of the same plan on scan (the first draw, the fresh carry), whose
+    later schedules and state are compared and reported (they differ
+    only through the staleness); the objective finite and
+    descending every round within LASSO_MONO_TOL (the guarantee
+    ``tests/test_engine_scan.py:86`` holds on the correlated design) and
+    below its start.  Then the two plans' times, alternately
+    (:func:`pipelined_against_scan`)."""
+    with open(os.path.join(ROOT, "examples", "plans",
+                           "pipelined.json")) as f:
+        plan = ExecutionPlan.from_json(json.load(f))
+    R = plan.rounds
+    check(plan.executor == "pipelined" and R == 16 and plan.workers == 4
+          and plan.kernels is None, f"unexpected plan {plan}")
+    run_plan(torch, lasso, cfg, ExecutionPlan.from_json(
+        dict(plan.to_json(), rounds=2)), X, y, seed)         # warm-up
+    pushed: list = []
+    lc.reset_launch_counts()
+    eng, rep, secs = run_plan(torch, lasso, cfg, plan, X, y, seed, pushed)
+    launches = dict(lc.LAUNCHES)
+    ran = list(pushed)          # the engine's later calls push too
+    check(launches == {"lasso_partial": R, "gram_block": R + 1},
+          f"pipelined: launches {launches}, want {R} lasso_partial and "
+          f"{R + 1} gram_block")
+    check(rep.carry.depth == 1 and rep.carry.t == R,
+          "pipelined: the carry holds no in-flight schedule")
+    # the same plan in two calls through the carry
+    data = eng.shard_data({"X": X, "y": y})
+    gen = torch.Generator(device=DEVICE).manual_seed(seed)
+    obj = eng.app.objective_collect()
+    half = ExecutionPlan.from_json(dict(plan.to_json(), rounds=R // 2))
+    lc.reset_launch_counts()
+    first = eng.execute(eng.init_state(y=y), data, gen, half, collect=obj)
+    split = [dict(lc.LAUNCHES)]
+    lc.reset_launch_counts()
+    second = eng.execute(first.state, data, gen, plan, collect=obj,
+                         carry=first.carry)
+    split.append(dict(lc.LAUNCHES))
+    check(split == [{"lasso_partial": R // 2, "gram_block": R // 2 + 1},
+                    {"lasso_partial": R // 2, "gram_block": R // 2}],
+          f"pipelined in two calls: launches {split}")
+    check(torch.equal(second.state["beta"], rep.state["beta"])
+          and torch.equal(second.state["r"], rep.state["r"])
+          and torch.equal(torch.cat([first.trace, second.trace]),
+                          rep.trace),
+          "pipelined: the run split through the carry differs from the "
+          "whole run")
+    # the plain versions
+    ref_plan = ExecutionPlan.from_json(dict(
+        plan.to_json(), kernels=KernelSpec(kind="reference").to_json()))
+    lc.reset_launch_counts()
+    _, rep_ref, secs_ref = run_plan(torch, lasso, cfg, ref_plan, X, y, seed)
+    check(not any(lc.LAUNCHES.values()),
+          "the pipelined reference run launched a kernel")
+    db = (rep_ref.state["beta"] - rep.state["beta"]).abs().max().item()
+    dr = (rep_ref.state["r"] - rep.state["r"]).abs().max().item()
+    check(db <= STATE_TOL and dr <= STATE_TOL,
+          f"pipelined: reference differs: |Δβ| {db}, |Δr| {dr} > "
+          f"{STATE_TOL}")
+    # the same plan on scan: round 0 runs scan's round-0 schedule; later
+    # rounds may differ through the one round of staleness (reported)
+    scan_pushed: list = []
+    scan_plan = ExecutionPlan.from_json(dict(plan.to_json(),
+                                             executor="scan"))
+    _, rep_scan, secs_scan = run_plan(torch, lasso, cfg, scan_plan, X, y,
+                                      seed, scan_pushed)
+    differ = [t for t, (a, b) in enumerate(zip(ran, scan_pushed))
+              if not (torch.equal(a["idx"], b["idx"])
+                      and torch.equal(a["mask"], b["mask"]))]
+    check(len(ran) == len(scan_pushed) == R and 0 not in differ,
+          "pipelined: round 0 did not run scan's round-0 schedule")
+    vs_scan = {"rounds_with_another_schedule": differ,
+               "state_equal": bool(
+                   torch.equal(rep_scan.state["beta"], rep.state["beta"])
+                   and torch.equal(rep_scan.state["r"], rep.state["r"]))}
+    obj0 = 0.5 * float((y.double() ** 2).sum())
+    trace = rep.trace.double().cpu().tolist()
+    check(len(trace) == R and all(map(math.isfinite, trace)),
+          "pipelined: the objective trace is not finite")
+    rises = [t for t in range(R) if trace[t] > (trace[t - 1] if t else obj0)
+             * (1 + LASSO_MONO_TOL)]
+    check(not rises and trace[-1] < obj0,
+          f"pipelined: the objective rose in rounds {rises} (or did not "
+          f"fall: {trace[-1]} vs {obj0})")
+    alternating = pipelined_against_scan(torch, lasso, cfg, plan, scan_plan,
+                                         eng, data, X, y, seed)
+    return {"plan": plan.to_json(), "launches": launches,
+            "launches_split": split, "split_equals_whole": True,
+            "max_diff_vs_reference": {"beta": db, "r": dr},
+            "round0_schedule_equals_scan": True, "vs_scan": vs_scan,
+            "objective_start": obj0, "objective_end": trace[-1],
+            "objective_descends": True,
+            "rounds_per_s": {"pipelined": R / secs,
+                             "pipelined_reference": R / secs_ref,
+                             "scan": R / secs_scan},
+            "seconds": {"pipelined": secs, "pipelined_reference": secs_ref,
+                        "scan": secs_scan},
+            "alternating": alternating}
+
+
+def pipelined_against_scan(torch, lasso, cfg, plan, scan_plan, eng, data,
+                           X, y, seed: int, pairs: int = 3) -> dict:
+    """The pipelined plan and the same plan on scan timed alternately in
+    this process (pipelined, scan, scan, pipelined, … for ``pairs`` × 2
+    runs each), and one schedule's wall time (noise, propose, the
+    candidates' Gram block, Σ workers, the ρ-filter; synchronised before
+    and after).  A fresh pipelined run makes R + 1 schedules against
+    scan's R, so ``extra_schedule_ms`` is the part of the gap that the
+    code implies; ``unexplained_ms`` is the median gap less it."""
+    secs: dict = {"pipelined": [], "scan": []}
+    for order in (("pipelined", "scan"), ("scan", "pipelined")) * pairs:
+        for name in order:
+            p = plan if name == "pipelined" else scan_plan
+            secs[name].append(run_plan(torch, lasso, cfg, p, X, y, seed)[2])
+    gaps = [(a - b) * 1e3 for a, b in zip(secs["pipelined"], secs["scan"])]
+    state, sc = eng.init_state(y=y), eng.init_sched_carry()
+    gen = torch.Generator(device=DEVICE).manual_seed(seed)
+    sched_ms = []
+    for t in range(7):
+        noise = eng._noise(gen, None, t)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        eng._make_schedule(state, sc, data, noise, t, 0)
+        torch.cuda.synchronize()
+        sched_ms.append((time.perf_counter() - t0) * 1e3)
+    R = plan.rounds
+    gap, one = median(gaps), median(sched_ms)
+    return {"seconds": secs, "gap_ms": gaps, "median_gap_ms": gap,
+            "median_rounds_per_s": {k: R / median(v)
+                                    for k, v in secs.items()},
+            "schedule_ms": sched_ms, "extra_schedule_ms": one,
+            "unexplained_ms": gap - one}
+
+
+def median(xs):
+    xs = sorted(xs)
+    n = len(xs)
+    return xs[n // 2] if n % 2 else 0.5 * (xs[n // 2 - 1] + xs[n // 2])
+
+
+class BoundaryTimer:
+    """Times a chunked run's boundaries on the host: the partition check
+    (``StradsEngine._partition_step``: the signal's copy to the host,
+    the EMA, the rebalance decision and the greedy re-binning) and the
+    checkpoint write, each after a ``synchronize`` so that the chunk's
+    device work is not counted; and the bytes of each file."""
+
+    def __init__(self, torch, eng, engine_mod):
+        self.torch, self.eng, self.mod = torch, eng, engine_mod
+        self.partition_ms: list = []
+        self.save_ms: list = []
+        self.bytes: list = []
+
+    def _timed(self, fn, out: list):
+        def run(*a, **kw):
+            self.torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            r = fn(*a, **kw)
+            out.append((time.perf_counter() - t0) * 1e3)
+            return r
+        return run
+
+    def __enter__(self):
+        save = self._timed(self.mod.save_checkpoint, self.save_ms)
+
+        def save_and_size(*a, **kw):
+            path = save(*a, **kw)
+            self.bytes.append(os.path.getsize(path))
+            return path
+        self.eng._partition_step = self._timed(self.eng._partition_step,
+                                               self.partition_ms)
+        self._swap = patched(self.mod, save_checkpoint=save_and_size)
+        self._swap.__enter__()
+        return self
+
+    def __exit__(self, *exc):
+        self._swap.__exit__(*exc)
+        del self.eng._partition_step
+
+    def summary(self) -> dict:
+        return {"partition_ms": self.partition_ms, "save_ms": self.save_ms,
+                "checkpoint_bytes": self.bytes}
+
+
+def lasso_loadbal_phase(torch, lasso, lc, ExecutionPlan, cfg, X, y,
+                        seed: int, scan_state) -> dict:
+    """``examples/plans/lasso_loadbal.json`` as checked in (scan, 16
+    rounds, W = 4, dynamic priority U = 32 of U′ = 128, ρ = 0.3, a
+    ``load_balanced`` partitioner checked every 4 rounds) with a
+    temporary ``ckpt_dir``: 4 chunks, 4 files (steps 4, 8, 12, 16), 16
+    launches of each kernel (scan makes one schedule a round); the
+    assignment's version and load spread (before and after the move, on
+    the EMA at that boundary) at each boundary; the host ms of a boundary
+    and each checkpoint's bytes and write ms (:class:`BoundaryTimer`).
+    The run equals ``lasso_pallas.json``'s scan run to the bit (the same
+    scheduler, kernels and seed: ownership is bookkeeping).  A fresh
+    engine resumed from step 8's file (state, carry and ``partition=``)
+    launches each kernel 8 times and equals the uninterrupted run to the
+    bit in β, r, the scheduler carry, the final assignment and the
+    EMA."""
+    import tempfile
+    from repro_torch.checkpoint import load_flat, restore_checkpoint
+    from repro_torch.core import engine as engine_mod
+    from repro_torch.part import Assignment, contiguous_assignment
+    with open(os.path.join(ROOT, "examples", "plans",
+                           "lasso_loadbal.json")) as f:
+        plan = ExecutionPlan.from_json(json.load(f))
+    R, C = plan.rounds, plan.checkpoint_every
+    check(plan.executor == "scan" and (R, C) == (16, 4)
+          and plan.partitioner.kind == "load_balanced",
+          f"unexpected plan {plan}")
+    eng = lasso.make_engine(cfg, workers=plan.workers, device=DEVICE)
+    data = eng.shard_data({"X": X, "y": y})
+    obj = eng.app.objective_collect()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_lasso_") as d:
+        lc.reset_launch_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with BoundaryTimer(torch, eng, engine_mod) as timer:
+            rep = eng.execute(eng.init_state(y=y), data,
+                              torch.Generator(device=DEVICE).manual_seed(
+                                  seed), plan, collect=obj, ckpt_dir=d)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        launches = dict(lc.LAUNCHES)
+        check(launches == {"lasso_partial": R, "gram_block": R},
+              f"lasso_loadbal: launches {launches}, want {R} each")
+        files = sorted(os.listdir(d))
+        check(files == [f"step_{t:08d}.npz" for t in range(C, R + 1, C)],
+              f"lasso_loadbal: files {files}")
+        check(torch.equal(rep.state["beta"], scan_state["beta"])
+              and torch.equal(rep.state["r"], scan_state["r"]),
+              "lasso_loadbal: the run differs from lasso_pallas.json's")
+        final, ema = eng.partition_assignment, eng.partition_stats["ema"]
+        payload = eng.partition_payload()
+        boundaries = []
+        prev = contiguous_assignment(cfg.num_features, plan.workers)
+        for t in range(C, R + 1, C):
+            flat = load_flat(d, t)
+            own = Assignment.from_payload(
+                {k: flat[f"assignment/{k}"]
+                 for k in ("owner", "num_workers", "version")})
+            w = flat["assignment/stats_ema"]
+            boundaries.append({"t": t, "version": own.version,
+                               "spread_before": prev.spread(w),
+                               "spread_after": own.spread(w)})
+            prev = own
+        check(prev == final, "lasso_loadbal: the last file's assignment is "
+                             "not the engine's")
+        # a fresh engine resumed from the middle file
+        eng2 = lasso.make_engine(cfg, workers=plan.workers, device=DEVICE)
+        eng2.set_partitioner(plan.partitioner)
+        back = restore_checkpoint(d, R // 2, {
+            "state": rep.state, "carry": rep.carry, "assignment": payload})
+        lc.reset_launch_counts()
+        res = eng2.execute(back["state"], eng2.shard_data({"X": X, "y": y}),
+                           None, plan, carry=back["carry"],
+                           partition=back["assignment"],
+                           ckpt_dir=os.path.join(d, "resumed"))
+        resumed_launches = dict(lc.LAUNCHES)
+    check(resumed_launches == {"lasso_partial": R // 2,
+                               "gram_block": R // 2},
+          f"lasso_loadbal resumed: launches {resumed_launches}")
+    check(torch.equal(res.state["beta"], rep.state["beta"])
+          and torch.equal(res.state["r"], rep.state["r"])
+          and torch.equal(res.carry.sched_carry, rep.carry.sched_carry)
+          and eng2.partition_assignment == final
+          and (eng2.partition_stats["ema"] == ema).all(),
+          "lasso_loadbal: the run resumed from step 8 differs")
+    return {"plan": plan.to_json(), "launches": launches,
+            "launches_resumed": resumed_launches, "chunks": len(files),
+            "files": files, "boundaries": boundaries,
+            "final_version": final.version, **timer.summary(),
+            "rounds_per_s": R / secs, "seconds": secs,
+            "equals_scan_w4": True, "resumed_equals_whole": True}
 
 # ---------------------------------------------------------------------------
 # STRADS MF at the Netflix Prize shape, STRADS LDA at the NYTimes shape
@@ -636,6 +950,19 @@ def mf_phase(torch, mf, ExecutionPlan, seed: int) -> dict:
     check(not rises, f"mf: the objective rose in rounds {rises}")
     check(trace[-1] < obj0, f"mf: the objective did not fall: {trace[-1]} "
                             f">= {obj0}")
+    # the pipelined executor: round-robin schedules read no state, so it
+    # equals scan to the bit
+    _, _, pipe, pipe_secs, _, _ = run(P, "pipelined")
+    for k in ("W", "H", "R"):
+        check(torch.equal(scan.state[k], pipe.state[k]),
+              f"mf: pipelined and scan differ in {k} on the card")
+    check(torch.equal(scan.trace, pipe.trace), "mf: the objective traces of "
+                                               "pipelined and scan differ")
+    check(pipe.carry.depth == 1, "mf: the pipelined carry holds no "
+                                 "in-flight schedule")
+    del pipe
+    ckpt = mf_checkpoint_run(torch, mf, ExecutionPlan, cfg, A, mask, gen,
+                             scan.state)
     _, _, one, one_secs, _, _ = run(1, "scan")
     diffs = {}
     for k in ("W", "H", "R"):
@@ -653,8 +980,10 @@ def mf_phase(torch, mf, ExecutionPlan, seed: int) -> dict:
         objective_w1_end=obj_w1, loop_equals_scan=True,
         max_rel_diff_w1_vs_w4=diffs,
         rounds_per_s={"scan": R / secs, "loop": R / loop_secs,
-                      "scan_w1": R / one_secs},
-        seconds={"scan": secs, "loop": loop_secs, "scan_w1": one_secs},
+                      "scan_w1": R / one_secs, "pipelined": R / pipe_secs},
+        seconds={"scan": secs, "loop": loop_secs, "scan_w1": one_secs,
+                 "pipelined": pipe_secs},
+        pipelined_equals_scan=True, checkpoint=ckpt,
         objective_ms=time_ms(torch, lambda: obj_fn(scan.state), iters=10,
                              warmup=2),
         peak_memory_gb=peak)
@@ -691,6 +1020,76 @@ def mf_phase(torch, mf, ExecutionPlan, seed: int) -> dict:
     del A, mask, A8, m8
     torch.cuda.empty_cache()
     return res
+
+
+def mf_checkpoint_run(torch, mf, ExecutionPlan, cfg, A, mask, gen,
+                      scan_state) -> dict:
+    """One sweep (2K rounds) on scan under a ``load_balanced`` partitioner
+    (EMA 0.5, threshold 0.1), chunked at its middle with a temporary
+    ``ckpt_dir``: two files, and the state equal to the unchunked scan
+    run's to the bit (ownership is bookkeeping).  Then a fresh engine
+    resumed from the middle file (state, carry and ``partition=``)
+    equals it too.  Records the boundaries' host ms and each
+    checkpoint's bytes and write ms (:class:`BoundaryTimer`), and the
+    restore's seconds.  The final file is removed before the resumed
+    run writes its own, so the disk holds two at a time."""
+    import tempfile
+    from repro_torch.checkpoint import restore_checkpoint
+    from repro_torch.core import engine as engine_mod
+    from repro_torch.part import PartitionerSpec
+    P, R = MF_WORKERS, 2 * cfg.rank
+    plan = ExecutionPlan(executor="scan", rounds=R, workers=P,
+                         checkpoint_every=R // 2,
+                         partitioner=PartitionerSpec(
+                             kind="load_balanced", ema=0.5,
+                             imbalance_threshold=0.1))
+    eng = mf.make_engine(cfg, workers=P, device=DEVICE)
+    data = eng.shard_data({"A": A, "mask": mask})
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_mf_") as d:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with BoundaryTimer(torch, eng, engine_mod) as timer:
+            rep = eng.execute(eng.init_state(A=A, mask=mask,
+                                             generator=gen()),
+                              data, None, plan, ckpt_dir=d)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        files = sorted(os.listdir(d))
+        check(files == [f"step_{t:08d}.npz" for t in (R // 2, R)],
+              f"mf checkpoints: files {files}")
+        for k in ("W", "H", "R"):
+            check(torch.equal(rep.state[k], scan_state[k]),
+                  f"mf: the chunked load_balanced run differs in {k} from "
+                  f"scan")
+        eng2 = mf.make_engine(cfg, workers=P, device=DEVICE)
+        eng2.set_partitioner(plan.partitioner)
+        template = {"state": rep.state, "carry": rep.carry,
+                    "assignment": eng.partition_payload()}
+        del rep
+        os.remove(os.path.join(d, files[-1]))
+        t0 = time.perf_counter()
+        back = restore_checkpoint(d, R // 2, template)
+        torch.cuda.synchronize()
+        restore_s = time.perf_counter() - t0
+        del template
+        res = eng2.execute(back["state"], eng2.shard_data({"A": A,
+                                                           "mask": mask}),
+                           None, plan, carry=back["carry"],
+                           partition=back["assignment"], ckpt_dir=d)
+        del back
+        for k in ("W", "H", "R"):
+            check(torch.equal(res.state[k], scan_state[k]),
+                  f"mf: the run resumed from step {R // 2} differs in {k}")
+        check(eng2.partition_assignment == eng.partition_assignment,
+              "mf: the resumed run ends on another assignment")
+    out = {"rounds": R, "checkpoint_every": R // 2, "files": files,
+           "seconds": secs, "restore_seconds": restore_s,
+           "final_version": eng.partition_assignment.version,
+           **timer.summary(), "equals_scan": True,
+           "resumed_equals_scan": True}
+    del res
+    torch.cuda.empty_cache()
+    return out
 
 
 def lda_counts(torch, words, docs, z, n_slabs: int, rows: int, dpw: int,
@@ -1042,6 +1441,7 @@ def lda_phase(torch, lda, lg, ref, ExecutionPlan, KernelSpec, seed: int):
         "chain_tokens_a_rotation": int(counts.max(1).values.sum())}
     init = eng.init_state(words=words, docs=docs, z0=z0)
     loop_init = {k: v.clone() for k, v in init.items()}
+    pipe_init = {k: v.clone() for k, v in init.items()}
     kw = dict(phase=0, rotate=True, block_vocab=Vb, vg=Vp * cfg.gamma,
               alpha=cfg.alpha, gamma=cfg.gamma, seed=LDA_SEED)
 
@@ -1103,7 +1503,25 @@ def lda_phase(torch, lda, lg, ref, ExecutionPlan, KernelSpec, seed: int):
               f"{lg.LAUNCHES['lda_gibbs'] - before} times in {U} rounds")
     launches = lg.LAUNCHES["lda_gibbs"]
     peak = torch.cuda.max_memory_allocated() / 1e9
+    # the pipelined executor: the rotation reads no state, so it equals
+    # scan to the bit (and so its counts recount exactly, as scan's do)
+    lg.reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    pipe = eng.execute(pipe_init, data, None, ExecutionPlan(
+        executor="pipelined", rounds=U), collect=lambda s: s["s_err"])
+    torch.cuda.synchronize()
+    pipe_secs = time.perf_counter() - t0
+    pipe_launches = lg.LAUNCHES["lda_gibbs"]
+    check(pipe_launches == U, f"lda pipelined: lda_gibbs launched "
+                              f"{pipe_launches} times in {U} rounds")
     a, b = runs["scan"][0], runs["loop"][0]
+    for k in ("z", "D", "B", "s", "s_err"):
+        check(torch.equal(a.state[k], pipe.state[k]),
+              f"lda: pipelined and scan differ in {k} on the card")
+    check(torch.equal(a.trace, pipe.trace), "lda: the s-error traces of "
+                                            "pipelined and scan differ")
+    del pipe, pipe_init
     for k in ("z", "D", "B", "s", "s_err"):
         check(torch.equal(a.state[k], b.state[k]),
               f"lda: loop and scan differ in {k} on the card")
@@ -1127,8 +1545,12 @@ def lda_phase(torch, lda, lg, ref, ExecutionPlan, KernelSpec, seed: int):
         counts_recount_exactly=True, loglik_start=ll0, loglik_end=ll1,
         s_max=s_max, s_err_last=s_errs[-1], s_err_max=max(s_errs),
         s_err_mean=sum(s_errs) / len(s_errs),
-        rounds_per_s={ex: U / s for ex, (_, s) in runs.items()},
-        seconds={ex: s for ex, (_, s) in runs.items()}, peak_memory_gb=peak)
+        rounds_per_s={**{ex: U / s for ex, (_, s) in runs.items()},
+                      "pipelined": U / pipe_secs},
+        seconds={**{ex: s for ex, (_, s) in runs.items()},
+                 "pipelined": pipe_secs},
+        pipelined_equals_scan=True, launches_pipelined=pipe_launches,
+        peak_memory_gb=peak)
     del b, runs, loop_init, rec, flat
 
     # the kernel timed at round 0's shape on the main path's state
@@ -1183,7 +1605,8 @@ def lda_phase(torch, lda, lg, ref, ExecutionPlan, KernelSpec, seed: int):
     entry.update(
         name="lda_gibbs", route="cuda", source=SOURCES["lda_gibbs"],
         replaces=REPLACES["lda_gibbs"], pallas_counterpart=None,
-        launches=launches, ms=ms, device_ms=device_ms,
+        launches=launches, launches_pipelined=pipe_launches, ms=ms,
+        device_ms=device_ms,
         ms_repeat=time_ms(torch, fn, iters=10, warmup=1),
         device_ms_repeat=graph_ms(torch, fn, calls=5, replays=4),
         bound_ms=bms, bound_by=by, library_ms=None,
@@ -2209,6 +2632,16 @@ def main() -> int:
         "data_seconds": gen_s,
     }
     print("main path: " + json.dumps(main))
+    # the pipelined executor and a checkpointed load_balanced run
+    pipelined = lasso_pipelined_phase(torch, lasso, lc, ExecutionPlan,
+                                      KernelSpec, cfg, X, y, args.seed)
+    print("lasso pipelined: " + json.dumps(pipelined))
+    loadbal = lasso_loadbal_phase(torch, lasso, lc, ExecutionPlan, cfg, X, y,
+                                  args.seed, runs["scan_w4"][0].state)
+    print("lasso load_balanced + checkpoints: " + json.dumps(loadbal))
+    for k in ("lasso_partial", "gram_block"):
+        kern[k]["launches_pipelined"] = pipelined["launches"][k]
+        kern[k]["launches_loadbal"] = loadbal["launches"][k]
 
     eng = lasso.make_engine(cfg, workers=W, device=DEVICE)
     data = eng.shard_data({"X": X, "y": y})
@@ -2343,6 +2776,7 @@ def main() -> int:
     tg["decode_shape_floor_share"] = (max(tg["bound_ms"], launch_floor_ms)
                                       / tg["decode_shape_device_ms"])
     result.update(kernels=list(kern.values()), main=main, profile=prof,
+                  lasso_pipelined=pipelined, lasso_loadbal=loadbal,
                   launch_floor_ms=launch_floor_ms,
                   small={"objective": got, "reference_cd": want},
                   mf=mfres, lda=ldares,

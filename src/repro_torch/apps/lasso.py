@@ -27,6 +27,7 @@ import torch
 
 from ..core import StradsAppBase, StradsEngine
 from ..kernels import KernelSpec, build_kernels
+from ..part import PartitionerSpec
 from ..sched import SchedulerSpec
 from . import _exec
 
@@ -90,6 +91,21 @@ class StradsLasso(StradsAppBase):
         if self.kernels is None:
             self.kernels = build_kernels(self.default_kernel_spec())
         return self.kernels
+
+    # -- partition injection -------------------------------------------------
+    # Coefficients are interchangeable, so every partition kind applies:
+    # the ownership map is bookkeeping (which worker serves β_j), and the
+    # load balancer's activity signal is |Δβ| — the quantity the dynamic
+    # scheduler's priorities track.
+
+    supported_partitioner_kinds = ("static", "size_balanced",
+                                   "load_balanced")
+
+    def default_partitioner_spec(self) -> PartitionerSpec:
+        return PartitionerSpec(kind="static")
+
+    def partition_signal(self, state):
+        return state["beta"]
 
     @property
     def needs_schedule_stats(self) -> bool:

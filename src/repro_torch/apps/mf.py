@@ -121,7 +121,7 @@ class StradsMF(StradsAppBase):
     def num_schedulable(self) -> int:
         return self.cfg.rank
 
-    # -- partitioning (declared for step 6; the engine runs "static") --------
+    # -- partition injection -------------------------------------------------
     # Rank blocks are interchangeable, so ownership may move freely; the
     # activity signal is the per-rank L1 mass of H.
 

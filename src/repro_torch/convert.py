@@ -1,8 +1,9 @@
 """Carry state from the JAX package into the port.
 
 Carriers: :func:`lasso_from_jax`, :func:`mf_from_jax` and
-:func:`lda_from_jax` for the STRADS apps' runs, and
-:func:`model_params_from_jax` for the model zoo's parameters.
+:func:`lda_from_jax` for the STRADS apps' runs,
+:func:`checkpoint_from_jax` for a checkpoint the JAX package's engine
+wrote, and :func:`model_params_from_jax` for the model zoo's parameters.
 
 The JAX package keeps β replicated, r and the data row-sharded over a
 ``data`` mesh axis, and the dynamic-priority scheduler's Δβ history in
@@ -89,6 +90,47 @@ def lda_from_jax(state: dict, words: np.ndarray, docs: np.ndarray, *,
                                     device=device) for k in ("s", "s_err")}}
     data = {"words": ints(words), "docs": ints(docs)}
     return out_state, data, EngineCarry(t=int(t))
+
+
+def checkpoint_from_jax(flat: dict, engine):
+    """A checkpoint of the JAX package's ``StradsEngine.execute`` (the
+    flat arrays its ``checkpoint.load_flat`` returns) as a resume point
+    of the port's ``engine``.  Returns ``(state, carry, partition)`` for
+    ``engine.execute(state, data, None, plan, carry=carry,
+    partition=partition, noise=...)``:
+
+    - ``state``: every ``state/<leaf>`` placed by ``engine.place_state``
+      (row-split over the engine's workers where the app's state spec
+      is ``"data"``, as :func:`lasso_from_jax` lays it out);
+    - ``carry``: an :class:`~repro_torch.core.EngineCarry` with the round
+      index, the scheduler carry and, when the JAX run was pipelined, its
+      in-flight schedule (``depth`` 1; integer leaves as int64 indices,
+      as the port's schedulers make them);
+    - ``partition``: the ``"assignment"`` payload, or ``None``.
+
+    The JAX PRNG key (``carry/.rng``) cannot cross: the carry has no
+    generator state, so the caller passes ``noise=`` with the JAX
+    package's draws to continue its trajectory.  A JAX pipelined run
+    whose schedule is implicit (LDA's rotation) saves no in-flight
+    schedule, so its checkpoint resumes here only on ``scan``/``loop``."""
+    dev = engine.device
+
+    def sub(prefix):
+        return {k[len(prefix):]: v for k, v in flat.items()
+                if k.startswith(prefix)}
+
+    state = engine.place_state(sub("state/"))
+    sched = {k: torch.as_tensor(np.asarray(v).astype(
+        np.int64 if np.issubdtype(np.asarray(v).dtype, np.integer)
+        else np.asarray(v).dtype), device=dev)
+        for k, v in sub("carry/.sched/").items()}
+    sc = flat.get("carry/.sched_carry")
+    carry = EngineCarry(
+        t=int(flat["carry/.t"]),
+        sched_carry=(None if sc is None else torch.as_tensor(
+            np.asarray(sc, np.float32), device=dev)),
+        sched=sched or None, depth=1 if sched else 0)
+    return state, carry, sub("assignment/") or None
 
 
 def _tensor(x, dtype: torch.dtype, device) -> torch.Tensor:

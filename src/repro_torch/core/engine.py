@@ -1,4 +1,5 @@
-"""The STRADS round executors of the port: ``loop`` and ``scan``.
+"""The STRADS round executors of the port: ``loop``, ``scan`` and
+``pipelined``.
 
 One round is the JAX package's (``core/engine.py``)
 
@@ -9,39 +10,62 @@ with the workers as a leading tensor axis (see
 pair becomes per-worker partials and a ``.sum(0)``.
 
 :meth:`StradsEngine.execute` is the one entry point, driven by an
-:class:`~repro_torch.core.plan.ExecutionPlan`.  Both executors of this
-port run the same round body in a Python loop, so ``loop`` ≡ ``scan``
-bit for bit, as in the JAX package.  ``loop`` takes a per-round host
-callback; ``scan`` takes none and never syncs with the host (capturing
-its rounds as one CUDA graph is later work).  Apps whose rounds cycle
-through static phases (``phase_period``: MF's H/W alternation is 2,
-LDA's rotation U) run on both; ``scan`` holds them to the JAX scan's
-rule that a run starts on a phase boundary.  Plan fields and executors
-the port does not run yet raise ``NotImplementedError`` naming the
+:class:`~repro_torch.core.plan.ExecutionPlan`.  ``loop`` and ``scan``
+run the same round body in a Python loop, so ``loop`` ≡ ``scan`` bit for
+bit, as in the JAX package.  ``loop`` takes a per-round host callback;
+``scan`` takes none and never syncs with the host (capturing its rounds
+as one CUDA graph is later work).  ``pipelined`` is the paper's
+pipelined scheduler (the JAX ``run_scanned(pipeline_depth=1)``): the
+schedule of round t+1 is made from the state and scheduler carry before
+round t's update, so each round runs a schedule one round stale.  The
+port runs it in program order on the current CUDA stream (the kernels'
+cached workspaces assume one stream); the prefetch has no data
+dependency on the round, which is what a second stream could overlap.
+Apps whose rounds cycle through static phases (``phase_period``: MF's
+H/W alternation is 2, LDA's rotation U) run on all three; ``scan`` and
+``pipelined`` hold them to the JAX scan's rule that a run starts on a
+phase boundary, and ``pipelined`` to its rule that the rounds divide
+into ``phase_period × phase_unroll``.  Plan fields and executors the
+port does not run yet raise ``NotImplementedError`` naming the
 ROADMAP.md step that ports them; nothing silently runs something else.
+
+Partition policy is injected like the scheduler (the partitioning
+contract of :mod:`repro_torch.core.primitives`): the resolved
+partitioner owns the variable→worker
+:class:`~repro_torch.part.Assignment`, and the engine checks for a
+rebalance on the host at the ``plan.checkpoint_every`` chunk boundaries
+of ``execute``, where it also writes a ``{"state", "carry",
+"assignment"}`` checkpoint (:mod:`repro_torch.checkpoint`).  A run
+resumed with ``carry=`` and ``partition=`` continues bit-exactly.
 
 Randomness: the JAX engine splits a PRNG key per round and draws the
 scheduler's Gumbel noise from it.  The port draws one (J,) Gumbel vector
 per round from a ``torch.Generator`` on the engine's device, or takes it
 from a ``noise(t)`` source the caller passes (the parity tests feed the
-JAX package's own draws that way).  An app that keys its draws itself
+JAX package's own draws that way).  Round t's schedule takes the t-th
+draw on every executor, so ``pipelined`` differs from ``scan`` through
+staleness alone; its generator is one draw ahead at the end of a run
+(the prefetched schedule's).  An app that keys its draws itself
 (``own_noise``: MF draws once per H/W cycle) gets ``None`` when the
 caller passes no source.
 """
 from __future__ import annotations
 
 import dataclasses
+import warnings
 from typing import Any, Callable, Optional
 
 import numpy as np
 import torch
 
+from ..checkpoint import save_checkpoint
 from ..kernels import KernelSpec, build_kernels
+from ..part import Assignment, PartitionerSpec, build_partitioner
 from ..sched import SchedulerSpec, build_scheduler
+from .kvstore import DATA_AXIS, KVStore, place, store_from_tree
 from .plan import ExecutionPlan, ExecutionReport
 from .primitives import RoundResult, StradsAppBase, tree_psum
 
-DATA_AXIS = "data"
 _UNSET = object()
 _TINY = float(np.finfo(np.float32).tiny)
 
@@ -60,11 +84,16 @@ def resolve_device(device) -> torch.device:
 class EngineCarry:
     """Resumable carry: the next round index, the engine-owned scheduler
     carry (e.g. the Δβ priority history; ``None`` for stateless
-    policies) and the state of the noise generator (``None`` when the
-    noise came from a caller's source)."""
+    policies), the state of the noise generator (``None`` when the
+    noise came from a caller's source), and for a pipelined run
+    (``depth`` 1) the prefetched schedule of round ``t`` (``sched``;
+    ``None`` for apps whose schedule is implicit, as LDA's rotation).
+    It round-trips through :mod:`repro_torch.checkpoint`."""
     t: int
     sched_carry: Any = None
     rng_state: Optional[torch.Tensor] = None
+    sched: Any = None
+    depth: int = 0
 
 
 class StradsEngine:
@@ -101,10 +130,18 @@ class StradsEngine:
         self._spec_override = scheduler
         self._kern_override = kernels
         self._active_spec = _UNSET
+        self._active_part_spec = None
         self._active_kern_spec = None
+        self.partitioner = None
+        self._assignment: Optional[Assignment] = None
+        self._initial_assignment: Optional[Assignment] = None
+        self._part_stats = None
+        #: the model store, built by ``place_state`` / ``init_state``
+        self.kvstore: Optional[KVStore] = None
         app.device = self.device
         self.set_kernels(None)
         self.set_scheduler(None)
+        self.set_partitioner(None)
 
     # -- injection (plan > constructor > app > reference) --------------------
 
@@ -136,6 +173,191 @@ class StradsEngine:
             type(self.app).schedule_stats
             is not StradsAppBase.schedule_stats)
         return sched
+
+    # -- partition injection (the partitioning contract) ---------------------
+
+    def set_partitioner(self, spec: Optional[PartitionerSpec] = None):
+        """Resolve a :class:`PartitionerSpec` (``None`` → the app's
+        ``default_partitioner_spec()``) into a
+        partitioner and inject its initial assignment into the app.
+        Idempotent for an unchanged spec: it then keeps the current
+        assignment and activity stats, so an in-process resume continues
+        the partition trajectory.  Returns the active partitioner (or
+        ``None`` for apps with no partition story)."""
+        resolved = spec if spec is not None else self._app_default(
+            "default_partitioner_spec")
+        if resolved == self._active_part_spec:
+            return self.partitioner
+        if resolved is None:
+            self.partitioner = None
+            self._active_part_spec = None
+            self._part_stats = None
+            self._install_assignment(None)
+            return None
+        kinds = getattr(self.app, "supported_partitioner_kinds", None)
+        if kinds is not None and resolved.kind not in kinds:
+            raise ValueError(
+                f"{type(self.app).__name__} cannot host a "
+                f"{resolved.kind!r} partitioner (it supports "
+                f"{sorted(kinds)}); fix the plan's PartitionerSpec")
+        if resolved.kind == "load_balanced" \
+                and not self._has_partition_signal():
+            raise ValueError(
+                f"kind='load_balanced' needs a per-variable activity "
+                f"signal, but {type(self.app).__name__} does not define "
+                f"partition_signal(state); declare one (see "
+                f"repro_torch.core.primitives) or use a static kind")
+        sizes_fn = getattr(self.app, "partition_sizes", None)
+        part = build_partitioner(
+            resolved, num_vars=self.app.num_schedulable(),
+            num_workers=self.workers,
+            sizes=sizes_fn() if callable(sizes_fn) else None)
+        self.partitioner = part
+        self._active_part_spec = resolved
+        self._part_stats = part.init_stats()
+        # kept: rebuilding it is a host loop over every variable, and
+        # each fresh execute resets to it
+        self._initial_assignment = part.init_assignment()
+        self._install_assignment(self._initial_assignment)
+        return part
+
+    def _has_partition_signal(self) -> bool:
+        fn = getattr(type(self.app), "partition_signal", None)
+        return (fn is not None
+                and fn is not StradsAppBase.partition_signal)
+
+    def _install_assignment(self, assignment: Optional[Assignment]):
+        # The JAX engine keys its compiled programs on the assignment and
+        # rebinds them here; the eager port compiles nothing, so a move
+        # only reaches the app.
+        self._assignment = assignment
+        self.app.use_partition(assignment)
+
+    @property
+    def partitioner_spec(self) -> Optional[PartitionerSpec]:
+        """The resolved spec of the active partitioner."""
+        return self._active_part_spec
+
+    @property
+    def partition_assignment(self) -> Optional[Assignment]:
+        """The active variable→worker assignment (``None`` without a
+        partitioner)."""
+        return self._assignment
+
+    @property
+    def partition_stats(self):
+        """The partitioner's host-side activity state (the load
+        balancer's per-variable EMA; ``None`` for stateless kinds)."""
+        return self._part_stats
+
+    def reset_partition(self):
+        """Back to the partitioner's initial assignment and fresh stats —
+        what a fresh (carry-less, payload-less) ``execute`` does, so
+        rebalances of a previous run never leak into a new one."""
+        part = self.partitioner
+        if part is None:
+            return
+        self._part_stats = part.init_stats()
+        if self._assignment is not self._initial_assignment:
+            self._install_assignment(self._initial_assignment)
+
+    def apply_assignment(self, assignment: Assignment, state: Any = None):
+        """Adopt a new assignment mid-run: the KV store re-derives its
+        specs (:meth:`~repro_torch.core.kvstore.KVStore.repartition`; on
+        one card the built-in apps' state comes back unchanged) and the
+        app receives it via ``use_partition``.  Returns the state when
+        one is passed."""
+        out = None
+        if self.kvstore is not None:
+            out = self.kvstore.repartition(assignment, state)
+        elif state is not None:
+            out = state
+        self._install_assignment(assignment)
+        return out
+
+    def partition_payload(self) -> Optional[dict]:
+        """The ``"assignment"`` subtree of a chunked run's checkpoint:
+        the assignment arrays plus the partitioner's activity stats
+        (``stats_<name>``), flat numpy.  ``None`` without a
+        partitioner."""
+        if self._assignment is None:
+            return None
+        payload = dict(self._assignment.payload())
+        if isinstance(self._part_stats, dict):
+            for k, v in self._part_stats.items():
+                payload[f"stats_{k}"] = np.asarray(v)
+        return payload
+
+    def restore_partition(self, payload: dict):
+        """Resume the partition trajectory from a checkpoint's
+        ``"assignment"`` payload (``execute(..., partition=...)``): the
+        saved assignment is re-applied and the activity stats restored,
+        so the resumed run replays the remaining rebalance decisions
+        bit-exactly."""
+        if self.partitioner is None:
+            raise ValueError(
+                "restore_partition needs an active partitioner (the "
+                "plan/app resolved none) — was this checkpoint written "
+                "under a different plan?")
+        asgn = Assignment.from_payload(
+            {k: payload[k] for k in ("owner", "num_workers", "version")})
+        if asgn.num_workers != self.workers:
+            raise ValueError(
+                f"checkpointed assignment spans {asgn.num_workers} "
+                f"workers but the engine has {self.workers} workers")
+        num_vars = self.partitioner.num_vars
+        if asgn.num_vars != num_vars:
+            raise ValueError(
+                f"checkpointed assignment covers {asgn.num_vars} "
+                f"variables but this app partitions {num_vars} — was "
+                f"this checkpoint written for a different model size?")
+        stats = {k[len("stats_"):]: np.asarray(v)
+                 for k, v in payload.items() if k.startswith("stats_")}
+        fresh = self.partitioner.init_stats()
+        if (stats or fresh is not None) and set(stats) != \
+                set(fresh or {}):
+            raise ValueError(
+                f"checkpointed partition stats {sorted(stats)} do not "
+                f"match the resolved {self._active_part_spec.kind!r} "
+                f"partitioner's {sorted(fresh or {})} — the "
+                f"PartitionerSpec must match across resume")
+        if stats:
+            self._part_stats = stats
+        self.apply_assignment(asgn)
+
+    def _partition_signal_snapshot(self, state) -> Optional[np.ndarray]:
+        """Host copy of the app's per-variable partition signal (a copy:
+        the next chunk may write the state in place)."""
+        if self.partitioner is None:
+            return None
+        sig = self.app.partition_signal(state)
+        if sig is None:
+            return None
+        return np.array(sig.detach().cpu())
+
+    def _partition_step(self, state, sig_before, t: int,
+                        allow_move: bool = True):
+        """One chunk-boundary partition check: fold the chunk's activity
+        |Δsignal| into the partitioner's stats and rebalance when the
+        policy says so.  Returns ``(state, sig_after)``: the chunk-end
+        snapshot is the next chunk's baseline (``sig_before=None`` — a
+        stateless policy or no app signal — skips the snapshot, and so
+        the host sync).  ``allow_move=False`` measures but never moves:
+        the final boundary, after which no round runs."""
+        part = self.partitioner
+        sig_after = (self._partition_signal_snapshot(state)
+                     if sig_before is not None else None)
+        activity = (np.abs(sig_after - sig_before)
+                    if sig_after is not None else None)
+        self._part_stats = part.measure(self._part_stats,
+                                        self._assignment, activity)
+        if allow_move and part.should_rebalance(
+                self._part_stats, self._assignment, t):
+            new = part.propose_assignment(self._part_stats,
+                                          self._assignment)
+            if new.owner != self._assignment.owner:
+                state = self.apply_assignment(new, state)
+        return state, sig_after
 
     def set_kernels(self, spec: Optional[KernelSpec] = None):
         """Resolve a :class:`KernelSpec` (``None`` → the constructor spec,
@@ -184,29 +406,24 @@ class StradsEngine:
 
     # -- placement -----------------------------------------------------------
 
-    def _place(self, name: str, x, spec):
-        x = torch.as_tensor(x, device=self.device)
-        if x.is_floating_point():
-            x = x.float()
-        if spec != DATA_AXIS:
-            return x
-        n, W = x.shape[0], self.workers
-        if n % W:
-            raise ValueError(f"{name!r}: {n} rows do not split evenly over "
-                             f"{W} workers")
-        return x.reshape(W, n // W, *x.shape[1:])
-
     def shard_data(self, data: dict) -> dict:
         """Move data leaves to the device; ``"data"`` leaves take the
         (W, n/W, …) worker layout (a view — no copy on the device)."""
-        return {k: self._place(k, v, self.data_specs.get(k))
+        return {k: place(k, v, self.data_specs.get(k), self.workers,
+                         self.device)
                 for k, v in data.items()}
+
+    def place_state(self, state: dict) -> dict:
+        """Place a state through a :class:`KVStore` built from it — the
+        one source of variable placement and byte accounting
+        (``self.kvstore.bytes_per_device()`` afterwards)."""
+        specs = {k: self.state_specs.get(k) for k in state}
+        self.kvstore = store_from_tree(self.workers, state, specs)
+        return self.kvstore.place_tree(state, self.device)
 
     def init_state(self, **app_kwargs) -> dict:
         """``app.init_state(**app_kwargs)``, placed like the data."""
-        state = self.app.init_state(**app_kwargs)
-        return {k: self._place(k, v, self.state_specs.get(k))
-                for k, v in state.items()}
+        return self.place_state(self.app.init_state(**app_kwargs))
 
     def unshard(self, state: dict) -> dict:
         """Merge the worker axis of row-sharded state leaves back:
@@ -303,7 +520,22 @@ class StradsEngine:
         the host-loop hook (``executor="loop"`` only; return True to stop
         early).  ``carry`` resumes a previous report's run of the same
         plan: rounds ``carry.t .. plan.rounds`` run with the carried
-        scheduler carry and generator state."""
+        scheduler carry, generator state and (pipelined) in-flight
+        schedule.
+
+        ``plan.partitioner`` selects the partition policy (``None``: the
+        app's default).  A fresh run (no ``carry``) starts from the
+        partitioner's initial assignment; ``partition=`` (a checkpoint's
+        ``"assignment"`` payload) restores a saved one and its stats.
+
+        ``ckpt_dir`` + ``plan.checkpoint_every`` chunk the run: every
+        ``checkpoint_every`` rounds (a multiple of the executor's step
+        length) the partitioner checks for a rebalance and a
+        ``{"state", "carry", "assignment"}`` checkpoint is written as
+        ``ckpt_dir/step_%08d.npz`` (the ``"assignment"`` subtree when a
+        partitioner is active).  Restore it with
+        :func:`repro_torch.checkpoint.restore_checkpoint` and pass its
+        ``carry`` and ``assignment`` back to resume bit-exactly."""
         if not isinstance(plan, ExecutionPlan):
             raise TypeError(f"execute() wants an ExecutionPlan; got "
                             f"{type(plan).__name__}")
@@ -314,51 +546,215 @@ class StradsEngine:
         if callback is not None and plan.executor != "loop":
             raise ValueError("callback is a host-loop hook; it requires "
                              f"executor='loop' (got {plan.executor!r})")
-        _reject_unported(plan, ckpt_dir=ckpt_dir, partition=partition,
-                         stream=stream, source=source,
+        _reject_unported(plan, stream=stream, source=source,
                          stream_state=stream_state)
         self.set_scheduler(plan.scheduler)
+        self.set_partitioner(plan.partitioner)
         self.set_kernels(plan.kernels)
+        if partition is not None:
+            self.restore_partition(partition)
+        elif carry is None:
+            # fresh run: rebalances of a previous execute of the same
+            # spec must not leak in (in-process resumes keep them)
+            self.reset_partition()
         generator = self._generator(generator)
-        t0, sc = 0, self.init_sched_carry()
+        t_done = 0
         if carry is not None:
             if not isinstance(carry, EngineCarry):
                 raise ValueError(f"carry must be the EngineCarry a previous "
                                  f"report returned; got "
                                  f"{type(carry).__name__}")
-            if (sc is None) != (carry.sched_carry is None):
+            if plan.executor == "pipelined" and carry.depth != 1:
+                raise ValueError("resuming a pipelined plan needs the "
+                                 "carried in-flight schedule (carry.depth "
+                                 "is 0 — was this carry produced by a "
+                                 "different executor?)")
+            if plan.executor != "pipelined" and carry.depth:
+                raise ValueError("carry.sched only resumes the pipelined "
+                                 "executor (pipeline_depth=1)")
+            if (self.init_sched_carry() is None) != (carry.sched_carry
+                                                     is None):
                 raise ValueError(
                     "carry.sched_carry does not match the plan's resolved "
                     "scheduler (stateful vs stateless) — the "
                     "SchedulerSpec must match across resume")
-            t0, sc = int(carry.t), carry.sched_carry
-            if not 0 <= t0 < plan.rounds:
-                raise ValueError(f"carry.t={t0} leaves no rounds of the "
+            t_done = int(carry.t)
+            if not 0 <= t_done < plan.rounds:
+                raise ValueError(f"carry.t={t_done} leaves no rounds of the "
                                  f"plan's {plan.rounds} to run")
             if carry.rng_state is not None:
                 generator.set_state(carry.rng_state)
+        if ckpt_dir and not plan.checkpoint_every:
+            raise ValueError("ckpt_dir was passed but plan.checkpoint_"
+                             "every=0 — no checkpoint would ever be "
+                             "written; set a cadence in the plan")
+        if plan.checkpoint_every and not ckpt_dir:
+            raise ValueError("plan.checkpoint_every="
+                             f"{plan.checkpoint_every} but no ckpt_dir "
+                             "was passed — the run would silently never "
+                             "checkpoint")
+        chunk = plan.checkpoint_every if ckpt_dir else 0
+        pspec = self._active_part_spec
+        if chunk and pspec is not None and pspec.rebalance_every \
+                and pspec.rebalance_every % chunk:
+            raise ValueError(
+                f"partitioner.rebalance_every={pspec.rebalance_every} "
+                f"must be a multiple of plan.checkpoint_every={chunk} — "
+                f"repartition checks only run at chunk boundaries, so a "
+                f"misaligned cadence would silently (almost) never fire")
+        if not chunk:
+            if pspec is not None and pspec.kind == "load_balanced":
+                warnings.warn(
+                    "a load_balanced partitioner only rebalances at "
+                    "checkpoint chunk boundaries; without plan."
+                    "checkpoint_every + ckpt_dir the assignment stays "
+                    "at its initial (static) value for the whole run",
+                    UserWarning, stacklevel=2)
+            return self._execute_span(state, data, generator, plan,
+                                      plan.rounds - t_done, t_done, carry,
+                                      collect, callback, noise)
+        return self._execute_chunked(state, data, generator, plan, t_done,
+                                     carry, collect, callback, noise,
+                                     chunk, ckpt_dir)
+
+    def _execute_chunked(self, state, data, generator, plan, t_done: int,
+                         carry, collect, callback, noise, chunk: int,
+                         ckpt_dir: str) -> ExecutionReport:
+        """The checkpoint-chunked run: spans of ``chunk`` rounds, each
+        followed by the partition check and a checkpoint."""
+        step_len = self._step_length(plan)
+        if chunk % step_len:
+            raise ValueError(
+                f"plan.checkpoint_every={chunk} must be a multiple of the "
+                f"{plan.executor!r} executor's step length {step_len} "
+                f"(phase/window alignment), so every chunk resumes on a "
+                f"step boundary")
+        if plan.executor == "pipelined" and plan.rounds % step_len:
+            # fail before any chunk runs — the same plan without ckpt_dir
+            # is rejected upfront by the executor itself
+            raise ValueError(
+                f"plan.rounds={plan.rounds} must be a multiple of the "
+                f"{plan.executor!r} executor's step length {step_len}; "
+                f"the final checkpoint chunk would be unrunnable")
+        stops: list = []                        # callback early-stop marker
+        cb = callback
+        if callback is not None:
+            def cb(t, s, out, _orig=callback):
+                r = _orig(t, s, out)
+                if r:
+                    stops.append(t)
+                return r
+        traces = []
+        t = t_done
+        # the activity baseline costs a host sync, so only a stateful
+        # policy takes it; each later chunk reuses the previous boundary's
+        sig0 = (self._partition_signal_snapshot(state)
+                if self._part_stats is not None else None)
+        while t < plan.rounds:
+            rep = self._execute_span(state, data, generator, plan,
+                                     min(chunk, plan.rounds - t), t, carry,
+                                     collect, cb, noise)
+            state, carry = rep.state, rep.carry
+            if rep.trace is not None:
+                traces.append(rep.trace)
+            t = int(carry.t)
+            if self.partitioner is not None:
+                # after the last chunk no round runs: measure, never move
+                state, sig0 = self._partition_step(
+                    state, sig0, t, allow_move=t < plan.rounds)
+            payload = {"state": state, "carry": carry}
+            if self.partitioner is not None:
+                payload["assignment"] = self.partition_payload()
+            save_checkpoint(ckpt_dir, t, payload)
+            if stops:                           # honored across chunks
+                break
+        return ExecutionReport(state=state, trace=_concat(traces),
+                               carry=carry, plan=plan)
+
+    def _step_length(self, plan: ExecutionPlan) -> int:
+        """Rounds one step of the plan's executor covers — the alignment
+        unit of checkpoint chunks and resume points."""
+        if plan.executor in ("scan", "pipelined"):
+            return self.phase_period * plan.phase_unroll
+        return 1                                # loop: any round
+
+    def _carry(self, t: int, sc, generator, noise, sched=None,
+               depth: int = 0) -> EngineCarry:
+        return EngineCarry(t=t, sched_carry=sc,
+                           rng_state=(None if noise is not None
+                                      else generator.get_state()),
+                           sched=sched, depth=depth)
+
+    def _execute_span(self, state, data, generator, plan: ExecutionPlan,
+                      rounds: int, t0: int, prev_carry, collect, callback,
+                      noise) -> ExecutionReport:
+        """One contiguous span of a plan (the whole plan, or one
+        checkpoint chunk) on the executor it names."""
+        sc = (prev_carry.sched_carry if prev_carry is not None
+              else self.init_sched_carry())
         period = self.phase_period
-        if plan.executor == "scan" and t0 % period:
+        if plan.executor != "loop" and t0 % period:
             raise ValueError(f"t0 must be a multiple of the phase period "
                              f"({period}) so phases stay static; got {t0}")
+        if plan.executor == "pipelined":
+            return self._execute_pipelined(state, data, generator, plan,
+                                           rounds, t0, prev_carry, sc,
+                                           collect, noise)
         # loop and scan share this body; scan has no callback and nothing
         # in it reads a device value on the host
         ys: list = []
-        t = t0
-        for t in range(t0, plan.rounds):
+        executed = 0
+        for k in range(rounds):
+            t = t0 + k
             out = self.run_round(state, data, generator, t, sched_carry=sc,
                                  noise=noise)
             state, sc = out.state, out.sched_carry
+            executed = k + 1
             if collect is not None:
                 ys.append(collect(state))
             if callback is not None and callback(t, state, out):
                 break
-        trace = _stack(ys) if ys else None
         return ExecutionReport(
-            state=state, trace=trace, plan=plan,
-            carry=EngineCarry(t=t + 1, sched_carry=sc,
-                              rng_state=(None if noise is not None
-                                         else generator.get_state())))
+            state=state, trace=_stack(ys) if ys else None, plan=plan,
+            carry=self._carry(t0 + executed, sc, generator, noise))
+
+    def _execute_pipelined(self, state, data, generator, plan, rounds: int,
+                           t0: int, prev_carry, sc, collect,
+                           noise) -> ExecutionReport:
+        """The pipelined executor (the JAX package's depth-1 scan body):
+        at round t the schedule of round t+1 is made from the state and
+        scheduler carry before round t's update, then round t runs the
+        schedule made a round earlier.  A fresh run makes one schedule
+        more than it runs (round ``t0``'s, before the loop); a resumed
+        run takes that one from ``prev_carry.sched``."""
+        app = self.app
+        period, unroll = self.phase_period, plan.phase_unroll
+        if rounds % (period * unroll):
+            raise ValueError(
+                f"pipeline_depth=1 needs num_rounds divisible by the app's "
+                f"phase_period ({period}) × unroll ({unroll}); got "
+                f"{rounds}")
+        if prev_carry is not None and prev_carry.depth == 1:
+            sched = prev_carry.sched            # the in-flight schedule
+        else:
+            sched = self._make_schedule(
+                state, sc, data, self._noise(generator, noise, t0), t0,
+                app.static_phase(t0))
+        ys: list = []
+        for t in range(t0, t0 + rounds):
+            phase = app.static_phase(t)
+            sched_next = self._make_schedule(
+                state, sc, data, self._noise(generator, noise, t + 1),
+                t + 1, app.static_phase(t + 1))
+            new_state = self._apply(state, data, sched, phase)
+            sc = app.sched_update(sc, state, new_state, sched, phase)
+            state, sched = new_state, sched_next
+            if collect is not None:
+                ys.append(collect(state))
+        return ExecutionReport(
+            state=state, trace=_stack(ys) if ys else None, plan=plan,
+            carry=self._carry(t0 + rounds, sc, generator, noise,
+                              sched=sched, depth=1))
 
 
 def _stack(ys: list):
@@ -368,12 +764,18 @@ def _stack(ys: list):
     return torch.stack([torch.as_tensor(y) for y in ys])
 
 
+def _concat(traces: list):
+    """Per-chunk stacked traces joined along the round axis."""
+    if not traces:
+        return None
+    if isinstance(traces[0], dict):
+        return {k: _concat([tr[k] for tr in traces]) for k in traces[0]}
+    return torch.cat(traces)
+
+
 # plan fields the port does not run yet → the ROADMAP.md step porting them
 _STEP = {
-    "pipelined": "queue 1, step 7 (the pipelined executor)",
     "ssp": "queue 1, step 9 (the SSP executor)",
-    "checkpoint": "queue 1, step 6 (placement and checkpoints)",
-    "partitioner": "queue 1, step 6 (placement and checkpoints)",
     "telemetry": "queue 1, step 10 (observability)",
     "stream": "queue 1, step 11 (serving and streaming)",
 }
@@ -384,18 +786,12 @@ def _not_ported(what: str, key: str):
                                f"{_STEP[key]}")
 
 
-def _reject_unported(plan: ExecutionPlan, *, ckpt_dir, partition, stream,
-                     source, stream_state) -> None:
-    if plan.executor in ("pipelined", "ssp"):
-        raise _not_ported(f"executor={plan.executor!r}", plan.executor)
-    if plan.checkpoint_every or ckpt_dir is not None:
-        raise _not_ported("checkpointing (plan.checkpoint_every, "
-                          "ckpt_dir)", "checkpoint")
+def _reject_unported(plan: ExecutionPlan, *, stream, source,
+                     stream_state) -> None:
+    if plan.executor == "ssp":
+        raise _not_ported("executor='ssp'", "ssp")
     if plan.telemetry:
         raise _not_ported("plan.telemetry", "telemetry")
-    if (plan.partitioner is not None
-            and plan.partitioner.kind != "static") or partition is not None:
-        raise _not_ported("a non-static partitioner", "partitioner")
     if stream is not None or source is not None or stream_state is not None:
         raise _not_ported("streaming ingest (stream=, source=)", "stream")
 

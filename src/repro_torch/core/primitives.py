@@ -15,11 +15,21 @@ the data and the state carries shape (W, n/W, …), ``push`` and
 the JAX ``psum`` over the ``data`` axis becomes :func:`tree_psum`, a
 ``.sum(0)``.  The same layout runs on the CPU and on one card.
 
-Scheduling policy and the kernel backend arrive by injection, as in the
-JAX package: the engine resolves the plan's ``SchedulerSpec`` and
-``KernelSpec`` (or the app's defaults) and calls ``use_scheduler`` /
+Scheduling policy, partition policy and the kernel backend arrive by
+injection, as in the JAX package: the engine resolves the plan's
+``SchedulerSpec``, ``PartitionerSpec`` and ``KernelSpec`` (or the app's
+defaults) and calls ``use_scheduler`` / ``use_partition`` /
 ``use_kernels``; the engine also sets ``app.device``.  The scheduler's
 carry (e.g. the Δβ priority history) is engine-owned.
+
+The partition-injection contract: the engine builds the partitioner from
+``num_schedulable()`` and ``partition_sizes()``, rejects kinds outside
+``supported_partitioner_kinds``, and hands the variable→worker
+:class:`~repro_torch.part.Assignment` to ``use_partition``.  It checks
+for a rebalance on the host at the ``plan.checkpoint_every`` chunk
+boundaries, where the ``load_balanced`` kind reads the |Δ| of
+``partition_signal(state)`` over the chunk; an app without a signal
+cannot host that kind.
 """
 from __future__ import annotations
 
@@ -43,6 +53,11 @@ class StradsAppBase:
     kernels = None
     #: which KernelSpec kinds this app can dispatch (None = any)
     supported_kernel_kinds = None
+    #: the injected variable→worker Assignment (set by the engine; None
+    #: when no partitioner is resolved)
+    assignment = None
+    #: which PartitionerSpec kinds this app can host (None = any)
+    supported_partitioner_kinds = None
     #: the engine's device (set by the engine)
     device = torch.device("cpu")
     #: True: without a caller's noise source the engine hands ``propose``
@@ -63,6 +78,26 @@ class StradsAppBase:
 
     def use_scheduler(self, scheduler) -> None:
         self.scheduler = scheduler
+
+    def default_partitioner_spec(self) -> Optional[Any]:
+        """The partition policy when the plan names none (``None``: the
+        app has no variable-ownership story)."""
+        return None
+
+    def use_partition(self, assignment) -> None:
+        """Receive the engine's Assignment (``None`` clears it)."""
+        self.assignment = assignment
+
+    def partition_signal(self, state):
+        """A (num_schedulable(),) per-variable statistic whose |Δ| over a
+        chunk is the load balancer's activity measure (Lasso's β);
+        ``None`` = no signal, so no ``load_balanced`` partitioner."""
+        return None
+
+    def partition_sizes(self):
+        """Per-variable byte sizes for ``size_balanced`` (``None`` =
+        uniform)."""
+        return None
 
     def default_kernel_spec(self) -> Optional[Any]:
         return None

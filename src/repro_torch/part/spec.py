@@ -1,9 +1,9 @@
 """The declarative partitioning surface: :class:`PartitionerSpec`.
 
 A copy of the JAX package's ``part/spec.py`` with the same fields,
-validation, error text and JSON.  The port parses it so that every plan
-file reads the same in both packages; the engine runs only the
-``static`` kind for now and rejects the others at ``execute``.
+validation, error text and JSON, so that every plan file reads the
+same in both packages.  :func:`repro_torch.part.build_partitioner`
+resolves it.
 """
 from __future__ import annotations
 
