@@ -34,7 +34,12 @@
    (4 files; the rebalances' versions and load spreads; the host ms of
    a boundary and the files' bytes and write ms; equal to the scan run
    to the bit; a fresh engine resumed from step 8's file equal to the
-   bit).  Then times where a round goes and runs the repo's convergence
+   bit).  Then the SSP executor (``lasso_ssp_phase``): the plan
+   ``examples/plans/ssp_s2.json`` as checked in (12 rounds, s = 2,
+   W = 4; 12 ``gram_block`` and 12 ``lasso_partial``; the staleness
+   histogram [4, 4, 4]; within STATE_TOL of the plain kernels; s = 0
+   equal to scan to the bit; timed alternately with scan, 6 runs
+   each).  Then times where a round goes and runs the repo's convergence
    check (``tests/test_lasso.py``) on the card at a small size.
 4. STRADS MF at the Netflix Prize shape: 17,770 movies, 1.18 % of the
    entries observed, the users cut to MF_USERS (131,072: the dense
@@ -44,7 +49,10 @@
    the bit: the round-robin schedule reads no state), a checkpointed
    ``load_balanced`` sweep (``mf_checkpoint_run``: two files of 9.3 GB,
    equal to scan, and a fresh engine resumed from the middle file equal
-   too), then at W = 1 (within MF_W_TOL); the objective falls every
+   too), on the SSP executor at s = 1 (equal to scan to the bit) and at
+   s = 2 over 78 rounds beside scan over as many (the objective falls;
+   the peak memory within 1 GB of scan's), then at W = 1 (within
+   MF_W_TOL); the objective falls every
    round within MF_MONO_TOL; rounds/s, the peak memory and a profiler
    window of 4 rounds; then ALS (2 iterations) beside STRADS on the
    first 8,192 users.  MF runs plain torch ops: it has no kernel.
@@ -66,7 +74,10 @@
    one rotation (128 rounds) on scan and on loop, with the launch counts
    set to 0 just before and read after (128 each), equal to the bit, and
    on pipelined (counts set to 0 again: 128; equal to scan to the bit,
-   as the rotation reads no state);
+   as the rotation reads no state), and on the SSP executor at s = 0
+   (128 launches, equal to scan to the bit) and at s = 2 over lcm(3,
+   128) = 384 rounds (384 launches; D, B, s recounted from z, s the
+   column sums of B, the log-likelihood up) beside scan over as many;
    D, B, s recounted from z equal to the state; the log-likelihood up;
    z in [0, K); every count below 2²⁴.  The kernel timed at round 0's
    shape against two bounds: the roofline (the distinct B and D rows the
@@ -679,11 +690,10 @@ def pipelined_against_scan(torch, lasso, cfg, plan, scan_plan, eng, data,
     and after).  A fresh pipelined run makes R + 1 schedules against
     scan's R, so ``extra_schedule_ms`` is the part of the gap that the
     code implies; ``unexplained_ms`` is the median gap less it."""
-    secs: dict = {"pipelined": [], "scan": []}
-    for order in (("pipelined", "scan"), ("scan", "pipelined")) * pairs:
-        for name in order:
-            p = plan if name == "pipelined" else scan_plan
-            secs[name].append(run_plan(torch, lasso, cfg, p, X, y, seed)[2])
+    alt = alternately(torch, lasso, cfg, {"pipelined": plan,
+                                          "scan": scan_plan}, X, y, seed,
+                      pairs)
+    secs = alt["seconds"]
     gaps = [(a - b) * 1e3 for a, b in zip(secs["pipelined"], secs["scan"])]
     state, sc = eng.init_state(y=y), eng.init_sched_carry()
     gen = torch.Generator(device=DEVICE).manual_seed(seed)
@@ -695,13 +705,111 @@ def pipelined_against_scan(torch, lasso, cfg, plan, scan_plan, eng, data,
         eng._make_schedule(state, sc, data, noise, t, 0)
         torch.cuda.synchronize()
         sched_ms.append((time.perf_counter() - t0) * 1e3)
-    R = plan.rounds
     gap, one = median(gaps), median(sched_ms)
-    return {"seconds": secs, "gap_ms": gaps, "median_gap_ms": gap,
-            "median_rounds_per_s": {k: R / median(v)
-                                    for k, v in secs.items()},
+    return {**alt, "gap_ms": gaps, "median_gap_ms": gap,
             "schedule_ms": sched_ms, "extra_schedule_ms": one,
             "unexplained_ms": gap - one}
+
+
+def lasso_ssp_phase(torch, lasso, lc, ExecutionPlan, KernelSpec, cfg, X,
+                    y, seed: int) -> dict:
+    """``examples/plans/ssp_s2.json`` as checked in (the SSP executor,
+    12 rounds, s = 2, W = 4, the app's default kernels: the CUDA ones on
+    the card), with the launch counts set to 0 just before the run and
+    read just after: each proposal of a window makes its own Gram block
+    and each push its own partials, so 12 ``gram_block`` and 12
+    ``lasso_partial``.  Checks: the carry's clocks at 12; the same plan
+    through ``StradsEngine.run_ssp`` with telemetry equal to the bit,
+    its staleness histogram [4, 4, 4] (each window serves one read at
+    each staleness 0..2), the largest staleness 2, 4 flushes; β and r
+    within STATE_TOL of the plan on the plain kernels (no launch); the
+    objective finite, at round 12 below round 0's and the start's; the
+    plan at s = 0 equal to ``scan`` to the bit.  Then the plan and the
+    same 12 rounds on ``scan`` timed alternately, 6 runs each."""
+    with open(os.path.join(ROOT, "examples", "plans", "ssp_s2.json")) as f:
+        plan = ExecutionPlan.from_json(json.load(f))
+    R, s = plan.rounds, plan.staleness
+    check(plan.executor == "ssp" and R == 12 and s == 2 and plan.workers == 4
+          and plan.kernels is None, f"unexpected plan {plan}")
+    run_plan(torch, lasso, cfg, ExecutionPlan.from_json(
+        dict(plan.to_json(), rounds=s + 1)), X, y, seed)     # warm-up
+    lc.reset_launch_counts()
+    eng, rep, secs = run_plan(torch, lasso, cfg, plan, X, y, seed)
+    launches = dict(lc.LAUNCHES)
+    check(launches == {"lasso_partial": R, "gram_block": R},
+          f"ssp: launches {launches}, want {R} of each kernel")
+    check(rep.carry.t == R and rep.carry.clocks.tolist() == [R] * 4,
+          f"ssp: the carry ends at t {rep.carry.t}, clocks "
+          f"{rep.carry.clocks.tolist()}")
+    data = eng.shard_data({"X": X, "y": y})
+    st, tel = eng.run_ssp(eng.init_state(y=y), data,
+                          torch.Generator(device=DEVICE).manual_seed(seed),
+                          R, staleness=s, with_telemetry=True)
+    check(torch.equal(st["beta"], rep.state["beta"])
+          and torch.equal(st["r"], rep.state["r"]),
+          "ssp: run_ssp differs from execute")
+    window = R // (s + 1)
+    check(tel.hist.tolist() == [window] * (s + 1) and tel.max_staleness == s
+          and tel.flushes == window and tel.clocks.tolist() == [R] * 4,
+          f"ssp: telemetry {tel.to_json()}")
+    del st
+    ref_plan = ExecutionPlan.from_json(dict(
+        plan.to_json(), kernels=KernelSpec(kind="reference").to_json()))
+    lc.reset_launch_counts()
+    _, rep_ref, secs_ref = run_plan(torch, lasso, cfg, ref_plan, X, y, seed)
+    check(not any(lc.LAUNCHES.values()),
+          "the ssp reference run launched a kernel")
+    db = (rep_ref.state["beta"] - rep.state["beta"]).abs().max().item()
+    dr = (rep_ref.state["r"] - rep.state["r"]).abs().max().item()
+    check(db <= STATE_TOL and dr <= STATE_TOL,
+          f"ssp: reference differs: |Δβ| {db}, |Δr| {dr} > {STATE_TOL}")
+    obj0 = 0.5 * float((y.double() ** 2).sum())
+    trace = rep.trace.double().cpu().tolist()
+    check(len(trace) == R and all(map(math.isfinite, trace))
+          and trace[-1] < trace[0] < obj0,
+          f"ssp: the objective did not fall: {obj0} → {trace[0]} → "
+          f"{trace[-1]}")
+    rises = [t for t in range(R) if trace[t] > (trace[t - 1] if t else obj0)
+             * (1 + LASSO_MONO_TOL)]
+    s0_plan = ExecutionPlan.from_json(dict(plan.to_json(), staleness=0))
+    scan_plan = ExecutionPlan.from_json(dict(plan.to_json(),
+                                             executor="scan", staleness=0))
+    _, rep0, secs0 = run_plan(torch, lasso, cfg, s0_plan, X, y, seed)
+    _, rep_scan, secs_scan = run_plan(torch, lasso, cfg, scan_plan, X, y,
+                                      seed)
+    check(torch.equal(rep0.state["beta"], rep_scan.state["beta"])
+          and torch.equal(rep0.state["r"], rep_scan.state["r"])
+          and torch.equal(rep0.trace, rep_scan.trace),
+          "ssp: s = 0 differs from scan")
+    alternating = alternately(torch, lasso, cfg, {"ssp": plan,
+                                                  "scan": scan_plan},
+                              X, y, seed)
+    return {"plan": plan.to_json(), "launches": launches,
+            "telemetry": tel.to_json(), "run_ssp_equals_execute": True,
+            "max_diff_vs_reference": {"beta": db, "r": dr},
+            "objective_start": obj0, "objective_round0": trace[0],
+            "objective_end": trace[-1], "objective_rises_in_rounds": rises,
+            "s0_equals_scan": True,
+            "rounds_per_s": {"ssp": R / secs, "ssp_reference": R / secs_ref,
+                             "ssp_s0": R / secs0, "scan": R / secs_scan},
+            "alternating": alternating}
+
+
+def alternately(torch, lasso, cfg, plans: dict, X, y, seed: int,
+                pairs: int = 3) -> dict:
+    """Two plans of as many rounds timed alternately in this process (a,
+    b, b, a, … for ``pairs`` × 2 runs each): the host clock spreads ~30 %
+    within one run, so only runs taken in turns are compared."""
+    a, b = plans
+    secs: dict = {a: [], b: []}
+    for order in ((a, b), (b, a)) * pairs:
+        for name in order:
+            secs[name].append(run_plan(torch, lasso, cfg, plans[name], X, y,
+                                       seed)[2])
+    R = plans[a].rounds
+    return {"seconds": secs,
+            "median_rounds_per_s": {k: R / median(v)
+                                    for k, v in secs.items()}}
 
 
 def median(xs):
@@ -917,7 +1025,7 @@ def mf_phase(torch, mf, ExecutionPlan, seed: int) -> dict:
     def gen():
         return torch.Generator(device=DEVICE).manual_seed(seed)
 
-    def run(workers, executor, rounds=R, collect=True):
+    def run(workers, executor, rounds=R, collect=True, staleness=0):
         eng = mf.make_engine(cfg, workers=workers, device=DEVICE)
         data = eng.shard_data({"A": A, "mask": mask})
         state = eng.init_state(A=A, mask=mask, generator=gen())
@@ -927,8 +1035,8 @@ def mf_phase(torch, mf, ExecutionPlan, seed: int) -> dict:
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         rep = eng.execute(state, data, None, ExecutionPlan(
-            executor=executor, rounds=rounds, workers=workers),
-            collect=obj if collect else None)
+            executor=executor, rounds=rounds, workers=workers,
+            staleness=staleness), collect=obj if collect else None)
         torch.cuda.synchronize()
         return (eng, data, rep, time.perf_counter() - t0, obj0,
                 torch.cuda.max_memory_allocated() / 1e9)
@@ -961,6 +1069,7 @@ def mf_phase(torch, mf, ExecutionPlan, seed: int) -> dict:
     check(pipe.carry.depth == 1, "mf: the pipelined carry holds no "
                                  "in-flight schedule")
     del pipe
+    ssp = mf_ssp_runs(torch, run, scan, R, peak, obj0)
     ckpt = mf_checkpoint_run(torch, mf, ExecutionPlan, cfg, A, mask, gen,
                              scan.state)
     _, _, one, one_secs, _, _ = run(1, "scan")
@@ -983,7 +1092,7 @@ def mf_phase(torch, mf, ExecutionPlan, seed: int) -> dict:
                       "scan_w1": R / one_secs, "pipelined": R / pipe_secs},
         seconds={"scan": secs, "loop": loop_secs, "scan_w1": one_secs,
                  "pipelined": pipe_secs},
-        pipelined_equals_scan=True, checkpoint=ckpt,
+        pipelined_equals_scan=True, checkpoint=ckpt, ssp=ssp,
         objective_ms=time_ms(torch, lambda: obj_fn(scan.state), iters=10,
                              warmup=2),
         peak_memory_gb=peak)
@@ -1020,6 +1129,57 @@ def mf_phase(torch, mf, ExecutionPlan, seed: int) -> dict:
     del A, mask, A8, m8
     torch.cuda.empty_cache()
     return res
+
+
+def mf_ssp_runs(torch, run, scan, R: int, scan_peak_gb: float,
+                obj0: float) -> dict:
+    """MF on the SSP executor at the chip shape: s = 1 over the sweep's
+    R rounds (a window is one H/W cycle: the H push reads a fresh
+    snapshot and the W commit recomputes from flush-time state) equal to
+    the ``scan`` run to the bit; s = 2 over R − 2 rounds (a multiple of
+    lcm(3, 2)), whose objective must fall, beside ``scan`` over as many
+    rounds.  The peak memory of each within 1 GB of that scan run's
+    (all three run while the first scan run's report holds its R, which
+    ``scan_peak_gb`` did not): the cache holds a reference to H, never a
+    copy of R, and no window keeps its start's R alive."""
+    _, _, s1, s1_secs, _, s1_peak = run(MF_WORKERS, "ssp", staleness=1)
+    for k in ("W", "H", "R"):
+        check(torch.equal(scan.state[k], s1.state[k]),
+              f"mf: ssp at s = 1 and scan differ in {k} on the card")
+    check(torch.equal(scan.trace, s1.trace), "mf: the objective traces of "
+                                             "ssp at s = 1 and scan differ")
+    check(s1.carry.clocks.tolist() == [R] * MF_WORKERS,
+          f"mf: ssp clocks {s1.carry.clocks.tolist()}")
+    del s1
+    R2 = R - R % 6
+    _, _, s2, s2_secs, _, s2_peak = run(MF_WORKERS, "ssp", rounds=R2,
+                                        staleness=2)
+    tr2 = s2.trace.cpu().tolist()
+    del s2
+    check(len(tr2) == R2 and all(map(math.isfinite, tr2)) and tr2[-1] < obj0,
+          f"mf: ssp at s = 2: the objective did not fall: {obj0} → "
+          f"{tr2[-1]}")
+    rises = [t for t in range(R2) if tr2[t] > (tr2[t - 1] if t else obj0)
+             * (1 + MF_MONO_TOL)]
+    _, _, sc2, sc2_secs, _, sc2_peak = run(MF_WORKERS, "scan", rounds=R2)
+    scan_end = float(sc2.trace[-1])
+    del sc2
+    for name, p in (("s1", s1_peak), ("s2", s2_peak)):
+        check(abs(p - sc2_peak) <= 1.0,
+              f"mf: ssp {name} peak {p} GB is not within 1 GB of scan's "
+              f"{sc2_peak} GB")
+    torch.cuda.empty_cache()
+    return {"s1_rounds": R, "s1_equals_scan": True,
+            "s2_rounds": R2, "s2_objective_end": tr2[-1],
+            "scan_objective_end_same_rounds": scan_end,
+            "s2_objective_rises_in_rounds": rises,
+            "rounds_per_s": {"s1": R / s1_secs, "s2": R2 / s2_secs,
+                             "scan_same_rounds_as_s2": R2 / sc2_secs},
+            "seconds": {"s1": s1_secs, "s2": s2_secs,
+                        "scan_same_rounds_as_s2": sc2_secs},
+            "peak_memory_gb": {"s1": s1_peak, "s2": s2_peak,
+                               "scan": scan_peak_gb,
+                               "scan_same_rounds_as_s2": sc2_peak}}
 
 
 def mf_checkpoint_run(torch, mf, ExecutionPlan, cfg, A, mask, gen,
@@ -1089,6 +1249,74 @@ def mf_checkpoint_run(torch, mf, ExecutionPlan, cfg, A, mask, gen,
            "resumed_equals_scan": True}
     del res
     torch.cuda.empty_cache()
+    return out
+
+
+def lda_ssp_runs(torch, lda, lg, ExecutionPlan, cfg, eng, data, words,
+                 docs, scan, inits: list, ll0: float) -> dict:
+    """LDA on the SSP executor at the chip shape, each run from its own
+    copy of the start (``inits``: the push writes z, B, D in place), with
+    the launch counts set to 0 just before each run and read just after:
+    s = 0 over one rotation (U launches) equal to the ``scan`` run to the
+    bit; s = 2 over lcm(3, U) rounds (as many launches), whose z, D, B
+    and s recount from z on the card, s equal to B's column sums, the
+    token count kept, the log-likelihood up; and ``scan`` over as many
+    rounds beside it."""
+    U = cfg.num_workers
+    L2 = math.lcm(3, U)
+    out: dict = {"launches": {}, "rounds_per_s": {}, "seconds": {}}
+
+    def timed(name, state, executor, rounds, staleness=0):
+        lg.reset_launch_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        rep = eng.execute(state, data, None, ExecutionPlan(
+            executor=executor, rounds=rounds, staleness=staleness),
+            collect=lambda s: s["s_err"])
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        out["launches"][name] = lg.LAUNCHES["lda_gibbs"]
+        out["rounds_per_s"][name] = rounds / secs
+        out["seconds"][name] = secs
+        check(out["launches"][name] == rounds,
+              f"lda {name}: lda_gibbs launched {out['launches'][name]} "
+              f"times in {rounds} rounds")
+        return rep
+
+    s0 = timed("ssp_s0", inits[0], "ssp", U)
+    for k in ("z", "D", "B", "s", "s_err"):
+        check(torch.equal(scan.state[k], s0.state[k]),
+              f"lda: ssp at s = 0 and scan differ in {k} on the card")
+    check(torch.equal(scan.trace, s0.trace), "lda: the s-error traces of "
+                                             "ssp at s = 0 and scan differ")
+    del s0
+    s2 = timed("ssp_s2", inits[1], "ssp", L2, staleness=2)
+    flat = eng.unshard(s2.state)
+    rec = lda.build_state(cfg, words, docs, flat["z"], device=DEVICE)
+    for k in ("D", "B", "s"):
+        check(torch.equal(rec[k], flat[k]),
+              f"lda ssp: {k} recounted from z differs from the state")
+    n_tok = int((words >= 0).sum())
+    check(torch.equal(flat["s"], flat["B"].sum(0))
+          and int(flat["B"].double().sum()) == n_tok
+          and int(flat["D"].double().sum()) == n_tok,
+          "lda ssp: s is not B's column sums, or a token was lost")
+    z = flat["z"]
+    check(int(z.min()) >= 0 and int(z.max()) < cfg.num_topics,
+          "lda ssp: z out of [0, K)")
+    ll2 = float(lda.log_likelihood(cfg, s2.state))
+    check(math.isfinite(ll2) and ll2 > ll0,
+          f"lda ssp: the log-likelihood did not rise: {ll0} → {ll2}")
+    s_errs = s2.trace.cpu().tolist()
+    del s2, flat, rec, z
+    sc = timed("scan_same_rounds", inits[2], "scan", L2)
+    ll_scan = float(lda.log_likelihood(cfg, sc.state))
+    del sc
+    torch.cuda.empty_cache()
+    out.update(s0_rounds=U, s0_equals_scan=True, s2_rounds=L2,
+               s2_counts_recount_exactly=True, tokens=n_tok,
+               s2_loglik_end=ll2, scan_loglik_end_same_rounds=ll_scan,
+               s2_s_err_max=max(s_errs), s2_s_err_last=s_errs[-1])
     return out
 
 
@@ -1442,6 +1670,7 @@ def lda_phase(torch, lda, lg, ref, ExecutionPlan, KernelSpec, seed: int):
     init = eng.init_state(words=words, docs=docs, z0=z0)
     loop_init = {k: v.clone() for k, v in init.items()}
     pipe_init = {k: v.clone() for k, v in init.items()}
+    ssp_inits = [{k: v.clone() for k, v in init.items()} for _ in range(3)]
     kw = dict(phase=0, rotate=True, block_vocab=Vb, vg=Vp * cfg.gamma,
               alpha=cfg.alpha, gamma=cfg.gamma, seed=LDA_SEED)
 
@@ -1522,6 +1751,9 @@ def lda_phase(torch, lda, lg, ref, ExecutionPlan, KernelSpec, seed: int):
     check(torch.equal(a.trace, pipe.trace), "lda: the s-error traces of "
                                             "pipelined and scan differ")
     del pipe, pipe_init
+    res["ssp"] = lda_ssp_runs(torch, lda, lg, ExecutionPlan, cfg, eng, data,
+                              words, docs, a, ssp_inits, ll0)
+    del ssp_inits
     for k in ("z", "D", "B", "s", "s_err"):
         check(torch.equal(a.state[k], b.state[k]),
               f"lda: loop and scan differ in {k} on the card")
@@ -1551,6 +1783,8 @@ def lda_phase(torch, lda, lg, ref, ExecutionPlan, KernelSpec, seed: int):
                  "pipelined": pipe_secs},
         pipelined_equals_scan=True, launches_pipelined=pipe_launches,
         peak_memory_gb=peak)
+    entry["launches_ssp"] = {k: res["ssp"]["launches"][k]
+                             for k in ("ssp_s0", "ssp_s2")}
     del b, runs, loop_init, rec, flat
 
     # the kernel timed at round 0's shape on the main path's state
@@ -2639,9 +2873,13 @@ def main() -> int:
     loadbal = lasso_loadbal_phase(torch, lasso, lc, ExecutionPlan, cfg, X, y,
                                   args.seed, runs["scan_w4"][0].state)
     print("lasso load_balanced + checkpoints: " + json.dumps(loadbal))
+    lssp = lasso_ssp_phase(torch, lasso, lc, ExecutionPlan, KernelSpec, cfg,
+                           X, y, args.seed)
+    print("lasso ssp: " + json.dumps(lssp))
     for k in ("lasso_partial", "gram_block"):
         kern[k]["launches_pipelined"] = pipelined["launches"][k]
         kern[k]["launches_loadbal"] = loadbal["launches"][k]
+        kern[k]["launches_ssp"] = lssp["launches"][k]
 
     eng = lasso.make_engine(cfg, workers=W, device=DEVICE)
     data = eng.shard_data({"X": X, "y": y})
@@ -2777,6 +3015,7 @@ def main() -> int:
                                       / tg["decode_shape_device_ms"])
     result.update(kernels=list(kern.values()), main=main, profile=prof,
                   lasso_pipelined=pipelined, lasso_loadbal=loadbal,
+                  lasso_ssp=lssp,
                   launch_floor_ms=launch_floor_ms,
                   small={"objective": got, "reference_cd": want},
                   mf=mfres, lda=ldares,

@@ -36,7 +36,7 @@ from typing import Callable, Optional
 import numpy as np
 import torch
 
-from ..core import StradsAppBase, StradsEngine
+from ..core import StradsAppBase, StradsEngine, resolve_device
 from ..kernels import KernelSpec, build_kernels
 from ..kernels.lda_gibbs import gibbs_index
 from ..kernels.ref import gibbs_active
@@ -398,13 +398,14 @@ def synthetic_corpus_device(seed: int, cfg: LDAConfig,
     return words, docs, z0
 
 
-def build_state(cfg: LDAConfig, words, docs, z0, device="cpu") -> dict:
+def build_state(cfg: LDAConfig, words, docs, z0, device="cuda") -> dict:
     """Materialise consistent D, B and s from the initial assignments, by
-    one accumulating scatter each.  Flat layout: z (U·T_p,) int32 (a
-    copy of z0), D (U·dpw, K), B (V_p, K), s (K,), s_err 0."""
+    one accumulating scatter each, on ``device`` (the card unless the
+    caller asks for the CPU).  Flat layout: z (U·T_p,) int32 (a copy of
+    z0), D (U·dpw, K), B (V_p, K), s (K,), s_err 0."""
     Tp, dpw = cfg.tokens_per_worker, cfg.docs_per_worker
     Vp, K = cfg.padded_vocab, cfg.num_topics
-    device = torch.device(device)
+    device = resolve_device(device)
     w = torch.as_tensor(words, device=device).reshape(-1).long()
     d = torch.as_tensor(docs, device=device).reshape(-1).long()
     z = torch.tensor(z0, device=device).reshape(-1) \

@@ -3,10 +3,12 @@
 A checkpoint is one ``step_%08d.npz`` file per step, written to a
 temporary name and moved into place with ``os.replace`` (atomic).  A tree
 of dicts, lists, tuples and dataclasses (e.g. the engine's
-:class:`~repro_torch.core.EngineCarry`) is flattened to '/'-joined key
+:class:`~repro_torch.core.EngineCarry` and the SSP executor's
+:class:`~repro_torch.ps.SSPCarry`) is flattened to '/'-joined key
 paths, with a dataclass field written ``.name`` as JAX renders an
 attribute key, so the port's files hold the JAX package's keys
-(``state/beta``, ``carry/.t``, ``carry/.sched/idx``, ``assignment/owner``).
+(``state/beta``, ``carry/.t``, ``carry/.sched/idx``, ``carry/.clocks``,
+``assignment/owner``).
 ``None`` subtrees hold no leaf.  Tensors are written through
 ``.detach().cpu().numpy()``; a ``torch.Generator``'s ``get_state()`` is
 a uint8 tensor and is stored as a leaf like any other.

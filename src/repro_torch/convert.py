@@ -22,6 +22,7 @@ import torch
 
 from .core import EngineCarry, resolve_device
 from .models import params as P
+from .ps import SSPCarry
 from .models.transformer import stack_template
 
 
@@ -105,7 +106,11 @@ def checkpoint_from_jax(flat: dict, engine):
     - ``carry``: an :class:`~repro_torch.core.EngineCarry` with the round
       index, the scheduler carry and, when the JAX run was pipelined, its
       in-flight schedule (``depth`` 1; integer leaves as int64 indices,
-      as the port's schedulers make them);
+      as the port's schedulers make them); or, when the file holds
+      ``carry/.clocks`` (an SSP run), an
+      :class:`~repro_torch.ps.SSPCarry` with the round index, the vector
+      clocks (lockstep: the JAX run's clock for each of the engine's
+      workers) and the scheduler carry;
     - ``partition``: the ``"assignment"`` payload, or ``None``.
 
     The JAX PRNG key (``carry/.rng``) cannot cross: the carry has no
@@ -125,11 +130,18 @@ def checkpoint_from_jax(flat: dict, engine):
         else np.asarray(v).dtype), device=dev)
         for k, v in sub("carry/.sched/").items()}
     sc = flat.get("carry/.sched_carry")
-    carry = EngineCarry(
-        t=int(flat["carry/.t"]),
-        sched_carry=(None if sc is None else torch.as_tensor(
-            np.asarray(sc, np.float32), device=dev)),
-        sched=sched or None, depth=1 if sched else 0)
+    sc = (None if sc is None else torch.as_tensor(
+        np.asarray(sc, np.float32), device=dev))
+    if "carry/.clocks" in flat:
+        # the workers' clocks advance in lockstep: the JAX run's value,
+        # over this engine's workers
+        clock = int(np.min(flat["carry/.clocks"]))
+        carry = SSPCarry(t=int(flat["carry/.t"]), sched_carry=sc,
+                         clocks=torch.full((engine.workers,), clock,
+                                           dtype=torch.int32, device=dev))
+    else:
+        carry = EngineCarry(t=int(flat["carry/.t"]), sched_carry=sc,
+                            sched=sched or None, depth=1 if sched else 0)
     return state, carry, sub("assignment/") or None
 
 

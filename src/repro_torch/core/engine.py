@@ -1,5 +1,5 @@
-"""The STRADS round executors of the port: ``loop``, ``scan`` and
-``pipelined``.
+"""The STRADS round executors of the port: ``loop``, ``scan``,
+``pipelined`` and ``ssp``.
 
 One round is the JAX package's (``core/engine.py``)
 
@@ -25,9 +25,15 @@ Apps whose rounds cycle through static phases (``phase_period``: MF's
 H/W alternation is 2, LDA's rotation U) run on all three; ``scan`` and
 ``pipelined`` hold them to the JAX scan's rule that a run starts on a
 phase boundary, and ``pipelined`` to its rule that the rounds divide
-into ``phase_period × phase_unroll``.  Plan fields and executors the
-port does not run yet raise ``NotImplementedError`` naming the
-ROADMAP.md step that ports them; nothing silently runs something else.
+into ``phase_period × phase_unroll``.  ``ssp`` is the bounded-staleness
+executor of :mod:`repro_torch.ps` (``run_ssp``): reads of the state's
+whole (server-resident) leaves are served from a cache up to
+``plan.staleness`` rounds stale and the pushes are summed over the
+workers once a window of s + 1 rounds; its steps of lcm(s + 1,
+``phase_period``) rounds align its runs, chunks and resumes.  Plan
+fields the port does not run yet raise ``NotImplementedError`` naming
+the ROADMAP.md step that ports them; nothing silently runs something
+else.
 
 Partition policy is injected like the scheduler (the partitioning
 contract of :mod:`repro_torch.core.primitives`): the resolved
@@ -43,11 +49,11 @@ scheduler's Gumbel noise from it.  The port draws one (J,) Gumbel vector
 per round from a ``torch.Generator`` on the engine's device, or takes it
 from a ``noise(t)`` source the caller passes (the parity tests feed the
 JAX package's own draws that way).  Round t's schedule takes the t-th
-draw on every executor, so ``pipelined`` differs from ``scan`` through
-staleness alone; its generator is one draw ahead at the end of a run
-(the prefetched schedule's).  An app that keys its draws itself
-(``own_noise``: MF draws once per H/W cycle) gets ``None`` when the
-caller passes no source.
+draw on every executor, so ``pipelined`` and ``ssp`` differ from
+``scan`` through staleness alone; the pipelined generator is one draw
+ahead at the end of a run (the prefetched schedule's).  An app that
+keys its draws itself (``own_noise``: MF draws once per H/W cycle) gets
+``None`` when the caller passes no source.
 """
 from __future__ import annotations
 
@@ -404,6 +410,21 @@ class StradsEngine:
         sched = self.scheduler
         return sched.init_carry(self.device) if sched is not None else None
 
+    def mark_sched_carry(self, carry, candidates):
+        """The SSP in-flight exclusion over the scheduler carry (identity
+        without an injected scheduler; priority tables kept in the state
+        go through :class:`~repro_torch.core.kvstore.VarTable`)."""
+        sched = self.scheduler
+        return (sched.mark_scheduled(carry, candidates)
+                if sched is not None else carry)
+
+    def app_roles(self) -> dict:
+        """The app's VarSpec role map (``var_roles()``: ``"priority"``
+        leaves the SSP window masks for in-flight exclusion when an app
+        keeps its priority table in its state)."""
+        fn = getattr(self.app, "var_roles", None)
+        return dict(fn()) if callable(fn) else {}
+
     # -- placement -----------------------------------------------------------
 
     def shard_data(self, data: dict) -> dict:
@@ -418,7 +439,8 @@ class StradsEngine:
         one source of variable placement and byte accounting
         (``self.kvstore.bytes_per_device()`` afterwards)."""
         specs = {k: self.state_specs.get(k) for k in state}
-        self.kvstore = store_from_tree(self.workers, state, specs)
+        self.kvstore = store_from_tree(self.workers, state, specs,
+                                       roles=self.app_roles())
         return self.kvstore.place_tree(state, self.device)
 
     def init_state(self, **app_kwargs) -> dict:
@@ -499,6 +521,16 @@ class StradsEngine:
         return self.execute(state, data, generator, plan,
                             callback=callback).state
 
+    def run_ssp(self, state, data, generator, num_rounds: int, *,
+                staleness: int = 0, **kw):
+        """The bounded-staleness executor (:func:`repro_torch.ps.run_ssp`):
+        reads of whole (server-resident) leaves served from a cache up to
+        ``staleness`` rounds old, pushes summed over the workers at the
+        flush.  ``staleness=0`` equals ``scan`` to the bit."""
+        from ..ps.ssp import run_ssp
+        return run_ssp(self, state, data, generator, num_rounds,
+                       staleness=staleness, **kw)
+
     # -- the entry point -----------------------------------------------------
 
     def execute(self, state, data, generator, plan: ExecutionPlan, *,
@@ -520,8 +552,8 @@ class StradsEngine:
         the host-loop hook (``executor="loop"`` only; return True to stop
         early).  ``carry`` resumes a previous report's run of the same
         plan: rounds ``carry.t .. plan.rounds`` run with the carried
-        scheduler carry, generator state and (pipelined) in-flight
-        schedule.
+        scheduler carry, generator state, (pipelined) in-flight schedule
+        and (ssp: an :class:`~repro_torch.ps.SSPCarry`) vector clocks.
 
         ``plan.partitioner`` selects the partition policy (``None``: the
         app's default).  A fresh run (no ``carry``) starts from the
@@ -560,16 +592,26 @@ class StradsEngine:
         generator = self._generator(generator)
         t_done = 0
         if carry is not None:
-            if not isinstance(carry, EngineCarry):
-                raise ValueError(f"carry must be the EngineCarry a previous "
-                                 f"report returned; got "
-                                 f"{type(carry).__name__}")
-            if plan.executor == "pipelined" and carry.depth != 1:
+            from ..ps.ssp import SSPCarry
+            if plan.executor == "ssp" and not isinstance(carry, SSPCarry):
+                raise ValueError("resuming an ssp plan needs the SSPCarry "
+                                 "a previous ssp report returned")
+            if plan.executor in ("scan", "pipelined") \
+                    and not isinstance(carry, EngineCarry):
+                raise ValueError("resuming a scanned plan needs the "
+                                 "EngineCarry a previous scan/pipelined "
+                                 "report returned")
+            if not isinstance(carry, (EngineCarry, SSPCarry)):
+                raise ValueError(f"carry must be the EngineCarry or "
+                                 f"SSPCarry a previous report returned; "
+                                 f"got {type(carry).__name__}")
+            depth = getattr(carry, "depth", 0)
+            if plan.executor == "pipelined" and depth != 1:
                 raise ValueError("resuming a pipelined plan needs the "
                                  "carried in-flight schedule (carry.depth "
                                  "is 0 — was this carry produced by a "
                                  "different executor?)")
-            if plan.executor != "pipelined" and carry.depth:
+            if plan.executor != "pipelined" and depth:
                 raise ValueError("carry.sched only resumes the pipelined "
                                  "executor (pipeline_depth=1)")
             if (self.init_sched_carry() is None) != (carry.sched_carry
@@ -629,7 +671,8 @@ class StradsEngine:
                 f"{plan.executor!r} executor's step length {step_len} "
                 f"(phase/window alignment), so every chunk resumes on a "
                 f"step boundary")
-        if plan.executor == "pipelined" and plan.rounds % step_len:
+        if plan.executor in ("pipelined", "ssp") \
+                and plan.rounds % step_len:
             # fail before any chunk runs — the same plan without ckpt_dir
             # is rejected upfront by the executor itself
             raise ValueError(
@@ -674,6 +717,9 @@ class StradsEngine:
     def _step_length(self, plan: ExecutionPlan) -> int:
         """Rounds one step of the plan's executor covers — the alignment
         unit of checkpoint chunks and resume points."""
+        if plan.executor == "ssp":
+            from ..ps.ssp import rounds_per_step
+            return rounds_per_step(self, plan.staleness)
         if plan.executor in ("scan", "pipelined"):
             return self.phase_period * plan.phase_unroll
         return 1                                # loop: any round
@@ -692,6 +738,14 @@ class StradsEngine:
         checkpoint chunk) on the executor it names."""
         sc = (prev_carry.sched_carry if prev_carry is not None
               else self.init_sched_carry())
+        if plan.executor == "ssp":
+            state, *trace, carry = self.run_ssp(
+                state, data, generator, rounds, staleness=plan.staleness,
+                collect=collect, t0=t0,
+                clocks=getattr(prev_carry, "clocks", None),
+                sched_carry0=sc, return_carry=True, noise=noise)
+            return ExecutionReport(state=state, trace=trace[0] if trace
+                                   else None, carry=carry, plan=plan)
         period = self.phase_period
         if plan.executor != "loop" and t0 % period:
             raise ValueError(f"t0 must be a multiple of the phase period "
@@ -775,7 +829,6 @@ def _concat(traces: list):
 
 # plan fields the port does not run yet → the ROADMAP.md step porting them
 _STEP = {
-    "ssp": "queue 1, step 9 (the SSP executor)",
     "telemetry": "queue 1, step 10 (observability)",
     "stream": "queue 1, step 11 (serving and streaming)",
 }
@@ -788,8 +841,6 @@ def _not_ported(what: str, key: str):
 
 def _reject_unported(plan: ExecutionPlan, *, stream, source,
                      stream_state) -> None:
-    if plan.executor == "ssp":
-        raise _not_ported("executor='ssp'", "ssp")
     if plan.telemetry:
         raise _not_ported("plan.telemetry", "telemetry")
     if stream is not None or source is not None or stream_state is not None:

@@ -7,7 +7,9 @@ device: a variable whose spec is :data:`DATA_AXIS` is split by rows over
 the workers and carries shape (W, n/W, …); every other variable is whole
 (the synced KV-store values).  This module keeps the bookkeeping of the
 store: named variables, their specs and roles, the byte accounting of
-the Fig-3 memory claim, and the (re)placement of a state.
+the Fig-3 memory claim, the (re)placement of a state, and
+:class:`VarTable`, the SSP executor's write contract derived from
+placement.
 """
 from __future__ import annotations
 
@@ -197,5 +199,149 @@ def store_from_tree(workers: int, tree: dict, spec_tree: dict,
     return KVStore(workers, specs_from_tree(tree, spec_tree, roles=roles))
 
 
-__all__ = ["DATA_AXIS", "KVStore", "VarSpec", "is_replicated", "path_name",
-           "place", "specs_from_tree", "store_from_tree"]
+# ---------------------------------------------------------------------------
+# VarTable — the v2 push/pull write contract, derived from placement
+# ---------------------------------------------------------------------------
+
+_LEAF = object()                 # a leaf's place in a recorded structure
+
+
+def named_leaves(tree: Any, prefix: tuple = ()) -> list:
+    """(name, leaf) pairs of nested dicts, with ``None`` holding no leaf
+    (the JAX package's pytree convention for ``local``)."""
+    if tree is None:
+        return []
+    if isinstance(tree, dict):
+        return [kv for k, v in tree.items()
+                for kv in named_leaves(v, prefix + (k,))]
+    return [(path_name(prefix), tree)]
+
+
+def _skeleton(tree: Any) -> Any:
+    if tree is None:
+        return None
+    if isinstance(tree, dict):
+        return {k: _skeleton(v) for k, v in tree.items()}
+    return _LEAF
+
+
+def _fill(skel: Any, vals: dict, prefix: tuple = ()) -> Any:
+    if skel is None:
+        return None
+    if isinstance(skel, dict):
+        return {k: _fill(v, vals, prefix + (k,)) for k, v in skel.items()}
+    return vals[path_name(prefix)]
+
+
+def map_with_path(fn, tree: Any, prefix: tuple = ()) -> Any:
+    """``fn(name, leaf)`` over every leaf of nested dicts, the structure
+    kept."""
+    if isinstance(tree, dict):
+        return {k: map_with_path(fn, v, prefix + (k,))
+                for k, v in tree.items()}
+    return fn(path_name(prefix), tree)
+
+
+class VarTable:
+    """Placement-aware view of the state for the v2 primitive protocol,
+    from the JAX package's ``core/kvstore.py``.
+
+    ``push`` returns ``(z, local)``; any ``local`` leaf whose '/'-joined
+    key path names a **worker-resident** state leaf (spec
+    :data:`DATA_AXIS`) *is* the committed new value of that leaf — the
+    commit-through set.  The SSP executor, which defers the sum over
+    workers, commits those leaves every round (the read-my-writes
+    guarantee) and buffers only the remaining ``local`` leaves until the
+    flush, where the app's own ``pull`` is replayed with ``local``
+    rebuilt (commit-through entries read back from the live state,
+    deferred entries from the buffer).  A push that writes a
+    worker-resident leaf in place (LDA's z, B, D) is committed through
+    by that write.  ``role="priority"`` leaves get the in-flight
+    exclusion (:meth:`mark_scheduled`)."""
+
+    def __init__(self, store: KVStore):
+        self.store = store
+        self.worker_resident = frozenset(
+            n for n, vs in store.specs.items()
+            if not is_replicated(vs.spec))
+        self.priority_names = frozenset(
+            n for n, vs in store.specs.items() if vs.role == "priority")
+        # phase -> (local structure, leaf paths, commit-through name set),
+        # recorded at the first call so flush-time rebuilds are structural
+        self._local_forms: Dict[int, tuple] = {}
+
+    # -- classification ------------------------------------------------------
+
+    def _local_form(self, local: Any, phase: int):
+        names = [n for n, _ in named_leaves(local)]
+        commit = frozenset(n for n in names if n in self.worker_resident)
+        form = (_skeleton(local), names, commit)
+        prev = self._local_forms.setdefault(phase, form)
+        if prev[1] != names:
+            raise ValueError(
+                f"push returned a different `local` structure for phase "
+                f"{phase}: {prev[1]} vs {names}")
+        return form
+
+    # -- the derived commit/defer/rebuild triple ----------------------------
+
+    def commit_local(self, state: Any, local: Any, phase: int) -> Any:
+        """The state with the commit-through leaves of ``local`` written
+        in (a new dict; runs every round)."""
+        _, _, commit = self._local_form(local, phase)
+        if not commit:
+            return state
+        vals = dict(named_leaves(local))
+        return map_with_path(
+            lambda n, x: vals[n] if n in commit else x, state)
+
+    def defer_local(self, local: Any, phase: int) -> Dict[str, Any]:
+        """The flat ``{path: leaf}`` dict of non-commit-through leaves —
+        the only part of ``local`` the flush still needs to buffer."""
+        _, _, commit = self._local_form(local, phase)
+        return {n: leaf for n, leaf in named_leaves(local)
+                if n not in commit}
+
+    def rebuild_local(self, state: Any, deferred: Dict[str, Any],
+                      phase: int) -> Any:
+        """Reconstruct the round's ``local`` tree at flush time:
+        commit-through entries read back from the live state (their
+        committed values), deferred entries from the buffer."""
+        if phase not in self._local_forms:
+            raise ValueError(f"no local structure recorded for phase "
+                             f"{phase} (defer_local not called)")
+        skel, names, commit = self._local_forms[phase]
+        svals = dict(named_leaves(state))
+        return _fill(skel, {n: svals[n] if n in commit else deferred[n]
+                            for n in names})
+
+    # -- in-flight exclusion (role="priority") -------------------------------
+
+    def mark_scheduled(self, view: Any, candidates: Any) -> Any:
+        """Exclude in-flight candidates from later schedule proposals in
+        the same SSP window: zero their entries in every
+        ``role="priority"`` leaf of the scheduling view (a new tensor;
+        pending updates are invisible until the flush, so rescheduling
+        them would compound the same stale read).  ``candidates`` must be
+        an integer index tensor when any priority leaf is declared."""
+        if not self.priority_names or candidates is None:
+            return view
+        idx = torch.as_tensor(candidates)
+        if idx.is_floating_point() or idx.is_complex() \
+                or idx.dtype == torch.bool:
+            raise TypeError(
+                f"role='priority' in-flight exclusion needs integer "
+                f"candidate indices; got dtype {idx.dtype}")
+
+        def mark(name, x):
+            if name not in self.priority_names:
+                return x
+            out = x.clone()
+            out[idx.to(x.device)] = 0
+            return out
+        return map_with_path(mark, view)
+
+
+__all__ = ["DATA_AXIS", "KVStore", "VarSpec", "VarTable", "is_replicated",
+           "map_with_path", "named_leaves", "path_name", "place",
+           "specs_from_tree", "store_from_tree"]

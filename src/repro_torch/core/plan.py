@@ -256,9 +256,9 @@ class ExecutionReport:
                 fn.
     telemetry:  always ``None`` in the port until telemetry is ported
                 (``execute`` rejects plans that ask for it).
-    carry:      resumable :class:`repro_torch.core.engine.EngineCarry`;
-                pass it back to ``execute`` to continue the same plan
-                bit-exactly.
+    carry:      resumable :class:`repro_torch.core.engine.EngineCarry`
+                (:class:`repro_torch.ps.SSPCarry` for ``ssp``); pass it
+                back to ``execute`` to continue the same plan bit-exactly.
     plan:       the plan that produced this report.
     """
     state: Any

@@ -99,6 +99,15 @@ class StradsAppBase:
         uniform)."""
         return None
 
+    def var_roles(self) -> dict:
+        """Leaf-path → VarSpec role declarations beyond placement (only
+        ``"priority"``: a scheduling-priority table kept in the app's
+        state, which the SSP window masks for in-flight exclusion through
+        :class:`~repro_torch.core.kvstore.VarTable`).  Apps with an
+        injected scheduler keep priorities in the engine's carry and need
+        none.  Default: none."""
+        return {}
+
     def default_kernel_spec(self) -> Optional[Any]:
         return None
 

@@ -4,6 +4,7 @@
     cand   = scheduler.propose(carry, noise, t, phase)
     idx, m = scheduler.finalize(cand, stats)        # stats = summed Gram
     carry' = scheduler.update_carry(carry, idx, m, dx)
+    carry~ = scheduler.mark_scheduled(carry, cand)  # SSP in-flight exclusion
 
 One difference: randomness is an input.  The engine draws one (J,)
 Gumbel vector per round (from a ``torch.Generator``, or from a noise
@@ -34,4 +35,9 @@ class SchedulerBase:
                                       device=candidates.device)
 
     def update_carry(self, carry, idx, mask, dx):
+        return carry
+
+    def mark_scheduled(self, carry, candidates):
+        """The SSP in-flight exclusion over the carry: identity for
+        policies whose proposals read no priorities."""
         return carry

@@ -183,6 +183,17 @@ class DynamicPriorityScheduler(SchedulerBase):
         keep = dependency_filter(gram, self.rho, self.block_size)
         return _compact_schedule(candidates, keep, self.block_size)
 
+    def mark_scheduled(self, carry, candidates):
+        """SSP in-flight exclusion: candidates already proposed in this
+        staleness window drop to the η floor, so later stale proposals
+        pick fresh coordinates instead of compounding the same deferred
+        update (a new tensor; ``carry`` is not changed)."""
+        if candidates is None:
+            return carry
+        out = carry.clone()
+        out[candidates] = 0.0
+        return out
+
 
 def build_scheduler(spec: SchedulerSpec, *, num_vars: int,
                     num_workers: int):

@@ -270,11 +270,9 @@ def test_execute_rejects_what_is_not_ported(problem):
     from repro_torch.obs import TelemetrySpec
     from repro_torch.part import PartitionerSpec
     for plan, step in (
-            (ExecutionPlan(executor="ssp", rounds=2, staleness=1),
-             "step 9"),
             (ExecutionPlan(rounds=2,
                            telemetry=TelemetrySpec(kind="counters")),
-             "step 10")):
+             "step 10"),):
         with pytest.raises(NotImplementedError, match=f"ROADMAP.md.*{step}"):
             eng.execute(state, data, None, plan)
     with pytest.raises(NotImplementedError, match="ROADMAP.md.*step 11"):

@@ -98,11 +98,15 @@ def jax_noise(cfg_kw, base: int = 17, phased: bool = True):
     return noise
 
 
-def jax_driver(cfg_kw, words, docs, z0, rounds, state=None, t0=0):
+def jax_driver(cfg_kw, words, docs, z0, rounds, state=None, t0=0,
+               staleness=0):
     """The JAX package's push/pull semantics, ``_gibbs_scan`` driven per
     (worker, phase) in process: worker p samples block (p + t) % U of the
     home-ordered B, s is the sum of the blocks' column sums, and the
-    s-error (1/UM) Σ_p ‖s̃_p − s‖₁.  Numpy state in the JAX layout."""
+    s-error (1/UM) Σ_p ‖s̃_p − s‖₁.  Numpy state in the JAX layout.
+    Under ``staleness`` s every sweep of a window of s + 1 rounds (the
+    windows start at ``t0``) reads the window-start s, as the JAX SSP's
+    pushes read s from their cache; z, D and B commit through."""
     cfg = jlda.LDAConfig(**cfg_kw)
     U, T, dpw, Vb = (cfg.num_workers, cfg.tokens_per_worker,
                      cfg.docs_per_worker, cfg.block_vocab)
@@ -112,6 +116,8 @@ def jax_driver(cfg_kw, words, docs, z0, rounds, state=None, t0=0):
     errs = []
     for t in range(t0, t0 + rounds):
         phase = t % U
+        if (t - t0) % (staleness + 1) == 0:
+            s_read = st["s"].copy()             # the window's snapshot
         tildes = []
         for p in range(U):
             blk = (p + phase) % U
@@ -123,7 +129,7 @@ def jax_driver(cfg_kw, words, docs, z0, rounds, state=None, t0=0):
             B, D, s_t, z = _scan(
                 cfg, jnp.asarray(st["B"][rows]),
                 jnp.asarray(st["D"][p * dpw:(p + 1) * dpw]),
-                jnp.asarray(st["s"]), jnp.asarray(w), jnp.asarray(docs[sl]),
+                jnp.asarray(s_read), jnp.asarray(w), jnp.asarray(docs[sl]),
                 jnp.asarray(st["z"][sl]),
                 jnp.asarray((w >= 0) & (w // Vb == blk)), blk * Vb, key)
             st["B"][rows], st["z"][sl] = np.asarray(B), np.asarray(z)
@@ -149,7 +155,8 @@ def test_build_state_and_loglik_match(cfg_kw):
     words, docs, z0 = _corpus(cfg_kw)
     cfg = jlda.LDAConfig(**cfg_kw)
     want = jlda.build_state(cfg, words, docs, z0)
-    got = lda.build_state(lda.LDAConfig(**cfg_kw), words, docs, z0)
+    got = lda.build_state(lda.LDAConfig(**cfg_kw), words, docs, z0,
+                          device="cpu")
     for k in ("z", "D", "B", "s", "s_err"):
         np.testing.assert_array_equal(got[k].numpy(), np.asarray(want[k]))
     np.testing.assert_allclose(
@@ -237,7 +244,7 @@ def test_skipping_inactive_slots_changes_no_bit(seed):
     cfg = lda.LDAConfig(**cfg_kw)
     words, docs, z0 = _corpus(cfg_kw, seed=seed)
     words[::7] = -1                          # padding slots too
-    st = lda.build_state(cfg, words, docs, z0)
+    st = lda.build_state(cfg, words, docs, z0, device="cpu")
     U, T, K, Vb, phase = 4, 300, 5, cfg.block_vocab, 1
     W = torch.tensor(words).view(U, T)
     Dc = torch.tensor(docs).view(U, T)
@@ -581,6 +588,8 @@ def test_entry_points_default_to_the_card():
     cfg = lda.LDAConfig(**CFG1)
     if torch.cuda.is_available():
         pytest.skip("a card is present: the default device works")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        lda.build_state(cfg, words, docs, z0)
     for baseline in (False, True):
         with pytest.raises(RuntimeError, match="no CUDA device"):
             lda.make_engine(cfg, baseline=baseline)

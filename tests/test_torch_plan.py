@@ -95,3 +95,47 @@ def test_invalid_specs_raise_in_both(jcls, tcls, kw):
         jcls(**kw)
     with pytest.raises(ValueError):
         tcls(**kw)
+
+
+@pytest.fixture(scope="module")
+def lasso_problem():
+    """The correlated design at a small size that every checked-in plan
+    can schedule (``lasso_dyn_rho03.json`` proposes U′ = 128)."""
+    import numpy as np
+    from repro_torch.apps import lasso
+    X, y, _ = lasso.synthetic_correlated(np.random.default_rng(0), n=64,
+                                         J=160, k_true=6)
+    return X, y
+
+
+@pytest.mark.parametrize("path", PLANS, ids=os.path.basename)
+def test_example_plan_runs_through_the_port(path, lasso_problem, tmp_path):
+    """Every checked-in plan runs unchanged through the port's Lasso
+    ``execute`` on the CPU: all its rounds, to a finite objective below
+    the start, with the carry its executor resumes from."""
+    import torch
+    from repro_torch.apps import lasso
+    from repro_torch.ps import SSPCarry
+    with open(path) as f:
+        plan = tcore.ExecutionPlan.from_json(json.load(f))
+    X, y = lasso_problem
+    cfg = lasso.LassoConfig(num_features=X.shape[1], lam=0.02,
+                            block_size=8, num_candidates=32, rho=0.3)
+    eng = lasso.make_engine(cfg, workers=plan.workers or 1, device="cpu")
+    data = eng.shard_data({"X": X, "y": y})
+    ckpt = str(tmp_path) if plan.checkpoint_every else None
+    rep = eng.execute(eng.init_state(y=y), data,
+                      torch.Generator().manual_seed(0), plan,
+                      collect=eng.app.objective_collect(), ckpt_dir=ckpt)
+    assert rep.carry.t == plan.rounds and rep.trace.shape == (plan.rounds,)
+    obj0 = 0.5 * float((y.astype("float64") ** 2).sum())
+    assert bool(torch.isfinite(rep.trace).all())
+    assert float(rep.trace[-1]) < obj0
+    if plan.executor == "ssp":
+        assert isinstance(rep.carry, SSPCarry)
+        assert rep.carry.clocks.tolist() == [plan.rounds] * eng.workers
+    if ckpt:
+        assert sorted(os.listdir(ckpt)) == [
+            f"step_{t:08d}.npz" for t in range(
+                plan.checkpoint_every, plan.rounds + 1,
+                plan.checkpoint_every)]
