@@ -39,8 +39,24 @@
    W = 4; 12 ``gram_block`` and 12 ``lasso_partial``; the staleness
    histogram [4, 4, 4]; within STATE_TOL of the plain kernels; s = 0
    equal to scan to the bit; timed alternately with scan, 6 runs
-   each).  Then times where a round goes and runs the repo's convergence
-   check (``tests/test_lasso.py``) on the card at a small size.
+   each).  Then telemetry (``lasso_counters_phase``): ``ssp_s2.json``
+   with device counters (still 12 and 12 launches, equal to the
+   uninstrumented run to the bit; 12 rounds, proposed 12 × 128 = accepted
+   + killed, sched_size = accepted, the histogram [4, 4, 4]) and 16 scan
+   rounds with counters and without, timed alternately (6 runs each).
+   Then serving (``lasso_serve_phase``): ``serve_ssp.json`` (24 rounds,
+   s = 2) through ``serve_while_training`` with 64 ``predict`` requests,
+   stale (max staleness 4: reads at 0 and 3) and snapshot; the trained
+   state equal to an unserved run to the bit; each ŷ against xᵀβ in f64
+   at the clock it read.  Then times where a round goes, a profiler
+   window, and ``lasso_loadbal.json`` traced (``lasso_trace_phase``:
+   ``kind="trace", profiler=True``: strictly nested spans, a
+   ``rebalance`` instant at each move with the spreads printed above, a
+   ``checkpoint`` span every 4 rounds, a ``record_function`` range a
+   span in the profiler, the Chrome trace in
+   ``build/lasso_loadbal.trace.json``, host ms by span name), and runs
+   the repo's convergence check (``tests/test_lasso.py``) on the card at
+   a small size.
 4. STRADS MF at the Netflix Prize shape: 17,770 movies, 1.18 % of the
    entries observed, the users cut to MF_USERS (131,072: the dense
    layout holds A, the mask and R, 9.3 GB each), rank 40, λ = 0.05, W = 4,
@@ -51,7 +67,11 @@
    equal to scan, and a fresh engine resumed from the middle file equal
    too), on the SSP executor at s = 1 (equal to scan to the bit) and at
    s = 2 over 78 rounds beside scan over as many (the objective falls;
-   the peak memory within 1 GB of scan's), then at W = 1 (within
+   the peak memory within 1 GB of scan's), a sweep with device counters
+   (equal to scan to the bit, [40, 40] rounds a phase, its rate within
+   OBS_RATE_TOL of scan's), 256 ``recommend`` requests served over an
+   ``ssp`` sweep at s = 1 (training equal to scan; each batch's top-k
+   against an f64 recount of W_u·H), then at W = 1 (within
    MF_W_TOL); the objective falls every
    round within MF_MONO_TOL; rounds/s, the peak memory and a profiler
    window of 4 rounds; then ALS (2 iterations) beside STRADS on the
@@ -79,7 +99,15 @@
    128) = 384 rounds (384 launches; D, B, s recounted from z, s the
    column sums of B, the log-likelihood up) beside scan over as many;
    D, B, s recounted from z equal to the state; the log-likelihood up;
-   z in [0, K); every count below 2²⁴.  The kernel timed at round 0's
+   z in [0, K); every count below 2²⁴.  Then a rotation with device
+   counters (equal to scan, 128 ones a phase, its rate within
+   OBS_RATE_TOL of scan's) and 256 rounds served with a snapshot at each
+   rotation and 64 ``infer_topics`` requests of held-out documents
+   (``lda_obs_serve``: training equal to an unserved run; every pin
+   unchanged after the next rotations' in-place writes; θ against an f64
+   fold-in from the pin).  Then ``python -m repro_torch.launch.serve
+   --engine lda --requests 32 --trace build/serve.trace.json`` as a
+   subprocess (``serve_cli_run``), which must exit 0.  The kernel timed at round 0's
    shape against two bounds: the roofline (the distinct B and D rows the
    round touches read once at 3.35 TB/s, or its operations at 67
    TFLOP/s with each logf at the cost of its SASS, the larger), the
@@ -180,11 +208,28 @@ SSM_TOL = 1e-2                 # |kernel − plain| ≤ SSM_TOL·max(1, max|plai
                                # for bf16 y (one bf16 rounding)
 SSM_TOL_F32 = 1e-4             # the same for f32 y and for h (f32 sums in
                                # another order over up to 1,000 steps)
+OBS_RATE_TOL = 0.02           # MF and LDA: rounds/s with counters within 2 %
+                               # of the uninstrumented run's (device-bound)
+SERVE_TOL = 1e-5               # served ŷ vs f64 xᵀβ: |Δ| ≤ SERVE_TOL·Σ|x_j β_j|
+MF_TIE_TOL = 1e-5              # MF top-k: f64 scores of the served items vs
+                               # the f64 top-k, ≤ MF_TIE_TOL·max|score| (f32
+                               # near-ties may swap)
+LDA_THETA_TOL = 1e-5           # LDA θ (f32) vs an f64 fold-in from the pin
+LASSO_REQUESTS = 64            # predict requests over serve_ssp.json
+MF_REQUESTS = 256              # recommend requests over an ssp sweep
+LDA_REQUESTS = 64              # infer_topics requests over 256 rounds
+LDA_DOC_LEN = 256              # tokens a held-out document
 DEVICE = "cuda"
-PROFILE_PRIMERS = 64           # empty kernels a profiler window launches
-                               # first: a session loses its first device
-                               # records, more as the process ages
-                               # (tools/profile_window_check.py)
+PROFILE_SPACED = 32            # a profiler window's lead guard: empty
+PROFILE_GAP_S = 1e-3           # kernels each waited for and this far
+PROFILE_PRIMERS = 512          # apart, then these back to back; and as
+PROFILE_TAIL = 64              # many back to back after the call.  A
+PROFILE_ATTEMPTS = 3           # session loses some device records near
+                               # its start (all of 64 primers once; not
+                               # the first moments of a window: margins
+                               # do not help; tools/profile_window_check
+                               # .py); a window that lost any record of
+                               # the call is taken again
 SOURCE = "src/repro_torch/kernels/csrc/lasso_cd.cu"
 SOURCES = {"lasso_partial": SOURCE, "gram_block": SOURCE,
            "flash_attention":
@@ -955,6 +1000,254 @@ def lasso_loadbal_phase(torch, lasso, lc, ExecutionPlan, cfg, X, y,
             "equals_scan_w4": True, "resumed_equals_whole": True}
 
 # ---------------------------------------------------------------------------
+# Telemetry and serving on the Lasso path
+# ---------------------------------------------------------------------------
+
+def load_plan(ExecutionPlan, name: str, **override):
+    """A checked-in plan of ``examples/plans``, with fields replaced."""
+    with open(os.path.join(ROOT, "examples", "plans", name)) as f:
+        plan = ExecutionPlan.from_json(json.load(f))
+    if override:
+        plan = ExecutionPlan.from_json(dict(plan.to_json(), **override))
+    return plan
+
+
+def lasso_counters_phase(torch, lasso, lc, ExecutionPlan, cfg, X, y,
+                         seed: int) -> dict:
+    """Device counters on the Lasso path at the chip shape.
+    ``examples/plans/ssp_s2.json`` with ``TelemetrySpec(kind="counters")``,
+    the launch counts set to 0 just before and read just after (still 12
+    and 12): β, r and the objective trace equal the uninstrumented run's
+    to the bit; the RunReport counts 12 rounds, proposed 12 × U′,
+    accepted + killed = proposed, sched_size = accepted, and its ``ssp``
+    section the histogram [4, 4, 4]; the trace CLI's check passes.  Then
+    ``lasso_pallas.json`` (16 scan rounds) with counters and without,
+    timed alternately (6 runs each): the medians are printed, with no
+    limit (the host clock spreads ~20–30 % within a run)."""
+    from repro_torch.launch.trace import check_report
+    from repro_torch.obs import TelemetrySpec
+    counters = TelemetrySpec(kind="counters").to_json()
+    plan = load_plan(ExecutionPlan, "ssp_s2.json")
+    R, s = plan.rounds, plan.staleness
+    inst = load_plan(ExecutionPlan, "ssp_s2.json", telemetry=counters)
+    _, plain, _ = run_plan(torch, lasso, cfg, plan, X, y, seed)
+    lc.reset_launch_counts()
+    _, rep, secs = run_plan(torch, lasso, cfg, inst, X, y, seed)
+    launches = dict(lc.LAUNCHES)
+    check(launches == {"lasso_partial": R, "gram_block": R},
+          f"lasso counters: launches {launches}, want {R} of each")
+    check(torch.equal(rep.state["beta"], plain.state["beta"])
+          and torch.equal(rep.state["r"], plain.state["r"])
+          and torch.equal(rep.trace, plain.trace),
+          "lasso counters: the instrumented ssp run differs from the "
+          "uninstrumented one")
+    report = rep.telemetry
+    c = report.counters
+    check(c["rounds"] == R and c["rounds_per_phase"] == [R]
+          and c["proposed"] == R * cfg.num_candidates
+          and c["accepted"] + c["killed"] == c["proposed"]
+          and c["sched_size"] == c["accepted"] and c["accepted"] > 0,
+          f"lasso counters: {c}")
+    hist = [int(v) for v in report.ssp.hist]
+    check(hist == [R // (s + 1)] * (s + 1) and check_report(report) is None,
+          f"lasso counters: ssp section {report.ssp.to_json()}")
+    scan = load_plan(ExecutionPlan, "lasso_pallas.json")
+    scan_inst = load_plan(ExecutionPlan, "lasso_pallas.json",
+                          telemetry=counters)
+    alt = alternately(torch, lasso, cfg, {"scan_counters": scan_inst,
+                                          "scan": scan}, X, y, seed)
+    return {"plan": inst.to_json(), "launches": launches, "counters": c,
+            "ssp": report.ssp.to_json(), "equals_uninstrumented": True,
+            "rounds_per_s": R / secs, "alternating_16_scan_rounds": alt}
+
+
+def span_totals(events: list) -> dict:
+    """Each span name's count and total host ms."""
+    out: dict = {}
+    for e in events:
+        if e.get("ph") == "X":
+            n, ms = out.get(e["name"], (0, 0.0))
+            out[e["name"]] = (n + 1, ms + e["dur"] / 1e3)
+    return {k: {"count": n, "host_ms": ms} for k, (n, ms) in out.items()}
+
+
+def lasso_trace_phase(torch, lasso, lc, ExecutionPlan, cfg, X, y,
+                      seed: int, loadbal: dict, scan_state) -> dict:
+    """``examples/plans/lasso_loadbal.json`` with ``TelemetrySpec(kind=
+    "trace", profiler=True)`` and a temporary ``ckpt_dir``, inside a
+    torch.profiler window: the state equals the ``lasso_pallas.json``
+    scan run's to the bit (as the uninstrumented phase did);
+    ``validate_spans`` passes; one ``rebalance`` instant at each boundary
+    where ``lasso_loadbal_phase`` saw the version move, with its version
+    and the load spreads that phase printed (the same run and arithmetic:
+    equal); a ``checkpoint`` span every C rounds and one executor span a
+    chunk; each span a ``record_function`` range in the profiler.  The
+    Chrome trace goes to ``build/lasso_loadbal.trace.json``; each span
+    name's total host ms is returned."""
+    import tempfile
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.obs import TelemetrySpec, validate_spans
+    spec = TelemetrySpec(kind="trace", profiler=True)
+    plan = load_plan(ExecutionPlan, "lasso_loadbal.json",
+                     telemetry=spec.to_json())
+    R, C = plan.rounds, plan.checkpoint_every
+    eng = lasso.make_engine(cfg, workers=plan.workers, device=DEVICE)
+    data = eng.shard_data({"X": X, "y": y})
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_trace_") as d:
+        lc.reset_launch_counts()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            rep = eng.execute(eng.init_state(y=y), data,
+                              torch.Generator(device=DEVICE).manual_seed(
+                                  seed), plan, ckpt_dir=d)
+            torch.cuda.synchronize()
+    launches = dict(lc.LAUNCHES)
+    check(launches == {"lasso_partial": R, "gram_block": R},
+          f"lasso trace: launches {launches}")
+    check(torch.equal(rep.state["beta"], scan_state["beta"])
+          and torch.equal(rep.state["r"], scan_state["r"]),
+          "lasso trace: the traced run differs from lasso_pallas.json's")
+    events = rep.telemetry.events
+    err = validate_spans(events)
+    check(err is None, f"lasso trace: {err}")
+    moves, version = [], 0
+    for b in loadbal["boundaries"]:
+        if b["version"] != version:
+            moves.append(b)
+            version = b["version"]
+    got = [dict(e["args"]) for e in events if e["name"] == "rebalance"]
+    check([(g["t"], g["version"], g["spread_before"], g["spread_after"])
+           for g in got]
+          == [(b["t"], b["version"], b["spread_before"], b["spread_after"])
+              for b in moves],
+          f"lasso trace: rebalance instants {got} are not the phase's "
+          f"moves {moves}")
+    spans = [e for e in events if e["ph"] == "X"]
+    ckpts = [e["args"]["t"] for e in spans if e["name"] == "checkpoint"]
+    names = [e["name"] for e in spans]
+    check(ckpts == list(range(C, R + 1, C))
+          and names.count("scan") == R // C and names.count("execute") == 1,
+          f"lasso trace: spans {names}, checkpoints at {ckpts}")
+    totals = span_totals(events)
+    ranges = {}
+    for e in prof.events():
+        if e.device_type == DeviceType.CPU and e.name in totals:
+            ranges[e.name] = ranges.get(e.name, 0) + 1
+    check(all(ranges.get(k) == v["count"] for k, v in totals.items()),
+          f"lasso trace: record_function ranges {ranges} for spans "
+          f"{ {k: v['count'] for k, v in totals.items()} }")
+    os.makedirs(os.path.join(ROOT, "build"), exist_ok=True)
+    path = rep.telemetry.write_chrome_trace(
+        os.path.join(ROOT, "build", "lasso_loadbal.trace.json"))
+    return {"plan": plan.to_json(), "launches": launches,
+            "rebalances": got, "checkpoint_spans_at": ckpts,
+            "span_totals": totals, "profiler_ranges": ranges,
+            "chrome_trace": os.path.relpath(path, ROOT),
+            "events": len(events), "equals_scan_w4": True}
+
+
+def serve_summary(srep, secs: float, rounds: int, unserved_secs: float,
+                  peak_gb: float) -> dict:
+    """What every serving run prints: latency percentiles, requests a
+    second of wall time, the staleness histogram, rounds/s served and
+    unserved, the peak memory."""
+    pct = srep.latency_percentiles()
+    return {"requests": len(srep.responses), "p50_ms": pct["p50_ms"],
+            "p99_ms": pct["p99_ms"],
+            "requests_per_s": len(srep.responses) / secs,
+            "staleness_hist": {str(k): v for k, v in
+                               sorted(srep.staleness_hist().items())},
+            "max_staleness_read": srep.max_staleness_read(),
+            "rounds_per_s_served": rounds / secs,
+            "rounds_per_s_unserved": rounds / unserved_secs,
+            "seconds": secs, "peak_memory_gb": peak_gb}
+
+
+def lasso_serve_phase(torch, lasso, lc, ExecutionPlan, cfg, X, y,
+                      seed: int) -> dict:
+    """``examples/plans/serve_ssp.json`` as checked in (ssp, 24 rounds,
+    s = 2, W = 4) through ``serve_while_training`` with LASSO_REQUESTS
+    ``predict`` requests (rows of X drawn from ``--seed``) due across
+    rounds 0–24, once with ``ServeSpec("stale", max_staleness=4)`` and
+    once with ``ServeSpec("snapshot")``, the launch counts set to 0 just
+    before each and read just after (24 and 24).  Checks: the trained
+    state equals an unserved ``execute`` of the plan to the bit; the
+    stale run reads at staleness 0 and 3 and none above 4 (publishes
+    every 3 rounds, the cache refreshed when 6 rounds old), the snapshot
+    run at 0; each ŷ within SERVE_TOL·Σ_j|x_j β_j| of xᵀβ in f64, with β
+    the unserved run's after round (clock − staleness) of its read
+    (collected every round; zero at clock 0)."""
+    from repro_torch.serve import ServeSpec, serve_while_training
+    plan = load_plan(ExecutionPlan, "serve_ssp.json")
+    R = plan.rounds
+    check(plan.executor == "ssp" and R == 24 and plan.staleness == 2
+          and plan.workers == 4, f"unexpected plan {plan}")
+    eng = lasso.make_engine(cfg, workers=plan.workers, device=DEVICE)
+    data = eng.shard_data({"X": X, "y": y})
+
+    def gen():
+        return torch.Generator(device=DEVICE).manual_seed(seed)
+
+    g = torch.Generator(device=DEVICE).manual_seed(seed + 5)
+    rows = torch.randint(0, X.shape[0], (LASSO_REQUESTS,), generator=g,
+                         device=DEVICE).tolist()
+    reqs = [((i * R) // LASSO_REQUESTS, {"x": X[r]})
+            for i, r in enumerate(rows)]
+    plain = eng.execute(eng.init_state(y=y), data, gen(), plan,
+                        collect=lambda st: st["beta"].clone())
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    eng.execute(eng.init_state(y=y), data, gen(), plan)
+    torch.cuda.synchronize()
+    unserved = time.perf_counter() - t0
+    out = {"plan": plan.to_json(), "requests": LASSO_REQUESTS}
+    for name, spec in (("stale", ServeSpec("stale", max_staleness=4)),
+                       ("snapshot", ServeSpec("snapshot"))):
+        lc.reset_launch_counts()
+        torch.cuda.reset_peak_memory_stats()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        srep = serve_while_training(eng, eng.init_state(y=y), data, gen(),
+                                    plan, spec=spec, requests=reqs)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated() / 1e9
+        launches = dict(lc.LAUNCHES)
+        check(launches == {"lasso_partial": R, "gram_block": R},
+              f"lasso serve {name}: launches {launches}")
+        st = srep.report.state
+        check(torch.equal(st["beta"], plain.state["beta"])
+              and torch.equal(st["r"], plain.state["r"]),
+              f"lasso serve {name}: training differs from the unserved run")
+        hist = srep.staleness_hist()
+        want = {0, 3} if name == "stale" else {0}
+        check(set(hist) == want and srep.max_staleness_read() <= 4
+              and len(srep.responses) == LASSO_REQUESTS,
+              f"lasso serve {name}: staleness histogram {hist}")
+        worst = 0.0
+        # max_batch 1: one read a response, in the requests' order
+        for (_, p), resp, read in zip(reqs, srep.responses, srep.reads):
+            c = read["clock"]
+            beta = (plain.trace[c - 1].double() if c
+                    else torch.zeros(X.shape[1], dtype=torch.float64,
+                                     device=DEVICE))
+            terms = p["x"].double() * beta
+            err = abs(float(resp.result["y_hat"]) - float(terms.sum()))
+            scale = float(terms.abs().sum())
+            check(err <= SERVE_TOL * scale,
+                  f"lasso serve {name}: ŷ off xᵀβ at clock {c} by {err} "
+                  f"> {SERVE_TOL}·{scale}")
+            worst = max(worst, err / scale if scale else err)
+        out[name] = {"spec": spec.to_json(), "launches": launches,
+                     "max_rel_err": worst,
+                     **serve_summary(srep, secs, R, unserved, peak)}
+    out["trained_equals_unserved"] = True
+    return out
+
+
+# ---------------------------------------------------------------------------
 # STRADS MF at the Netflix Prize shape, STRADS LDA at the NYTimes shape
 # ---------------------------------------------------------------------------
 
@@ -1004,6 +1297,7 @@ def mf_phase(torch, mf, ExecutionPlan, seed: int) -> dict:
     MF_MONO_TOL; rounds/s, a profiler window of 4 rounds and the peak
     memory; then ALS and STRADS side by side on the first MF_ALS_USERS
     users."""
+    from repro_torch.obs import TelemetrySpec
     N, M, K, P = MF_USERS, NETFLIX["movies"], MF_RANK, MF_WORKERS
     density = NETFLIX["ratings"] / (NETFLIX["users"] * NETFLIX["movies"])
     torch.cuda.reset_peak_memory_stats()
@@ -1025,7 +1319,8 @@ def mf_phase(torch, mf, ExecutionPlan, seed: int) -> dict:
     def gen():
         return torch.Generator(device=DEVICE).manual_seed(seed)
 
-    def run(workers, executor, rounds=R, collect=True, staleness=0):
+    def run(workers, executor, rounds=R, collect=True, staleness=0,
+            telemetry=False):
         eng = mf.make_engine(cfg, workers=workers, device=DEVICE)
         data = eng.shard_data({"A": A, "mask": mask})
         state = eng.init_state(A=A, mask=mask, generator=gen())
@@ -1036,7 +1331,9 @@ def mf_phase(torch, mf, ExecutionPlan, seed: int) -> dict:
         t0 = time.perf_counter()
         rep = eng.execute(state, data, None, ExecutionPlan(
             executor=executor, rounds=rounds, workers=workers,
-            staleness=staleness), collect=obj if collect else None)
+            staleness=staleness,
+            telemetry=TelemetrySpec(kind="counters") if telemetry
+            else False), collect=obj if collect else None)
         torch.cuda.synchronize()
         return (eng, data, rep, time.perf_counter() - t0, obj0,
                 torch.cuda.max_memory_allocated() / 1e9)
@@ -1070,6 +1367,9 @@ def mf_phase(torch, mf, ExecutionPlan, seed: int) -> dict:
                                  "in-flight schedule")
     del pipe
     ssp = mf_ssp_runs(torch, run, scan, R, peak, obj0)
+    obs = mf_counters_run(torch, run, scan, cfg)
+    serving = mf_serve_run(torch, mf, ExecutionPlan, cfg, A, mask, gen,
+                           scan.state, ssp["rounds_per_s"]["s1"], seed)
     ckpt = mf_checkpoint_run(torch, mf, ExecutionPlan, cfg, A, mask, gen,
                              scan.state)
     _, _, one, one_secs, _, _ = run(1, "scan")
@@ -1093,6 +1393,7 @@ def mf_phase(torch, mf, ExecutionPlan, seed: int) -> dict:
         seconds={"scan": secs, "loop": loop_secs, "scan_w1": one_secs,
                  "pipelined": pipe_secs},
         pipelined_equals_scan=True, checkpoint=ckpt, ssp=ssp,
+        counters=obs, serve=serving,
         objective_ms=time_ms(torch, lambda: obj_fn(scan.state), iters=10,
                              warmup=2),
         peak_memory_gb=peak)
@@ -1180,6 +1481,128 @@ def mf_ssp_runs(torch, run, scan, R: int, scan_peak_gb: float,
             "peak_memory_gb": {"s1": s1_peak, "s2": s2_peak,
                                "scan": scan_peak_gb,
                                "scan_same_rounds_as_s2": sc2_peak}}
+
+
+def in_turns(once) -> dict:
+    """``once(instrumented)`` timed in turns (plain, counters, counters,
+    plain): the card's clock drifts over a run (a warmer card), so only
+    runs taken together are compared.  Returns the seconds of each arm
+    and the ratio of their means (plain over counters: 1 = no cost)."""
+    secs = {False: [], True: []}
+    for inst in (False, True, True, False):
+        secs[inst].append(once(inst))
+    mean = {k: sum(v) / len(v) for k, v in secs.items()}
+    return {"seconds_plain": secs[False], "seconds_counters": secs[True],
+            "rate_ratio": mean[False] / mean[True]}
+
+
+def mf_counters_run(torch, run, scan, cfg) -> dict:
+    """One sweep on scan with ``TelemetrySpec(kind="counters")`` and
+    without, in turns (:func:`in_turns`): each instrumented run equal to
+    the first scan run to the bit (state and objective trace);
+    rounds_per_phase [K, K] (the H and W halves), the rank blocks' width
+    counted each round with proposed = accepted (no filter runs); the
+    mean rates within OBS_RATE_TOL (MF's round is device-bound, so a few
+    counter ops a round should cost nothing that shows)."""
+    R = 2 * cfg.rank
+    seen = {}
+
+    def once(inst):
+        _, _, rep, secs, _, _ = run(MF_WORKERS, "scan", telemetry=inst)
+        if inst:
+            for k in ("W", "H", "R"):
+                check(torch.equal(scan.state[k], rep.state[k]),
+                      f"mf counters: the instrumented run differs in {k}")
+            check(torch.equal(scan.trace, rep.trace),
+                  "mf counters: the objective traces differ")
+            seen["c"] = rep.telemetry.counters
+        return secs
+
+    turns = in_turns(once)
+    c = seen["c"]
+    width = R * cfg.ranks_per_round
+    check(c["rounds"] == R and c["rounds_per_phase"] == [R // 2, R // 2]
+          and c["sched_size"] == c["proposed"] == c["accepted"] == width
+          and c["killed"] == 0, f"mf counters: {c}")
+    check(abs(turns["rate_ratio"] - 1) <= OBS_RATE_TOL,
+          f"mf counters: rate ratio {turns['rate_ratio']} (in turns "
+          f"{turns}) outside {OBS_RATE_TOL}")
+    torch.cuda.empty_cache()
+    return {"counters": c, "equals_uninstrumented": True, **turns,
+            "rounds_per_s": R * 2 / sum(turns["seconds_counters"]),
+            "rounds_per_s_uninstrumented":
+            R * 2 / sum(turns["seconds_plain"])}
+
+
+def mf_serve_run(torch, mf, ExecutionPlan, cfg, A, mask, gen, scan_state,
+                 unserved_rps: float, seed: int) -> dict:
+    """MF_REQUESTS ``recommend`` requests (users drawn from ``--seed``)
+    due across an ``ssp`` sweep at s = 1, ``ServeSpec.default_for(
+    "stale", max_staleness=1)`` (batches of 8).  Checks: the trained
+    state equals the scan sweep's to the bit (ssp at s = 1 does); each
+    batch's top-k items against an f64 recount of W_u·H from the very
+    tensors the query read: the f64 scores of the served items equal the
+    f64 top-k's position by position within MF_TIE_TOL·max|score| (items
+    whose f64 scores are that close may swap in f32; how many rows
+    differ in order or set is reported).  The rounds/s beside the
+    unserved ssp sweep's (``mf_ssp_runs``, with the same collect)."""
+    from repro_torch.serve import ServeSpec, serve_while_training
+    P, R = MF_WORKERS, 2 * cfg.rank
+    eng = mf.make_engine(cfg, workers=P, device=DEVICE)
+    data = eng.shard_data({"A": A, "mask": mask})
+    g = torch.Generator(device=DEVICE).manual_seed(seed + 3)
+    users = torch.randint(0, cfg.num_rows, (MF_REQUESTS,), generator=g,
+                          device=DEVICE)
+    reqs = [((i * R) // MF_REQUESTS, {"user": users[i]})
+            for i in range(MF_REQUESTS)]
+    seen = []
+    query = eng.app.query
+
+    def recording(state, batch):
+        out = query(state, batch)
+        u = batch["user"].long()
+        seen.append((state["W"].reshape(-1, cfg.rank)[u].clone(),
+                     state["H"].clone(), out["items"].clone()))
+        return out
+
+    eng.app.query = recording
+    spec = ServeSpec.default_for("stale", max_staleness=1)
+    plan = ExecutionPlan(executor="ssp", rounds=R, workers=P, staleness=1)
+    torch.cuda.reset_peak_memory_stats()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    srep = serve_while_training(
+        eng, eng.init_state(A=A, mask=mask, generator=gen()), data, None,
+        plan, spec=spec, requests=reqs,
+        collect=eng.app.objective_collect())
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    for k in ("W", "H", "R"):
+        check(torch.equal(srep.report.state[k], scan_state[k]),
+              f"mf serve: training differs from the scan sweep in {k}")
+    srep.report = None
+    k = min(cfg.top_k, cfg.num_cols)
+    worst, rows_differ = 0.0, 0
+    for Wu, H, items in seen:
+        s64 = Wu.double() @ H.double()
+        top = torch.sort(s64, dim=-1, descending=True, stable=True)
+        dev = float(((s64.gather(1, items) - top.values[:, :k]).abs()
+                     .amax(1) / s64.abs().amax(1)).max())
+        worst = max(worst, dev)
+        rows_differ += int((items != top.indices[:, :k]).any(1).sum())
+    check(len(srep.responses) == MF_REQUESTS and worst <= MF_TIE_TOL,
+          f"mf serve: served top-{k} scores off the f64 recount by {worst} "
+          f"of the largest score > {MF_TIE_TOL}")
+    unserved = R / unserved_rps
+    out = {"spec": spec.to_json(), "plan": plan.to_json(), "top_k": k,
+           "batches": len(seen), "max_rel_score_gap": worst,
+           "rows_in_another_order": rows_differ,
+           "trained_equals_scan": True,
+           **serve_summary(srep, secs, R, unserved, peak)}
+    del seen, srep
+    torch.cuda.empty_cache()
+    return out
 
 
 def mf_checkpoint_run(torch, mf, ExecutionPlan, cfg, A, mask, gen,
@@ -1318,6 +1741,221 @@ def lda_ssp_runs(torch, lda, lg, ExecutionPlan, cfg, eng, data, words,
                s2_loglik_end=ll2, scan_loglik_end_same_rounds=ll_scan,
                s2_s_err_max=max(s_errs), s2_s_err_last=s_errs[-1])
     return out
+
+
+def fingerprint(torch, tree: dict) -> dict:
+    """Two f64 sums a leaf (plain and position-weighted): a change to any
+    count or topic shows."""
+    out = {}
+    for k, v in tree.items():
+        x = v.reshape(-1).double()
+        w = torch.arange(x.numel(), device=x.device,
+                         dtype=torch.float64).remainder_(9973).add_(1)
+        out[k] = (float(x.sum()), float((x * w).sum()))
+        del x, w
+    return out
+
+
+def lda_fold_in_f64(torch, cfg, pin: dict, words, iters: int):
+    """θ of a batch of documents from the pinned B and s, recomputed
+    plainly in float64: φ_lk ∝ (γ + B[v_l, k]) / (Vγ + s_k), θ
+    re-estimated ``iters`` times from uniform (the fold-in's
+    definition)."""
+    K = cfg.num_topics
+    Bf = pin["B"].reshape(-1, K).double()
+    active = (words >= 0)[..., None]
+    v = words.long().clamp(0, cfg.padded_vocab - 1)
+    phi = (cfg.gamma + Bf[v]) / (cfg.padded_vocab * cfg.gamma
+                                 + pin["s"].double())
+    phi = torch.where(active, phi, torch.ones_like(phi))
+    theta = torch.full((words.shape[0], K), 1.0 / K, dtype=torch.float64,
+                       device=words.device)
+    for _ in range(iters):
+        q = phi * theta[:, None, :]
+        q = q / q.sum(-1, keepdim=True)
+        q = torch.where(active, q, torch.zeros_like(q))
+        theta = cfg.alpha + q.sum(1)
+        theta = theta / theta.sum(-1, keepdim=True)
+    return theta
+
+
+def lda_obs_serve(torch, lda, lg, ExecutionPlan, cfg, eng, data, words,
+                  scan, start: dict, seed: int):
+    """Telemetry and serving on LDA's main path at the chip shape.  The
+    push writes z, B, D in place, so every run but the served one starts
+    from a working copy reset to ``start`` (a copy of the start state),
+    and the served run takes ``start`` itself; the launch counts are set
+    to 0 just before each run and read just after.
+
+    Counters: a rotation on scan with ``TelemetrySpec(kind="counters")``
+    and without, in turns (:func:`in_turns`; U launches each), each
+    instrumented run equal to the first scan run to the bit;
+    rounds_per_phase U ones, proposed = accepted (the rotation's schedule
+    is implicit: no width, nothing filtered); the mean rates within
+    OBS_RATE_TOL (the sweep is device-bound).
+
+    Serving: 2U rounds on scan through ``serve_while_training`` with
+    ``ServeSpec.default_for("snapshot")`` (a pin at every rotation: t =
+    0, U, 2U) and LDA_REQUESTS ``infer_topics`` requests of held-out
+    documents (LDA_DOC_LEN words drawn from the corpus's tokens by
+    ``--seed``; −1 padding drawn among them is inert), beside an unserved
+    run of the same plan.  Checks: 2U launches each; the served run's
+    state equals the unserved one's to the bit; every pin's fingerprint
+    after the run equals the one at its publish, though the next
+    rotations wrote the live tensors in place (the live B's differs from
+    the first pin's); each θ within LDA_THETA_TOL of a float64
+    recomputation from the pin its batch read."""
+    from repro_torch.obs import TelemetrySpec
+    from repro_torch.serve import ServeSpec, serve_while_training
+    from repro_torch.serve import view as view_mod
+    U = cfg.num_workers
+    work = {k: v.clone() for k, v in start.items()}
+    counted = {}
+
+    def timed(plan, **kw):
+        for k in work:
+            work[k].copy_(start[k])
+        lg.reset_launch_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        rep = eng.execute(work, data, None, plan, **kw)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        check(lg.LAUNCHES["lda_gibbs"] == plan.rounds,
+              f"lda: {lg.LAUNCHES['lda_gibbs']} launches in {plan.rounds} "
+              f"rounds")
+        return rep, secs
+
+    def once(inst):
+        rep, secs = timed(ExecutionPlan(
+            executor="scan", rounds=U,
+            telemetry=TelemetrySpec(kind="counters") if inst else False),
+            collect=lambda s: s["s_err"])
+        if inst:
+            for k in ("z", "D", "B", "s", "s_err"):
+                check(torch.equal(scan.state[k], rep.state[k]),
+                      f"lda counters: the instrumented run differs in {k}")
+            check(torch.equal(scan.trace, rep.trace),
+                  "lda counters: the s-error traces differ")
+            counted["c"] = rep.telemetry.counters
+        return secs
+
+    turns = in_turns(once)
+    c = counted["c"]
+    check(c["rounds_per_phase"] == [1] * U and c["rounds"] == U
+          and c["proposed"] == c["accepted"] and c["killed"] == 0,
+          f"lda counters: {c}")
+    check(abs(turns["rate_ratio"] - 1) <= OBS_RATE_TOL,
+          f"lda counters: rate ratio {turns['rate_ratio']} (in turns "
+          f"{turns}) outside {OBS_RATE_TOL}")
+    obs = {"counters": c, "equals_uninstrumented": True, **turns,
+           "rounds_per_s": U * 2 / sum(turns["seconds_counters"]),
+           "rounds_per_s_uninstrumented":
+           U * 2 / sum(turns["seconds_plain"])}
+
+    R = 2 * U
+    plan = ExecutionPlan(executor="scan", rounds=R)
+    pin_gb = sum(v.numel() * v.element_size() for v in start.values()) / 1e9
+    held_now = torch.cuda.memory_allocated() / 1e9
+    print(f"lda serving: a pin is {pin_gb:.2f} GB; {held_now:.2f} GB held; "
+          f"the run keeps its 3 pins alive for the checks: reckoned peak "
+          f"~{held_now + 3 * pin_gb + 2 * pin_gb:.1f} GB (with a rotation's "
+          f"transients and the fingerprints' f64 copies)")
+    ref, unserved = timed(plan)
+    g = torch.Generator(device=DEVICE).manual_seed(seed + 13)
+    pos = torch.randint(0, words.numel(), (LDA_REQUESTS, LDA_DOC_LEN),
+                        generator=g, device=DEVICE)
+    held = words.reshape(-1)[pos]
+    reqs = [((i * R) // LDA_REQUESTS, {"words": held[i]})
+            for i in range(LDA_REQUESTS)]
+    seen, pins = [], []
+    query = eng.app.query
+
+    def recording(state, batch):
+        out = query(state, batch)
+        seen.append((state, batch["words"].clone(), out["theta"].clone()))
+        return out
+
+    publish = view_mod.ModelView.publish
+
+    def pinning(self, state, t):
+        publish(self, state, t)
+        pins.append((int(t), self._pinned, fingerprint(torch,
+                                                       self._pinned)))
+
+    eng.app.query = recording
+    live = start
+    torch.cuda.reset_peak_memory_stats()
+    lg.reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with patched(view_mod.ModelView, publish=pinning):
+        srep = serve_while_training(eng, live, data, None, plan,
+                                    spec=ServeSpec.default_for("snapshot"),
+                                    requests=reqs)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    del eng.app.query
+    launches = lg.LAUNCHES["lda_gibbs"]
+    check(launches == R, f"lda serve: {launches} launches in {R} rounds")
+    for k in ("z", "D", "B", "s", "s_err"):
+        check(torch.equal(srep.report.state[k], ref.state[k]),
+              f"lda serve: training differs from the unserved run in {k}")
+    check([t for t, _, _ in pins] == [0, U, R],
+          f"lda serve: pins at {[t for t, _, _ in pins]}")
+    for t, pin, fp in pins:
+        check(fingerprint(torch, pin) == fp,
+              f"lda serve: the pin of t = {t} changed after its publish")
+    check(fingerprint(torch, {"B": live["B"]})["B"] != pins[0][2]["B"],
+          "lda serve: the live B was not written after the first pin")
+    worst = 0.0
+    for pin, w, theta in seen:
+        want = lda_fold_in_f64(torch, cfg, pin, w, eng.app.query_iters)
+        worst = max(worst, float((theta.double() - want).abs().max()))
+    check(len(srep.responses) == LDA_REQUESTS and worst <= LDA_THETA_TOL,
+          f"lda serve: θ off the f64 fold-in by {worst} > {LDA_THETA_TOL}")
+    serve = {"spec": srep.spec.to_json(), "plan": plan.to_json(),
+             "launches": launches, "pins_at": [t for t, _, _ in pins],
+             "pin_gb": pin_gb, "pins_survive": True,
+             "theta_max_abs_err": worst, "batches": len(seen),
+             "trained_equals_unserved": True,
+             **serve_summary(srep, secs, R, unserved, peak)}
+    del seen, pins, srep, ref, live, held, work
+    torch.cuda.empty_cache()
+    return obs, serve
+
+
+def serve_cli_run() -> dict:
+    """``python -m repro_torch.launch.serve --engine lda --requests 32
+    --trace build/serve.trace.json`` once, as a subprocess on the card at
+    its default size (with ``--out``): it must exit 0, serve 32 requests
+    within its staleness bound and write a trace that holds its training
+    chunks and serving batches."""
+    out = os.path.join("build", "serve_cli.json")
+    trace = os.path.join("build", "serve.trace.json")
+    os.makedirs(os.path.join(ROOT, "build"), exist_ok=True)
+    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
+    cmd = [sys.executable, "-m", "repro_torch.launch.serve", "--engine",
+           "lda", "--requests", "32", "--trace", trace, "--out", out]
+    t0 = time.perf_counter()
+    p = subprocess.run(cmd, cwd=ROOT, env=env, capture_output=True,
+                       text=True, timeout=600)
+    secs = time.perf_counter() - t0
+    check(p.returncode == 0, f"serve CLI exited {p.returncode}: "
+                             f"{p.stderr[-2000:]}")
+    with open(os.path.join(ROOT, out)) as f:
+        art = json.load(f)
+    with open(os.path.join(ROOT, trace)) as f:
+        names = {e["name"] for e in json.load(f)["traceEvents"]}
+    check(art["requests"] == 32 and art["device"].startswith("cuda")
+          and art["max_staleness_read"] <= art["serve_spec"]["max_staleness"]
+          and {"train_chunk", "serve_batch", "serve_read"} <= names,
+          f"serve CLI: artifact {art}, trace names {names}")
+    return {"command": " ".join(cmd[1:]), "seconds": secs,
+            "stdout": p.stdout.strip().splitlines(),
+            "latency": art["latency"],
+            "staleness_hist": art["staleness_hist"]}
 
 
 def lda_counts(torch, words, docs, z, n_slabs: int, rows: int, dpw: int,
@@ -1671,6 +2309,7 @@ def lda_phase(torch, lda, lg, ref, ExecutionPlan, KernelSpec, seed: int):
     loop_init = {k: v.clone() for k, v in init.items()}
     pipe_init = {k: v.clone() for k, v in init.items()}
     ssp_inits = [{k: v.clone() for k, v in init.items()} for _ in range(3)]
+    obs_start = {k: v.clone() for k, v in init.items()}
     kw = dict(phase=0, rotate=True, block_vocab=Vb, vg=Vp * cfg.gamma,
               alpha=cfg.alpha, gamma=cfg.gamma, seed=LDA_SEED)
 
@@ -1754,6 +2393,10 @@ def lda_phase(torch, lda, lg, ref, ExecutionPlan, KernelSpec, seed: int):
     res["ssp"] = lda_ssp_runs(torch, lda, lg, ExecutionPlan, cfg, eng, data,
                               words, docs, a, ssp_inits, ll0)
     del ssp_inits
+    res["counters"], res["serve"] = lda_obs_serve(
+        torch, lda, lg, ExecutionPlan, cfg, eng, data, words, a, obs_start,
+        seed)
+    del obs_start
     for k in ("z", "D", "B", "s", "s_err"):
         check(torch.equal(a.state[k], b.state[k]),
               f"lda: loop and scan differ in {k} on the card")
@@ -1785,6 +2428,7 @@ def lda_phase(torch, lda, lg, ref, ExecutionPlan, KernelSpec, seed: int):
         peak_memory_gb=peak)
     entry["launches_ssp"] = {k: res["ssp"]["launches"][k]
                              for k in ("ssp_s0", "ssp_s2")}
+    entry["launches_serve"] = res["serve"]["launches"]
     del b, runs, loop_init, rec, flat
 
     # the kernel timed at round 0's shape on the main path's state
@@ -2168,56 +2812,108 @@ def serve_kernel_phase(torch, ops, ref, first, seed: int):
     return out
 
 
+def window_records(prof, mark: str) -> dict:
+    """What a profiler session kept of the call inside the ``mark``
+    range, matched by correlation id (issue order): the call's kernel
+    launches, those whose kernel record was lost, its device events
+    (kernels, copies, fills) as (name, µs), and the guard kernels kept
+    before and after it.  The CUDA API calls are the host events named
+    ``cu*``; ``mark`` also names a device range, which is no event."""
+    from torch.autograd import DeviceType
+    evs = prof.profiler.kineto_results.events()
+    rng = [e for e in evs
+           if e.name() == mark and e.device_type() == DeviceType.CPU]
+    if not rng:
+        return {"launches": 0, "lost": 0, "events": [], "lead": 0,
+                "tail": 0}
+    lo = rng[0].start_ns()
+    hi = lo + rng[0].duration_ns()
+    api = [e for e in evs
+           if e.device_type() == DeviceType.CPU and e.name().startswith("cu")
+           and lo <= e.start_ns() <= hi]
+    corr = {e.correlation_id() for e in api}
+    dev = [e for e in evs
+           if e.device_type() == DeviceType.CUDA and e.name() != mark]
+    kept = {e.correlation_id() for e in dev}
+    launches = [e.correlation_id() for e in api
+                if "LaunchKernel" in e.name()]
+    spin = [e.correlation_id() for e in dev if "spin_kernel" in e.name()]
+    return {"launches": len(launches),
+            "lost": sum(c not in kept for c in launches),
+            "events": [(e.name(), e.duration_ns() / 1e3) for e in dev
+                       if e.correlation_id() in corr],
+            "lead": sum(c < min(corr) for c in spin) if corr else 0,
+            "tail": sum(c > max(corr) for c in spin) if corr else 0}
+
+
 def profile_window(torch, fn, kernels=None) -> dict:
     """Device busy share over one call of ``fn``, from torch.profiler: the
-    device's own events over the wall time of the call.  The window
-    first launches PROFILE_PRIMERS empty kernels and waits for them: a
-    session loses the first device records it would keep, and the
-    primers take that loss (at least one must be kept, so none of the
-    call's records was lost).  ``kernels`` maps a launch counter ``key``
-    of a ``LAUNCHES`` dict to (that dict, the kernels' names): the window
-    must hold one event named with one of those names for each launch
-    the counter adds over the call."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
+    device's own events over the wall time of the call.  A session loses
+    some device records near its start, more the older the process
+    (``tools/profile_window_check.py``), so the window first launches a
+    lead guard of empty kernels (PROFILE_SPACED, each waited for and
+    PROFILE_GAP_S apart, then PROFILE_PRIMERS back to back) and, after
+    the call, PROFILE_TAIL more.  The window holds the whole call when
+    every kernel launch inside the call's ``record_function`` range has
+    its kernel record, it kept a kernel of each guard, and (``kernels``)
+    it holds one event for each launch a port kernel's counter adds; a
+    window that fails any of these is taken again, up to
+    PROFILE_ATTEMPTS windows in all, and the run fails after the last.
+    ``kernels`` maps a launch counter ``key`` of a ``LAUNCHES`` dict to
+    (that dict, the kernels' names)."""
+    from torch.profiler import ProfilerActivity, profile, record_function
     kernels = kernels or {}
-    before = {k: c[k] for k, (c, _) in kernels.items()}
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(PROFILE_PRIMERS):
-            torch.cuda._sleep(0)
+    mark = "chip_smoke.profile_window.call"
+    lead_n = PROFILE_SPACED + PROFILE_PRIMERS
+    taken = []
+    for attempt in range(1, PROFILE_ATTEMPTS + 1):
+        before = {k: c[k] for k, (c, _) in kernels.items()}
         torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        fn()
-        torch.cuda.synchronize()
-        wall_us = (time.perf_counter() - t0) * 1e6
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(PROFILE_SPACED):
+                torch.cuda._sleep(0)
+                torch.cuda.synchronize()
+                time.sleep(PROFILE_GAP_S)
+            for _ in range(PROFILE_PRIMERS):
+                torch.cuda._sleep(0)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            with record_function(mark):
+                fn()
+                torch.cuda.synchronize()
+            wall_us = (time.perf_counter() - t0) * 1e6
+            for _ in range(PROFILE_TAIL):
+                torch.cuda._sleep(0)
+            torch.cuda.synchronize()
+        rec = window_records(prof, mark)
+        launched = {k: c[k] - before[k] for k, (c, _) in kernels.items()}
+        recorded = {k: sum(any(n in name for n in names)
+                           for name, _ in rec["events"])
+                    for k, (_, names) in kernels.items()}
+        taken.append({"call_launches": rec["launches"],
+                      "call_kernels_lost": rec["lost"],
+                      "lead_lost": lead_n - rec["lead"],
+                      "tail_lost": PROFILE_TAIL - rec["tail"],
+                      "port_kernels": recorded})
+        whole = (rec["launches"] > 0 and rec["lost"] == 0 and rec["lead"]
+                 and rec["tail"] and recorded == launched)
+        if whole:
+            break
+    check(whole, f"profiler window: the call's records incomplete in each "
+                 f"of {PROFILE_ATTEMPTS} windows {taken} (port kernels "
+                 f"launched {launched})")
     per_name: dict = {}
-    primers = 0
-    for e in prof.events():
-        if e.device_type != DeviceType.CUDA:
-            continue
-        if "spin_kernel" in e.name:
-            primers += 1
-            continue
-        d, c = per_name.get(e.name, (0.0, 0))
-        per_name[e.name] = (d + e.time_range.elapsed_us(), c + 1)
-    check(primers > 0, f"profiler window: all {PROFILE_PRIMERS} primer "
-                       f"kernels lost; the call's first records may be too")
-    recorded = {}
-    for k, (c, names) in kernels.items():
-        recorded[k] = sum(m for name, (_, m) in per_name.items()
-                          if any(n in name for n in names))
-        check(recorded[k] == c[k] - before[k],
-              f"profiler window: {recorded[k]} {k} events for "
-              f"{c[k] - before[k]} launches")
+    for n, us in rec["events"]:
+        d, c = per_name.get(n, (0.0, 0))
+        per_name[n] = (d + us, c + 1)
     busy_us = sum(d for d, _ in per_name.values())
     rows = sorted(((d, k, c) for k, (d, c) in per_name.items()),
                   reverse=True)
     return {"wall_ms": wall_us / 1e3, "device_busy_ms": busy_us / 1e3,
             "device_idle_share": (1 - busy_us / wall_us) if busy_us else None,
-            "kernel_events": recorded,
-            "primers_lost": PROFILE_PRIMERS - primers,
+            "kernel_events": recorded, "attempts": attempt,
+            "windows": taken,
             "top": [{"name": k[:120], "device_ms": d / 1e3, "count": c}
                     for d, k, c in rows[:15]]}
 
@@ -2733,6 +3429,12 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     result: dict = {}
+    t_start, phase_s = time.perf_counter(), {}
+
+    def phase(name: str) -> None:
+        """Record the command's seconds at the end of a phase."""
+        phase_s[name] = time.perf_counter() - t_start
+        print(f"[{phase_s[name]:7.1f} s] {name} done")
 
     # 1. the card
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
@@ -2754,6 +3456,7 @@ def main() -> int:
     print(f"build: {', '.join(n + '.cu' for n in BUILD)} in {build_s:.2f} s "
           f"(in parallel; nvcc {' '.join(_build.NVCC_FLAGS)})")
     result["build"] = {"seconds": build_s}
+    phase("build")
     for name in BUILD:
         ptxas = [ln.strip() for ln in _build.build_log[name]["ptxas"]
                  .splitlines() if "ptxas info" in ln or "spill" in ln]
@@ -2876,10 +3579,21 @@ def main() -> int:
     lssp = lasso_ssp_phase(torch, lasso, lc, ExecutionPlan, KernelSpec, cfg,
                            X, y, args.seed)
     print("lasso ssp: " + json.dumps(lssp))
+    phase("lasso main path, pipelined, load_balanced, ssp")
+    lobs = lasso_counters_phase(torch, lasso, lc, ExecutionPlan, cfg, X, y,
+                                args.seed)
+    print("lasso counters: " + json.dumps(lobs))
+    lserve = lasso_serve_phase(torch, lasso, lc, ExecutionPlan, cfg, X, y,
+                               args.seed)
+    print("lasso serve: " + json.dumps(lserve))
+    phase("lasso counters and serving")
     for k in ("lasso_partial", "gram_block"):
         kern[k]["launches_pipelined"] = pipelined["launches"][k]
         kern[k]["launches_loadbal"] = loadbal["launches"][k]
         kern[k]["launches_ssp"] = lssp["launches"][k]
+        kern[k]["launches_counters"] = lobs["launches"][k]
+        kern[k]["launches_serve"] = {n: lserve[n]["launches"][k]
+                                     for n in ("stale", "snapshot")}
 
     eng = lasso.make_engine(cfg, workers=W, device=DEVICE)
     data = eng.shard_data({"X": X, "y": y})
@@ -2889,6 +3603,9 @@ def main() -> int:
     prof = profile_rounds(torch, lasso, lc, cfg, plan, X, y, args.seed)
     print("profile (4 rounds): " + json.dumps(
         {k: v for k, v in prof.items() if k != "top"}))
+    # the traced run (a profiler session) comes last, on data made again
+    scan_state = {k: runs["scan_w4"][0].state[k].clone()
+                  for k in ("beta", "r")}
     del X, y, data, runs, eng
 
     # the repo's own convergence check (tests/test_lasso.py) on the card
@@ -2916,6 +3633,7 @@ def main() -> int:
 
     del st, Xs, ys
     torch.cuda.empty_cache()
+    phase("lasso breakdown, profile, small run")
 
     # 4. STRADS MF at the Netflix Prize shape (no kernel of its own)
     mfres = mf_phase(torch, mf, ExecutionPlan, args.seed)
@@ -2926,6 +3644,7 @@ def main() -> int:
     for row in mfres["profile"]["top"][:6]:
         print(f"    {row['device_ms']:9.3f} ms  x{row['count']:<5d} "
               f"{row['name'][:90]}")
+    phase("mf")
 
     # 5. STRADS LDA at the NYTimes shape: lda_gibbs
     kern["lda_gibbs"], ldares = lda_phase(
@@ -2942,6 +3661,20 @@ def main() -> int:
         print(f"    {row['device_ms']:9.3f} ms  x{row['count']:<5d} "
               f"{row['name'][:90]}")
     print("lda_gibbs: " + json.dumps(kern["lda_gibbs"]))
+    phase("lda")
+    for name, run in (("lasso", lserve["stale"]),
+                      ("lasso snapshot", lserve["snapshot"]),
+                      ("mf", mfres["serve"]), ("lda", ldares["serve"])):
+        print(f"serving {name}: " + json.dumps(
+            {k: run[k] for k in ("requests", "p50_ms", "p99_ms",
+                                   "requests_per_s", "staleness_hist",
+                                   "rounds_per_s_served",
+                                   "rounds_per_s_unserved",
+                                   "peak_memory_gb")}))
+    torch.cuda.empty_cache()
+    cli = serve_cli_run()
+    print("serve CLI: " + json.dumps(cli))
+    phase("serve CLI")
 
     # 6. model-zoo serving: Phi-3.5-MoE at full width, bf16
     skern, serve = serve_phase(torch, ops, ref, M, serve_lm, args.layers,
@@ -2955,6 +3688,8 @@ def main() -> int:
         for row in serve[w]["top"][:6]:
             print(f"    {row['device_ms']:9.3f} ms  x{row['count']:<5d} "
                   f"{row['name'][:90]}")
+
+    phase("phi3.5-moe serving")
 
     # 7. the same model in f32, 2 layers: kernels vs plain, token for token
     parity = parity_phase(torch, ops, ref, M, get_config, tdata, args.seed)
@@ -2991,9 +3726,28 @@ def main() -> int:
                                   "device_bound_share", "max_rel_err")}
          for name, e in skern["flash_attention"]["by_shape"].items()}))
 
+    phase("f32 parity, zamba2 serving")
+
     # 9. Zamba2 in f32, 12 layers: kernels vs plain, token for token
     zparity = zamba_parity_phase(torch, ops, ref, M, get_config, tdata,
                                  args.seed)
+    phase("zamba2 f32 parity")
+
+    # 10. lasso_loadbal.json traced, inside a profiler session: last, since
+    # a session slows the host's later launches (decode is host-bound)
+    torch.cuda.empty_cache()
+    X, y, _ = lasso.synthetic_correlated_device(args.seed, n, J, k_true=16,
+                                                device=DEVICE)
+    ltrace = lasso_trace_phase(torch, lasso, lc, ExecutionPlan, cfg, X, y,
+                               args.seed, loadbal, scan_state)
+    del X, y
+    print("lasso trace (lasso_loadbal.json): " + json.dumps(ltrace))
+    for name, v in ltrace["span_totals"].items():
+        print(f"    span {name:<12s} x{v['count']:<3d} "
+              f"{v['host_ms']:10.3f} ms on the host")
+    for k in ("lasso_partial", "gram_block"):
+        kern[k]["launches_trace"] = ltrace["launches"][k]
+    phase("lasso trace")
 
     for name, entry in skern.items():
         kern[name] = {"name": name, "route": "cuda",
@@ -3015,7 +3769,8 @@ def main() -> int:
                                       / tg["decode_shape_device_ms"])
     result.update(kernels=list(kern.values()), main=main, profile=prof,
                   lasso_pipelined=pipelined, lasso_loadbal=loadbal,
-                  lasso_ssp=lssp,
+                  lasso_ssp=lssp, lasso_counters=lobs, lasso_serve=lserve,
+                  lasso_trace=ltrace, serve_cli=cli, phase_seconds=phase_s,
                   launch_floor_ms=launch_floor_ms,
                   small={"objective": got, "reference_cd": want},
                   mf=mfres, lda=ldares,

@@ -177,6 +177,15 @@ class StradsLasso(StradsAppBase):
         r = state["r"] - Xb @ (d * mask)
         return {"beta": beta, "r": r}
 
+    # -- serving (query primitive) -------------------------------------------
+
+    def query(self, state, batch):
+        """``predict``: ŷ = xᵀβ per request row (``{"x": (B, J)}`` →
+        ``{"y_hat": (B,)}``).  Only β is read — the server-resident leaf,
+        so under ``ServeSpec(kind="stale")`` a prediction is exactly as
+        stale as an SSP worker's own read of β."""
+        return {"y_hat": batch["x"] @ state["beta"]}
+
     # -- objective -----------------------------------------------------------
 
     def objective_collect(self) -> Callable:

@@ -198,8 +198,7 @@ class StradsLDA(_GibbsApp):
         mean-field fold-in: φ_lk ∝ (γ + B[v_l, k]) / (Vγ + s[k]) with the
         topics held fixed, θ re-estimated ``query_iters`` times."""
         cfg = self.cfg
-        words = torch.as_tensor(np.asarray(batch["words"]),
-                                device=self.device).long()
+        words = torch.as_tensor(batch["words"], device=self.device).long()
         Bf = state["B"].reshape(-1, cfg.num_topics)
         v = words.clamp(0, cfg.padded_vocab - 1)
         active = (words >= 0)[..., None]                    # (B, L, 1)

@@ -110,7 +110,9 @@ def checkpoint_from_jax(flat: dict, engine):
       ``carry/.clocks`` (an SSP run), an
       :class:`~repro_torch.ps.SSPCarry` with the round index, the vector
       clocks (lockstep: the JAX run's clock for each of the engine's
-      workers) and the scheduler carry;
+      workers) and the scheduler carry; either carry with the device
+      telemetry counters (``obs``, int32 on the engine's device) when
+      the JAX run was instrumented (``carry/.obs/...``);
     - ``partition``: the ``"assignment"`` payload, or ``None``.
 
     The JAX PRNG key (``carry/.rng``) cannot cross: the carry has no
@@ -132,16 +134,20 @@ def checkpoint_from_jax(flat: dict, engine):
     sc = flat.get("carry/.sched_carry")
     sc = (None if sc is None else torch.as_tensor(
         np.asarray(sc, np.float32), device=dev))
+    obs = {k: torch.as_tensor(np.asarray(v, np.int32), device=dev)
+           for k, v in sub("carry/.obs/").items()} or None
     if "carry/.clocks" in flat:
         # the workers' clocks advance in lockstep: the JAX run's value,
         # over this engine's workers
         clock = int(np.min(flat["carry/.clocks"]))
         carry = SSPCarry(t=int(flat["carry/.t"]), sched_carry=sc,
                          clocks=torch.full((engine.workers,), clock,
-                                           dtype=torch.int32, device=dev))
+                                           dtype=torch.int32, device=dev),
+                         obs=obs)
     else:
         carry = EngineCarry(t=int(flat["carry/.t"]), sched_carry=sc,
-                            sched=sched or None, depth=1 if sched else 0)
+                            sched=sched or None, depth=1 if sched else 0,
+                            obs=obs)
     return state, carry, sub("assignment/") or None
 
 

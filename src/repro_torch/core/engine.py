@@ -30,10 +30,20 @@ executor of :mod:`repro_torch.ps` (``run_ssp``): reads of the state's
 whole (server-resident) leaves are served from a cache up to
 ``plan.staleness`` rounds stale and the pushes are summed over the
 workers once a window of s + 1 rounds; its steps of lcm(s + 1,
-``phase_period``) rounds align its runs, chunks and resumes.  Plan
-fields the port does not run yet raise ``NotImplementedError`` naming
-the ROADMAP.md step that ports them; nothing silently runs something
-else.
+``phase_period``) rounds align its runs, chunks and resumes.  What the
+port does not run yet (streaming ingest) raises ``NotImplementedError``
+naming the ROADMAP.md step that ports it; nothing silently runs
+something else.
+
+Telemetry is injected like the policies (``plan.telemetry``, a
+:class:`~repro_torch.obs.TelemetrySpec`): device counters
+(:mod:`repro_torch.obs.counters`) ride the carry as ``obs`` and are
+folded once a round from the round's schedule on every executor, and
+``kind="trace"`` opens a host :class:`~repro_torch.obs.Recorder` for the
+span of an ``execute`` (the executor's span a chunk, ``checkpoint``
+spans, ``rebalance`` instants).  The report's ``telemetry`` is then a
+:class:`~repro_torch.obs.RunReport`.  The port compiles nothing, so
+there is no program cache and no ``cache_miss`` event.
 
 Partition policy is injected like the scheduler (the partitioning
 contract of :mod:`repro_torch.core.primitives`): the resolved
@@ -57,6 +67,7 @@ keys its draws itself (``own_noise``: MF draws once per H/W cycle) gets
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import warnings
 from typing import Any, Callable, Optional
@@ -66,6 +77,8 @@ import torch
 
 from ..checkpoint import save_checkpoint
 from ..kernels import KernelSpec, build_kernels
+from ..obs import RunReport, counters as obs_counters
+from ..obs.events import Recorder
 from ..part import Assignment, PartitionerSpec, build_partitioner
 from ..sched import SchedulerSpec, build_scheduler
 from .kvstore import DATA_AXIS, KVStore, place, store_from_tree
@@ -74,6 +87,7 @@ from .primitives import RoundResult, StradsAppBase, tree_psum
 
 _UNSET = object()
 _TINY = float(np.finfo(np.float32).tiny)
+_NULL_CTX = contextlib.nullcontext()   # reusable no-op span
 
 
 def resolve_device(device) -> torch.device:
@@ -94,12 +108,17 @@ class EngineCarry:
     noise came from a caller's source), and for a pipelined run
     (``depth`` 1) the prefetched schedule of round ``t`` (``sched``;
     ``None`` for apps whose schedule is implicit, as LDA's rotation).
-    It round-trips through :mod:`repro_torch.checkpoint`."""
+    Under a plan-level telemetry spec ``obs`` holds the device counters
+    (:mod:`repro_torch.obs.counters`; ``None`` uninstrumented), carried
+    through chunks and resumes.  It round-trips through
+    :mod:`repro_torch.checkpoint` (``carry/.obs/rounds``, … as the JAX
+    package writes them)."""
     t: int
     sched_carry: Any = None
     rng_state: Optional[torch.Tensor] = None
     sched: Any = None
     depth: int = 0
+    obs: Any = None
 
 
 class StradsEngine:
@@ -144,10 +163,31 @@ class StradsEngine:
         self._part_stats = None
         #: the model store, built by ``place_state`` / ``init_state``
         self.kvstore: Optional[KVStore] = None
+        self._recorder: Optional[Recorder] = None   # live during execute
         app.device = self.device
         self.set_kernels(None)
         self.set_scheduler(None)
         self.set_partitioner(None)
+
+    # -- observability hooks (the telemetry-injection contract) --------------
+
+    def _obs_event(self, name: str, **args):
+        """Record a host event when a Recorder is live (``kind="trace"``
+        during ``execute``); a no-op otherwise."""
+        if self._recorder is not None:
+            self._recorder.instant(name, **args)
+
+    def _obs_span(self, name: str, **args):
+        """A wall-clock phase span under a live Recorder, else a null
+        context."""
+        if self._recorder is not None:
+            return self._recorder.span(name, **args)
+        return _NULL_CTX
+
+    def _obs_num_candidates(self) -> int:
+        """The active scheduler's static proposal-pool size U′ (0 for
+        policies without one): the ρ-filter ledger's 'proposed' term."""
+        return int(getattr(self.scheduler, "num_candidates", 0) or 0)
 
     # -- injection (plan > constructor > app > reference) --------------------
 
@@ -362,6 +402,18 @@ class StradsEngine:
             new = part.propose_assignment(self._part_stats,
                                           self._assignment)
             if new.owner != self._assignment.owner:
+                # the rebalance event carries the measured before/after
+                # load spreads (the imbalance the move was for)
+                weights = (self._part_stats.get("ema")
+                           if isinstance(self._part_stats, dict) else None)
+                if weights is not None:
+                    self._obs_event(
+                        "rebalance", t=t,
+                        spread_before=self._assignment.spread(weights),
+                        spread_after=new.spread(weights),
+                        version=new.version)
+                else:
+                    self._obs_event("rebalance", t=t, version=new.version)
                 state = self.apply_assignment(new, state)
         return state, sig_after
 
@@ -567,7 +619,19 @@ class StradsEngine:
         ``ckpt_dir/step_%08d.npz`` (the ``"assignment"`` subtree when a
         partitioner is active).  Restore it with
         :func:`repro_torch.checkpoint.restore_checkpoint` and pass its
-        ``carry`` and ``assignment`` back to resume bit-exactly."""
+        ``carry`` and ``assignment`` back to resume bit-exactly.
+
+        ``plan.telemetry`` (a :class:`~repro_torch.obs.TelemetrySpec`)
+        instruments the run without changing a bit of it: the carry's
+        ``obs`` holds the device counters (continued from ``carry.obs``
+        on a resume), ``kind="trace"`` records host spans and instants,
+        and the report's ``telemetry`` is a
+        :class:`~repro_torch.obs.RunReport` (for ``ssp`` plans with the
+        chunks' staleness summaries merged into its ``ssp``).  Without a
+        spec it is ``None``.
+
+        ``stream=``/``source=``/``stream_state=`` (streaming ingest) are
+        not ported yet and raise ``NotImplementedError``."""
         if not isinstance(plan, ExecutionPlan):
             raise TypeError(f"execute() wants an ExecutionPlan; got "
                             f"{type(plan).__name__}")
@@ -578,8 +642,11 @@ class StradsEngine:
         if callback is not None and plan.executor != "loop":
             raise ValueError("callback is a host-loop hook; it requires "
                              f"executor='loop' (got {plan.executor!r})")
-        _reject_unported(plan, stream=stream, source=source,
-                         stream_state=stream_state)
+        if stream is not None or source is not None \
+                or stream_state is not None:
+            raise NotImplementedError(
+                "streaming ingest (stream=, source=) is not ported yet: "
+                "ROADMAP.md queue 1, step 11b")
         self.set_scheduler(plan.scheduler)
         self.set_partitioner(plan.partitioner)
         self.set_kernels(plan.kernels)
@@ -644,26 +711,57 @@ class StradsEngine:
                 f"must be a multiple of plan.checkpoint_every={chunk} — "
                 f"repartition checks only run at chunk boundaries, so a "
                 f"misaligned cadence would silently (almost) never fire")
-        if not chunk:
-            if pspec is not None and pspec.kind == "load_balanced":
-                warnings.warn(
-                    "a load_balanced partitioner only rebalances at "
-                    "checkpoint chunk boundaries; without plan."
-                    "checkpoint_every + ckpt_dir the assignment stays "
-                    "at its initial (static) value for the whole run",
-                    UserWarning, stacklevel=2)
-            return self._execute_span(state, data, generator, plan,
-                                      plan.rounds - t_done, t_done, carry,
-                                      collect, callback, noise)
-        return self._execute_chunked(state, data, generator, plan, t_done,
-                                     carry, collect, callback, noise,
-                                     chunk, ckpt_dir)
+        if not chunk and pspec is not None \
+                and pspec.kind == "load_balanced":
+            warnings.warn(
+                "a load_balanced partitioner only rebalances at "
+                "checkpoint chunk boundaries; without plan."
+                "checkpoint_every + ckpt_dir the assignment stays "
+                "at its initial (static) value for the whole run",
+                UserWarning, stacklevel=2)
+        # telemetry: counters ride the carry on every executor; the trace
+        # kind also opens a host Recorder for the span of this execute
+        tspec = plan.telemetry or None
+        rec = (Recorder(profiler=tspec.profiler)
+               if tspec is not None and tspec.events else None)
+        self._recorder = rec
+        try:
+            with (rec.span("execute", executor=plan.executor,
+                           rounds=plan.rounds) if rec is not None
+                  else _NULL_CTX):
+                if chunk:
+                    rep = self._execute_chunked(
+                        state, data, generator, plan, t_done, carry,
+                        collect, callback, noise, chunk, ckpt_dir)
+                else:
+                    rep = self._execute_span(
+                        state, data, generator, plan, plan.rounds - t_done,
+                        t_done, carry, collect, callback, noise)
+        finally:
+            self._recorder = None
+        if tspec is None:
+            rep.telemetry = None
+            return rep
+        parts = rep.telemetry if isinstance(rep.telemetry, list) else (
+            [rep.telemetry] if rep.telemetry is not None else [])
+        if len(parts) > 1:
+            from ..ps.telemetry import merge_summaries
+            ssp = merge_summaries(parts)
+        else:
+            ssp = parts[0] if parts else None
+        rep.telemetry = RunReport.build(
+            tspec, plan.executor, int(rep.carry.t),
+            device_counters=getattr(rep.carry, "obs", None),
+            recorder=rec, ssp=ssp)
+        return rep
 
     def _execute_chunked(self, state, data, generator, plan, t_done: int,
                          carry, collect, callback, noise, chunk: int,
                          ckpt_dir: str) -> ExecutionReport:
         """The checkpoint-chunked run: spans of ``chunk`` rounds, each
-        followed by the partition check and a checkpoint."""
+        followed by the partition check and a checkpoint.  Under an ssp
+        plan with telemetry the report's ``telemetry`` is the list of the
+        chunks' staleness summaries (``execute`` merges them)."""
         step_len = self._step_length(plan)
         if chunk % step_len:
             raise ValueError(
@@ -688,6 +786,7 @@ class StradsEngine:
                     stops.append(t)
                 return r
         traces = []
+        ssp_parts: list = []
         t = t_done
         # the activity baseline costs a host sync, so only a stateful
         # policy takes it; each later chunk reuses the previous boundary's
@@ -700,6 +799,8 @@ class StradsEngine:
             state, carry = rep.state, rep.carry
             if rep.trace is not None:
                 traces.append(rep.trace)
+            if rep.telemetry is not None:
+                ssp_parts.append(rep.telemetry)
             t = int(carry.t)
             if self.partitioner is not None:
                 # after the last chunk no round runs: measure, never move
@@ -708,11 +809,13 @@ class StradsEngine:
             payload = {"state": state, "carry": carry}
             if self.partitioner is not None:
                 payload["assignment"] = self.partition_payload()
-            save_checkpoint(ckpt_dir, t, payload)
+            with self._obs_span("checkpoint", t=t):
+                save_checkpoint(ckpt_dir, t, payload)
             if stops:                           # honored across chunks
                 break
         return ExecutionReport(state=state, trace=_concat(traces),
-                               carry=carry, plan=plan)
+                               telemetry=ssp_parts or None, carry=carry,
+                               plan=plan)
 
     def _step_length(self, plan: ExecutionPlan) -> int:
         """Rounds one step of the plan's executor covers — the alignment
@@ -725,56 +828,77 @@ class StradsEngine:
         return 1                                # loop: any round
 
     def _carry(self, t: int, sc, generator, noise, sched=None,
-               depth: int = 0) -> EngineCarry:
+               depth: int = 0, obs=None) -> EngineCarry:
         return EngineCarry(t=t, sched_carry=sc,
                            rng_state=(None if noise is not None
                                       else generator.get_state()),
-                           sched=sched, depth=depth)
+                           sched=sched, depth=depth, obs=obs)
 
     def _execute_span(self, state, data, generator, plan: ExecutionPlan,
                       rounds: int, t0: int, prev_carry, collect, callback,
                       noise) -> ExecutionReport:
         """One contiguous span of a plan (the whole plan, or one
-        checkpoint chunk) on the executor it names."""
+        checkpoint chunk) on the executor it names.  Under an ssp plan
+        with telemetry the report's ``telemetry`` is the span's raw
+        :class:`~repro_torch.ps.telemetry.SSPTelemetry`."""
         sc = (prev_carry.sched_carry if prev_carry is not None
               else self.init_sched_carry())
+        # device counters: the previous chunk's (bit-exact through
+        # chunking and resumes), else fresh when the plan is instrumented
+        obs = getattr(prev_carry, "obs", None)
+        if obs is None and plan.telemetry:
+            obs = obs_counters.init_counters(self.phase_period, self.device)
         if plan.executor == "ssp":
-            state, *trace, carry = self.run_ssp(
-                state, data, generator, rounds, staleness=plan.staleness,
-                collect=collect, t0=t0,
-                clocks=getattr(prev_carry, "clocks", None),
-                sched_carry0=sc, return_carry=True, noise=noise)
-            return ExecutionReport(state=state, trace=trace[0] if trace
-                                   else None, carry=carry, plan=plan)
+            with self._obs_span("ssp", t0=t0, rounds=rounds,
+                                staleness=plan.staleness):
+                state, *rest = self.run_ssp(
+                    state, data, generator, rounds,
+                    staleness=plan.staleness, collect=collect,
+                    with_telemetry=bool(plan.telemetry), t0=t0,
+                    clocks=getattr(prev_carry, "clocks", None),
+                    sched_carry0=sc, obs0=obs, return_carry=True,
+                    noise=noise)
+            trace = rest.pop(0) if collect is not None else None
+            telem = rest.pop(0) if plan.telemetry else None
+            return ExecutionReport(state=state, trace=trace,
+                                   telemetry=telem, carry=rest.pop(0),
+                                   plan=plan)
         period = self.phase_period
         if plan.executor != "loop" and t0 % period:
             raise ValueError(f"t0 must be a multiple of the phase period "
                              f"({period}) so phases stay static; got {t0}")
         if plan.executor == "pipelined":
-            return self._execute_pipelined(state, data, generator, plan,
-                                           rounds, t0, prev_carry, sc,
-                                           collect, noise)
+            with self._obs_span("pipelined", t0=t0, rounds=rounds):
+                return self._execute_pipelined(state, data, generator, plan,
+                                               rounds, t0, prev_carry, sc,
+                                               collect, noise, obs)
         # loop and scan share this body; scan has no callback and nothing
         # in it reads a device value on the host
         ys: list = []
         executed = 0
-        for k in range(rounds):
-            t = t0 + k
-            out = self.run_round(state, data, generator, t, sched_carry=sc,
-                                 noise=noise)
-            state, sc = out.state, out.sched_carry
-            executed = k + 1
-            if collect is not None:
-                ys.append(collect(state))
-            if callback is not None and callback(t, state, out):
-                break
+        num_cand = self._obs_num_candidates()
+        with self._obs_span(plan.executor, t0=t0, rounds=rounds):
+            for k in range(rounds):
+                t = t0 + k
+                out = self.run_round(state, data, generator, t,
+                                     sched_carry=sc, noise=noise)
+                state, sc = out.state, out.sched_carry
+                if obs is not None:
+                    obs = obs_counters.observe_round(obs, out.sched,
+                                                     t % period, num_cand)
+                executed = k + 1
+                if collect is not None:
+                    ys.append(collect(state))
+                if callback is not None and callback(t, state, out):
+                    break
         return ExecutionReport(
             state=state, trace=_stack(ys) if ys else None, plan=plan,
-            carry=self._carry(t0 + executed, sc, generator, noise))
+            carry=self._carry(t0 + executed, sc, generator, noise,
+                              obs=obs))
 
     def _execute_pipelined(self, state, data, generator, plan, rounds: int,
-                           t0: int, prev_carry, sc, collect,
-                           noise) -> ExecutionReport:
+                           t0: int, prev_carry, sc, collect, noise,
+                           obs=None) -> ExecutionReport:
         """The pipelined executor (the JAX package's depth-1 scan body):
         at round t the schedule of round t+1 is made from the state and
         scheduler carry before round t's update, then round t runs the
@@ -795,11 +919,17 @@ class StradsEngine:
                 state, sc, data, self._noise(generator, noise, t0), t0,
                 app.static_phase(t0))
         ys: list = []
+        num_cand = self._obs_num_candidates()
         for t in range(t0, t0 + rounds):
             phase = app.static_phase(t)
             sched_next = self._make_schedule(
                 state, sc, data, self._noise(generator, noise, t + 1),
                 t + 1, app.static_phase(t + 1))
+            if obs is not None:
+                # count the schedule the round executes (the one-round-
+                # stale one), not the prefetch
+                obs = obs_counters.observe_round(obs, sched, t % period,
+                                                 num_cand)
             new_state = self._apply(state, data, sched, phase)
             sc = app.sched_update(sc, state, new_state, sched, phase)
             state, sched = new_state, sched_next
@@ -808,7 +938,7 @@ class StradsEngine:
         return ExecutionReport(
             state=state, trace=_stack(ys) if ys else None, plan=plan,
             carry=self._carry(t0 + rounds, sc, generator, noise,
-                              sched=sched, depth=1))
+                              sched=sched, depth=1, obs=obs))
 
 
 def _stack(ys: list):
@@ -825,26 +955,6 @@ def _concat(traces: list):
     if isinstance(traces[0], dict):
         return {k: _concat([tr[k] for tr in traces]) for k in traces[0]}
     return torch.cat(traces)
-
-
-# plan fields the port does not run yet → the ROADMAP.md step porting them
-_STEP = {
-    "telemetry": "queue 1, step 10 (observability)",
-    "stream": "queue 1, step 11 (serving and streaming)",
-}
-
-
-def _not_ported(what: str, key: str):
-    return NotImplementedError(f"{what} is not ported yet: ROADMAP.md "
-                               f"{_STEP[key]}")
-
-
-def _reject_unported(plan: ExecutionPlan, *, stream, source,
-                     stream_state) -> None:
-    if plan.telemetry:
-        raise _not_ported("plan.telemetry", "telemetry")
-    if stream is not None or source is not None or stream_state is not None:
-        raise _not_ported("streaming ingest (stream=, source=)", "stream")
 
 
 __all__ = ["DATA_AXIS", "EngineCarry", "StradsEngine", "resolve_device"]

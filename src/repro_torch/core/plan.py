@@ -51,8 +51,7 @@ class ExecutionPlan:
                      :class:`~repro_torch.obs.spec.TelemetrySpec` (kind ∈
                      counters | trace).  ``False`` (the default) runs
                      uninstrumented; a spec makes **every** executor
-                     return a populated
-                     run report as
+                     return a :class:`~repro_torch.obs.RunReport` as
                      ``ExecutionReport.telemetry`` (device counters,
                      host events under ``kind="trace"``, and the SSP
                      staleness/byte section for ssp plans) — final model
@@ -254,8 +253,12 @@ class ExecutionReport:
     trace:      stacked per-round ``collect`` outputs (leading axis =
                 rounds executed this call), or ``None`` without a collect
                 fn.
-    telemetry:  always ``None`` in the port until telemetry is ported
-                (``execute`` rejects plans that ask for it).
+    telemetry:  with ``plan.telemetry`` set, a
+                :class:`~repro_torch.obs.RunReport`: the resolved spec,
+                the device counters summarized to host ints, the host
+                events (``kind="trace"``) and, for ``ssp`` plans, the
+                staleness and byte section (``.ssp``, the chunks'
+                summaries merged); ``None`` without a spec.
     carry:      resumable :class:`repro_torch.core.engine.EngineCarry`
                 (:class:`repro_torch.ps.SSPCarry` for ``ssp``); pass it
                 back to ``execute`` to continue the same plan bit-exactly.

@@ -30,6 +30,14 @@ for a rebalance on the host at the ``plan.checkpoint_every`` chunk
 boundaries, where the ``load_balanced`` kind reads the |Δ| of
 ``partition_signal(state)`` over the chunk; an app without a signal
 cannot host that kind.
+
+The serving-injection contract: serving (:mod:`repro_torch.serve`) reads
+the state through a :class:`~repro_torch.serve.ModelView` whose
+consistency a :class:`~repro_torch.serve.ServeSpec` declares.  Apps opt
+in with one primitive, ``query(state, batch) -> result``: one batched
+inference request against a (possibly stale) state view, the leaves of
+``batch`` and of the result carrying a leading request axis.  It reads
+the state and never writes it.
 """
 from __future__ import annotations
 
@@ -133,6 +141,16 @@ class StradsAppBase:
 
     def sched_update(self, carry, before, after, sched, phase):
         return carry
+
+    def query(self, state, batch):
+        """One batched inference request against a (possibly stale) state
+        view — the serving-injection contract (see the module
+        docstring).  Default: the app declares no query primitive and
+        cannot be served."""
+        raise NotImplementedError(
+            f"{type(self).__name__} declares no query() primitive — "
+            f"serving (repro_torch.serve) needs one; see the "
+            f"serving-injection contract in repro_torch.core.primitives")
 
 
 @dataclasses.dataclass(frozen=True)

@@ -1,9 +1,11 @@
 """The declarative observability surface: :class:`TelemetrySpec`.
 
 A copy of the JAX package's ``obs/spec.py`` with the same fields,
-validation, error text and JSON.  The port parses it so that every plan
-file reads the same in both packages; the engine rejects a plan that asks
-for telemetry until the counters and the event recorder are ported.
+validation, error text and JSON, so every plan file reads the same in
+both packages.  ``"counters"`` turns on the device counters of
+:mod:`repro_torch.obs.counters`; ``"trace"`` adds the host
+:class:`~repro_torch.obs.events.Recorder`, and ``profiler=True`` a
+``torch.profiler.record_function`` range around each of its spans.
 """
 from __future__ import annotations
 
@@ -31,11 +33,11 @@ class TelemetrySpec:
     kind:     ``"counters"`` (device-side per-phase/schedule/ρ-filter
               counters in the executor carry — the hot-path-safe floor)
               or ``"trace"`` (counters + the host-side event
-              host-side event recorder with phase spans and
-              Chrome-trace export).
-    profiler: with ``kind="trace"``: also annotate every recorded
-              span for the device profiler, so host phases appear
-              inside a device profile.
+              Recorder with phase spans and Chrome-trace export).
+    profiler: with ``kind="trace"``: also open a
+              ``torch.profiler.record_function`` range around every
+              recorded span, so host phases appear inside a
+              ``torch.profiler`` trace of the card.
     """
 
     kind: str

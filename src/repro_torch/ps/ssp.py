@@ -56,6 +56,7 @@ import torch
 from ..core.engine import _stack
 from ..core.kvstore import VarTable
 from ..core.primitives import tree_psum
+from ..obs import counters as obs_counters
 from . import telemetry as T
 from .cache import StaleCache
 from .server import ParameterServer, init_clocks, tick
@@ -67,13 +68,16 @@ class SSPCarry:
     per-worker vector clocks (int32 (W,)), the engine-owned scheduler
     carry (``None`` for stateless policies) and the noise generator's
     state (``None`` when the noise came from a caller's source, the JAX
-    package's PRNG key's place).  The SSP twin of
+    package's PRNG key's place), and under a telemetry spec the device
+    counters (``obs``; ``None`` uninstrumented).  The SSP twin of
     :class:`repro_torch.core.EngineCarry`; it round-trips through
-    :mod:`repro_torch.checkpoint` (``carry/.clocks`` in the file)."""
+    :mod:`repro_torch.checkpoint` (``carry/.clocks`` and
+    ``carry/.obs/...`` in the file)."""
     t: int
     clocks: torch.Tensor
     sched_carry: Any = None
     rng_state: Optional[torch.Tensor] = None
+    obs: Any = None
 
 
 def rounds_per_step(engine, staleness: int) -> int:
@@ -213,7 +217,8 @@ def run_ssp(eng, state, data, generator, num_rounds: int, *,
             staleness: int = 0, collect: Optional[Callable] = None,
             with_telemetry: bool = False, t0: int = 0,
             clocks: Optional[torch.Tensor] = None,
-            sched_carry0: Any = _UNSET, return_carry: bool = False,
+            sched_carry0: Any = _UNSET, obs0: Any = None,
+            return_carry: bool = False,
             noise: Optional[Callable[[int], Any]] = None):
     """Execute ``num_rounds`` rounds under bounded staleness ``s``.
 
@@ -228,10 +233,17 @@ def run_ssp(eng, state, data, generator, num_rounds: int, *,
     ``num_rounds`` rows.  ``t0``, ``clocks`` and ``sched_carry0`` resume
     a previous run (the values of its :class:`SSPCarry`; ``t0`` a
     multiple of the step length; without ``sched_carry0`` a fresh
-    scheduler carry is used, which is right only at ``t0=0``).
+    scheduler carry is used, which is right only at ``t0=0``).  ``obs0``
+    threads the engine's device counters
+    (:func:`repro_torch.obs.counters.init_counters`, or a previous
+    carry's ``obs``) through the rounds, folded once a round from the
+    schedule it ran; ``None`` runs uninstrumented.
     ``with_telemetry=True`` appends an
-    :class:`~repro_torch.ps.telemetry.SSPTelemetry`, ``return_carry=True``
-    the final carry."""
+    :class:`~repro_torch.ps.telemetry.SSPTelemetry` (the staleness
+    histogram of the reads served and the push/pull bytes), and
+    ``return_carry=True`` the final :class:`SSPCarry`.  Through
+    ``StradsEngine.execute`` the summary lands in the ``ssp`` section of
+    the run's :class:`~repro_torch.obs.RunReport`, merged over chunks."""
     num_steps = _check_rounds(eng, num_rounds, staleness)
     L = rounds_per_step(eng, staleness)
     if t0 % L:
@@ -262,6 +274,9 @@ def run_ssp(eng, state, data, generator, num_rounds: int, *,
     app = eng.app
     W = staleness + 1
     sc = sched_carry0
+    obs = obs0
+    num_cand = eng._obs_num_candidates()
+    period = eng.phase_period
     telem = T.staleness_init(staleness)
     info = {"shared_bytes": server.shared_nbytes()}
     ys: list = []
@@ -286,6 +301,9 @@ def run_ssp(eng, state, data, generator, num_rounds: int, *,
                                       phases[0])
                 state = new_state
                 T.observe_read(telem, ts[0], cache.clock)
+                if obs is not None:
+                    obs = obs_counters.observe_round(
+                        obs, scheds[0], ts[0] % period, num_cand)
                 clocks = tick(clocks)
                 if collect is not None:
                     ys.append(collect(state))
@@ -303,6 +321,9 @@ def run_ssp(eng, state, data, generator, num_rounds: int, *,
                 keep_pends.append(table.defer_local(local, phases[k]))
                 z_pends.append(z)
                 T.observe_read(telem, ts[k], cache.clock)
+                if obs is not None:
+                    obs = obs_counters.observe_round(
+                        obs, scheds[k], ts[k] % period, num_cand)
                 clocks = tick(clocks)
             # the bound forces a sync: flush the pending buffer (one sum
             # over workers), replay the deferred commits in round order
@@ -322,7 +343,7 @@ def run_ssp(eng, state, data, generator, num_rounds: int, *,
 
     carry = SSPCarry(t=t, clocks=clocks, sched_carry=sc,
                      rng_state=(None if noise is not None
-                                else generator.get_state()))
+                                else generator.get_state()), obs=obs)
     ret = [state]
     if collect is not None:
         ret.append(_stack(ys))

@@ -1,13 +1,18 @@
 """SSP telemetry: the staleness histogram of the reads served and push
-and pull byte accounting, from the JAX package's ``ps/telemetry.py``
-(whose histogram half lives in ``obs/counters.py`` there; the port keeps
-its own copy here until observability is ported).
+and pull byte accounting, from the JAX package's ``ps/telemetry.py``.
 
-The JAX package carries the histogram through its scan as device
-integers.  The port's round counter and cache clock are host ints, so
-the histogram counts, on the host, the reads the executor actually
-served: that is what the staleness-invariant tests assert over.  Byte
-counts come from the shapes of the partials and the server's leaves.
+The histogram half (``staleness_init``/``observe_read``) lives in
+:mod:`repro_torch.obs.counters`, as in the JAX package, and is
+re-exported here under its historical names.  The port's round counter
+and cache clock are host ints, so the histogram counts, on the host, the
+reads the executor actually served: that is what the staleness-invariant
+tests assert over.  Byte counts come from the shapes of the partials and
+the server's leaves.  Under a plan-level
+:class:`~repro_torch.obs.spec.TelemetrySpec` an :class:`SSPTelemetry`
+becomes the ``ssp`` section of the run's
+:class:`~repro_torch.obs.report.RunReport`, and chunked
+(``checkpoint_every``) runs merge their per-chunk summaries with
+:func:`merge_summaries`.
 """
 from __future__ import annotations
 
@@ -15,6 +20,14 @@ import dataclasses
 from typing import Dict, List
 
 import numpy as np
+
+from ..obs.counters import observe_read, staleness_init
+
+__all__ = ["SSPTelemetry", "device_init", "observe_read", "staleness_init",
+           "summarize", "merge_summaries"]
+
+# historical name of the relocated histogram half (repro_torch.obs.counters)
+device_init = staleness_init
 
 
 @dataclasses.dataclass
@@ -35,23 +48,6 @@ class SSPTelemetry:
         d["hist"] = [int(v) for v in self.hist]
         d["clocks"] = [int(v) for v in self.clocks]
         return d
-
-
-def staleness_init(staleness: int) -> Dict[str, object]:
-    """The histogram over observed read staleness (bins 0..s) and the
-    running max."""
-    return {"hist": np.zeros((staleness + 1,), np.int64),
-            "max_staleness": 0}
-
-
-def observe_read(telem: Dict[str, object], clock: int,
-                 cache_clock: int) -> Dict[str, object]:
-    """Record one SSP round's read: how stale was the cache it was served
-    from?  (In place; returns ``telem``.)"""
-    st = int(clock) - int(cache_clock)
-    telem["hist"][st] += 1
-    telem["max_staleness"] = max(telem["max_staleness"], st)
-    return telem
 
 
 def summarize(telem: Dict[str, object], info: dict, *, staleness: int,

@@ -267,15 +267,8 @@ def test_execute_rejects_what_is_not_ported(problem):
                             device="cpu")
     data = eng.shard_data({"X": X, "y": y})
     state = eng.init_state(y=y)
-    from repro_torch.obs import TelemetrySpec
     from repro_torch.part import PartitionerSpec
-    for plan, step in (
-            (ExecutionPlan(rounds=2,
-                           telemetry=TelemetrySpec(kind="counters")),
-             "step 10"),):
-        with pytest.raises(NotImplementedError, match=f"ROADMAP.md.*{step}"):
-            eng.execute(state, data, None, plan)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md.*step 11"):
+    with pytest.raises(NotImplementedError, match="ROADMAP.md.*step 11b"):
         eng.execute(state, data, None, ExecutionPlan(rounds=2),
                     stream=object(), source=object())
     with pytest.raises(ValueError, match="plan.workers=4"):
