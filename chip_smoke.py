@@ -56,7 +56,16 @@
    span in the profiler, the Chrome trace in
    ``build/lasso_loadbal.trace.json``, host ms by span name), and runs
    the repo's convergence check (``tests/test_lasso.py``) on the card at
-   a small size.
+   a small size.  Streaming (``lasso_stream_phase``, after serving):
+   ``lasso_pallas.json`` with ``StreamSpec("replace", ingest_every=4)``
+   and ``LassoDriftSource(rows_per_ingest=512)`` (boundaries 4, 8, 12),
+   each run from the original data: an EmptySource run equal to the
+   unstreamed one, 16 and 16 launches, loop, card-tensor deltas, a
+   checkpointed run and a fresh engine resumed from step 8 through
+   ``replay_data`` equal to the bit, the reference within STATE_TOL,
+   r = y − Xβ in f64 at the end, the ``ingest`` span's host ms; then
+   ``serve_ssp.json`` served with the stream every window (3 rounds),
+   its training equal to the unserved streamed run's.
 4. STRADS MF at the Netflix Prize shape: 17,770 movies, 1.18 % of the
    entries observed, the users cut to MF_USERS (131,072: the dense
    layout holds A, the mask and R, 9.3 GB each), rank 40, λ = 0.05, W = 4,
@@ -75,7 +84,12 @@
    MF_W_TOL); the objective falls every
    round within MF_MONO_TOL; rounds/s, the peak memory and a profiler
    window of 4 rounds; then ALS (2 iterations) beside STRADS on the
-   first 8,192 users.  MF runs plain torch ops: it has no kernel.
+   first 8,192 users.  Streaming (``mf_stream_runs``): a sweep with
+   ``StreamSpec("extend", ingest_every=8)`` and 256 drifting users a
+   boundary (9 boundaries), its peak within STREAM_PEAK_GB of the
+   unstreamed sweep's, the cursor and the rows the ring gives, R in f64
+   on the ingested rows just after each boundary, loop equal to scan;
+   ``replace`` on ssp at s = 1 equal to scan.  MF runs plain torch ops: it has no kernel.
 5. STRADS LDA at the UCI NYTimes shape: 299,776 documents (2,342 a
    worker), 102,660 words, 99.5 M tokens (777,344 a worker), K = 1,000,
    W = 128 workers, a planted corpus made on the card from ``--seed``.
@@ -121,7 +135,14 @@
    baseline (1 round, W = 16) beside one STRADS rotation on the first
    eighth of the corpus, its sweep first held against the plain version
    to the bit at its chip shape (the leading 2,048 tokens of 4
-   workers).
+   workers).  Streaming (``lda_stream_runs``): two rotations with
+   ``StreamSpec("extend", ingest_every=128)`` and 65,536 drifting
+   tokens at t = 128: 256 launches, D, B, s recounted from (words, z),
+   counts below 2²⁴, loop equal to scan, the index rebuild and the
+   first round after the boundary timed; ``replace`` served with a
+   snapshot at 0, 128, 256, its training equal to the unserved run's.
+   Then ``launch.serve --engine lda --stream --requests 32`` as a
+   subprocess (``serve_cli_stream_run``): exit 0, rows ingested.
 6. Model-zoo serving of Phi-3.5-MoE at its published widths, depth cut to
    ``--layers`` (24 of 32: the bf16 weights must fit the card), through
    the port's ``launch/serve_lm``: batch 4, prompt 1,024, 32 greedy
@@ -1248,6 +1269,640 @@ def lasso_serve_phase(torch, lasso, lc, ExecutionPlan, cfg, X, y,
 
 
 # ---------------------------------------------------------------------------
+# Streaming ingest at the chip shapes
+# ---------------------------------------------------------------------------
+
+LASSO_STREAM_ROWS = 512        # rows a Lasso drift boundary replaces
+LASSO_STREAM_EVERY = 4         # boundaries 4, 8, 12 of lasso_pallas.json
+LASSO_SERVE_STREAM_ROWS = 64   # rows a boundary while serving (7 boundaries;
+                               # the source's numpy takes ~2 ms a row here)
+MF_STREAM_ROWS = 256           # users a boundary brings in
+MF_STREAM_EVERY = 8            # boundaries 8, 16, …, 72 of an 80-round sweep
+LDA_STREAM_TOKENS = 65_536     # tokens a boundary brings in
+STREAM_PEAK_GB = 1.0           # a streamed sweep's peak within this of
+                               # the unstreamed one's
+
+
+def flat_rows(x):
+    """A row-split data leaf (W, n/W, …) as a view of its global rows."""
+    return x.view(x.shape[0] * x.shape[1], *x.shape[2:])
+
+
+def backup_rows(torch, data: dict, rows):
+    """Save the global ``rows`` of every data leaf; returns a function
+    that writes them back (a streamed run writes the data in place, and
+    every run here starts from the original data)."""
+    import numpy as np
+    idx = torch.as_tensor(np.asarray(rows, np.int64), device=DEVICE)
+    flats = {k: flat_rows(v) for k, v in data.items()}
+    saved = {k: f[idx].clone() for k, f in flats.items()}
+
+    def restore():
+        for k, f in flats.items():
+            f[idx] = saved[k]
+    return restore
+
+
+def stream_rows(Ingestor, ScheduledSource, spec, deltas: dict, eng,
+                data) -> list:
+    """The global rows each delta of ``deltas`` ({t: [delta, …]}) lands
+    on, by the port's own ring arithmetic (``Ingestor._slots``), in
+    order."""
+    ing = Ingestor(spec, ScheduledSource(deltas)).bind(eng, data)
+    return [ing._slots(d)[0] for t in sorted(deltas) for d in deltas[t]]
+
+
+def on_card(torch, deltas: dict) -> dict:
+    """The same deltas with every array a tensor on the card."""
+    def conv(d):
+        return {k: ({n: torch.as_tensor(v, device=DEVICE)
+                     for n, v in x.items()} if isinstance(x, dict)
+                    else torch.as_tensor(x, device=DEVICE))
+                for k, x in d.items()}
+    return {t: [conv(d) for d in ds] for t, ds in deltas.items()}
+
+
+def lasso_stream_phase(torch, lasso, lc, ExecutionPlan, cfg, X, y,
+                       seed: int) -> dict:
+    """Streaming ingest on the Lasso path at n = J = 50,000:
+    ``lasso_pallas.json`` as checked in (16 scan rounds, W = 4, the CUDA
+    kernels) with ``StreamSpec("replace", ingest_every=4)`` and
+    ``LassoDriftSource(rows_per_ingest=512, seed=seed + 2)``: boundaries
+    4, 8 and 12 replace 1,536 rows of X and y.  Every run starts from the
+    original data (the touched rows are saved first and written back),
+    the launch counts set to 0 just before and read just after.
+
+    Checks: an ``EmptySource`` run equals the unstreamed one to the bit;
+    the drift run launches 16 ``gram_block`` and 16 ``lasso_partial``,
+    its β differs from the unstreamed run's, and at its end r = y − Xβ
+    holds in f64 on the final X within STATE_TOL of max(1, |r|); the same
+    deltas made once (a ScheduledSource) give the same bits, on scan and
+    on loop, as card tensors too; ``kind="reference"`` within STATE_TOL;
+    a checkpointed run (every 4 rounds) equals it, its files hold
+    ``stream/...``, and a fresh engine resumed from step 8 with
+    ``replay_data(..., t_upto=8, stream_state=...)`` on the original data
+    equals it to the bit; a traced run gives the ``ingest`` span's host
+    ms.  Then ``serve_ssp.json`` through ``serve_while_training`` with
+    the stream at one window's cadence (every 3 rounds, 7 boundaries of
+    LASSO_SERVE_STREAM_ROWS rows):
+    the trained state equals the unserved streamed run's to the bit and
+    each ŷ is within SERVE_TOL of the f64 xᵀβ at the clock it read."""
+    import shutil
+    import tempfile
+    from repro_torch.checkpoint import load_flat, restore_checkpoint
+    from repro_torch.kernels import KernelSpec
+    from repro_torch.obs import TelemetrySpec
+    from repro_torch.serve import ServeSpec, serve_while_training
+    from repro_torch.stream import (EmptySource, Ingestor,
+                                    LassoDriftSource, ScheduledSource,
+                                    StreamSpec, replay_data)
+    import numpy as np
+    plan = load_plan(ExecutionPlan, "lasso_pallas.json")
+    splan = load_plan(ExecutionPlan, "serve_ssp.json")
+    R, W, sR = plan.rounds, plan.workers, splan.rounds
+    check(R == 16 and W == 4 and sR == 24, f"unexpected plans {plan}, "
+                                           f"{splan}")
+    n, J = X.shape
+    eng = lasso.make_engine(cfg, workers=W, device=DEVICE)
+    data = eng.shard_data({"X": X, "y": y})
+    spec = StreamSpec(kind="replace", ingest_every=LASSO_STREAM_EVERY)
+    s_every = eng._step_length(splan)                  # one window: 3
+    sspec = StreamSpec(kind="replace", ingest_every=s_every)
+
+    def source():
+        return LassoDriftSource(num_rows=n, num_features=J,
+                                rows_per_ingest=LASSO_STREAM_ROWS,
+                                seed=seed + 2)
+
+    t0 = time.perf_counter()
+    src = source()
+    deltas = {t: src.take(t) for t in range(spec.ingest_every, R,
+                                            spec.ingest_every)}
+    take_s = (time.perf_counter() - t0) / len(deltas)
+    ssrc = LassoDriftSource(num_rows=n, num_features=J,
+                            rows_per_ingest=LASSO_SERVE_STREAM_ROWS,
+                            seed=seed + 2)
+    sdeltas = {t: ssrc.take(t) for t in range(s_every, sR, s_every)}
+    rows = np.unique(np.concatenate(
+        stream_rows(Ingestor, ScheduledSource, spec, deltas, eng, data)
+        + stream_rows(Ingestor, ScheduledSource, sspec, sdeltas, eng,
+                      data)))
+    restore = backup_rows(torch, data, rows)
+
+    def gen():
+        return torch.Generator(device=DEVICE).manual_seed(seed)
+
+    def run(p, source=None, stream=spec, e=None, **kw):
+        e = e or eng
+        restore()                       # the original data
+        state = e.init_state(y=y)
+        lc.reset_launch_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        rep = e.execute(state, data, gen(), p,
+                        stream=stream if source is not None else None,
+                        source=source, **kw)
+        torch.cuda.synchronize()
+        return rep, time.perf_counter() - t0, dict(lc.LAUNCHES)
+
+    def same(a, b, what):
+        check(torch.equal(a.state["beta"], b.state["beta"])
+              and torch.equal(a.state["r"], b.state["r"]),
+              f"lasso stream: {what}")
+
+    run(plan, ScheduledSource(deltas))                  # warm-up
+    plain, plain_s, _ = run(plan)
+    empty, empty_s, _ = run(plan, EmptySource())
+    same(empty, plain, "the EmptySource run differs from the unstreamed")
+    check(int(empty.stream["rows_in"]) == 0, "lasso stream: EmptySource "
+                                             "ingested rows")
+    drift, drift_s, launches = run(plan, source())
+    check(launches == {"lasso_partial": R, "gram_block": R},
+          f"lasso stream: launches {launches}, want {R} of each")
+    check(not torch.equal(drift.state["beta"], plain.state["beta"]),
+          "lasso stream: the drift did not move β")
+    check({k: int(v) for k, v in drift.stream.items()} == dict(
+        cursor=0, rows_in=3 * LASSO_STREAM_ROWS, rows_dropped=0, fill0=0),
+        f"lasso stream: cursor {drift.stream}")
+    # r = y − Xβ on the final X, in f64, chunk by chunk of rows
+    beta = drift.state["beta"].double()
+    r = drift.state["r"].reshape(-1)
+    worst, scale = 0.0, 1.0
+    for i in range(0, n, 4096):
+        r64 = y[i:i + 4096].double() - X[i:i + 4096].double() @ beta
+        worst = max(worst, float((r[i:i + 4096].double() - r64).abs()
+                                 .max()))
+        scale = max(scale, float(r64.abs().max()))
+    check(worst <= STATE_TOL * scale, f"lasso stream: r off y − Xβ by "
+                                      f"{worst} > {STATE_TOL}·{scale}")
+    cached, cached_s, _ = run(plan, ScheduledSource(deltas))
+    same(cached, drift, "the same deltas made once differ")
+    loop_plan = ExecutionPlan.from_json(dict(plan.to_json(),
+                                             executor="loop"))
+    loop, loop_s, _ = run(loop_plan, ScheduledSource(deltas))
+    same(loop, drift, "loop and scan differ under the stream")
+    cards, cards_s, _ = run(plan, ScheduledSource(on_card(torch, deltas)))
+    same(cards, drift, "card-tensor deltas differ from numpy ones")
+    ref_plan = ExecutionPlan.from_json(dict(
+        plan.to_json(), kernels=KernelSpec(kind="reference").to_json()))
+    refr, _, ref_launch = run(ref_plan, ScheduledSource(deltas))
+    check(not any(ref_launch.values()), "lasso stream: the reference run "
+                                        "launched a kernel")
+    diffs = {k: float((refr.state[k] - drift.state[k]).abs().max())
+             for k in ("beta", "r")}
+    check(max(diffs.values()) <= STATE_TOL,
+          f"lasso stream: reference differs by {diffs} > {STATE_TOL}")
+    # checkpoints every 4 rounds, then a fresh engine resumed from 8
+    ck_plan = ExecutionPlan.from_json(dict(plan.to_json(),
+                                           checkpoint_every=4))
+    d = tempfile.mkdtemp(prefix="chip_smoke_stream_")
+    try:
+        full, _, _ = run(ck_plan, ScheduledSource(deltas), ckpt_dir=d)
+        same(full, drift, "the checkpointed run differs")
+        keys = sorted(k for k in load_flat(d, 8) if k.startswith("stream/"))
+        check(keys == ["stream/cursor", "stream/fill0",
+                       "stream/rows_dropped", "stream/rows_in"],
+              f"lasso stream: checkpoint stream keys {keys}")
+        restore()
+        eng2 = lasso.make_engine(cfg, workers=W, device=DEVICE)
+        data2 = eng2.shard_data({"X": X, "y": y})
+        ck = restore_checkpoint(d, 8, {"state": eng2.init_state(y=y),
+                                       "carry": full.carry,
+                                       "stream": full.stream})
+        data2, _ = replay_data(eng2, data2, spec, ScheduledSource(deltas),
+                               8, stream_state=ck["stream"])
+        lc.reset_launch_counts()
+        rest = eng2.execute(ck["state"], data2,
+                            torch.Generator(device=DEVICE), ck_plan,
+                            carry=ck["carry"], ckpt_dir=d + "_b",
+                            stream=spec, source=ScheduledSource(deltas),
+                            stream_state=ck["stream"])
+        check(dict(lc.LAUNCHES) == {"lasso_partial": R - 8,
+                                    "gram_block": R - 8},
+              f"lasso stream: resumed launches {dict(lc.LAUNCHES)}")
+        same(rest, drift, "the resumed run differs from the uninterrupted")
+    finally:
+        shutil.rmtree(d, ignore_errors=True)
+        shutil.rmtree(d + "_b", ignore_errors=True)
+    traced_plan = ExecutionPlan.from_json(dict(
+        plan.to_json(), telemetry=TelemetrySpec(kind="trace").to_json()))
+    traced, traced_s, _ = run(traced_plan, ScheduledSource(deltas))
+    same(traced, drift, "the traced run differs")
+    spans = span_totals(traced.telemetry.events)
+    rows_ev = [e["args"] for e in traced.telemetry.events
+               if e["name"] == "ingest_rows"]
+    check(spans.get("ingest", {}).get("count") == 3 and len(rows_ev) == 3
+          and all(a["rows_in"] == LASSO_STREAM_ROWS for a in rows_ev),
+          f"lasso stream: ingest events {spans.get('ingest')}, {rows_ev}")
+
+    # serving with the stream at one window's cadence
+    restore()
+    g = torch.Generator(device=DEVICE).manual_seed(seed + 5)
+    req_rows = torch.randint(0, n, (LASSO_REQUESTS,), generator=g,
+                             device=DEVICE).tolist()
+    reqs = [((i * sR) // LASSO_REQUESTS, {"x": X[r].clone()})
+            for i, r in enumerate(req_rows)]
+    splain, splain_s, _ = run(splan, ScheduledSource(sdeltas), stream=sspec,
+                              collect=lambda st: st["beta"].clone())
+    restore()
+    sstate = eng.init_state(y=y)
+    lc.reset_launch_counts()
+    torch.cuda.reset_peak_memory_stats()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    srep = serve_while_training(eng, sstate, data, gen(), splan,
+                                spec=ServeSpec("stale", max_staleness=4),
+                                requests=reqs, stream=sspec,
+                                source=ScheduledSource(sdeltas))
+    torch.cuda.synchronize()
+    served_s = time.perf_counter() - t0
+    served_peak = torch.cuda.max_memory_allocated() / 1e9
+    s_launch = dict(lc.LAUNCHES)
+    check(s_launch == {"lasso_partial": sR, "gram_block": sR},
+          f"lasso stream serve: launches {s_launch}")
+    same(srep.report, splain, "the served streamed run differs from the "
+                              "unserved one")
+    check(srep.ingest == splain.stream and int(srep.ingest["rows_in"])
+          == len(sdeltas) * LASSO_SERVE_STREAM_ROWS,
+          f"lasso stream serve: cursor {srep.ingest}")
+    worst_rel = 0.0
+    for (_, p), resp, read in zip(reqs, srep.responses, srep.reads):
+        c = read["clock"]
+        b = (splain.trace[c - 1].double() if c
+             else torch.zeros(J, dtype=torch.float64, device=DEVICE))
+        terms = p["x"].double() * b
+        err = abs(float(resp.result["y_hat"]) - float(terms.sum()))
+        sc = float(terms.abs().sum())
+        check(err <= SERVE_TOL * sc, f"lasso stream serve: ŷ off xᵀβ at "
+                                     f"clock {c} by {err} > "
+                                     f"{SERVE_TOL}·{sc}")
+        worst_rel = max(worst_rel, err / sc if sc else err)
+    check(len(srep.responses) == LASSO_REQUESTS
+          and srep.max_staleness_read() <= 4,
+          f"lasso stream serve: {len(srep.responses)} responses, "
+          f"staleness {srep.staleness_hist()}")
+    restore()                           # later phases read the original
+    return {
+        "plan": plan.to_json(), "stream": spec.to_json(),
+        "rows_per_ingest": LASSO_STREAM_ROWS, "boundaries": sorted(deltas),
+        "launches": launches, "cursor": {k: int(v) for k, v in
+                                         drift.stream.items()},
+        "empty_equals_unstreamed": True, "loop_equals_scan": True,
+        "card_tensor_deltas_equal_numpy": True,
+        "resumed_equals_uninterrupted": True,
+        "reference_max_diff": diffs, "residual_f64_max_err": worst,
+        "residual_f64_scale": scale,
+        "source_take_ms": take_s * 1e3,
+        "ingest_span": spans.get("ingest"),
+        "ingest_span_ms_per_boundary": spans["ingest"]["host_ms"] / 3,
+        "span_totals_traced": spans,
+        "seconds": {"unstreamed": plain_s, "empty": empty_s,
+                    "drift_fresh_source": drift_s,
+                    "drift_made_once": cached_s, "loop": loop_s,
+                    "card_tensor_deltas": cards_s, "traced": traced_s},
+        "rounds_per_s": {"unstreamed": R / plain_s,
+                         "drift_fresh_source": R / drift_s,
+                         "drift_made_once": R / cached_s},
+        "serve": {"plan": splan.to_json(), "stream": sspec.to_json(),
+                  "rows_per_ingest": LASSO_SERVE_STREAM_ROWS,
+                  "boundaries": sorted(sdeltas), "launches": s_launch,
+                  "trained_equals_unserved": True,
+                  "max_rel_err": worst_rel,
+                  **serve_summary(srep, served_s, sR, splain_s,
+                                   served_peak)},
+    }
+
+
+def mf_stream_runs(torch, mf, ExecutionPlan, cfg, A, mask, gen,
+                   seed: int) -> dict:
+    """Streaming ingest on MF at the chip shape: one sweep (2K rounds)
+    with ``StreamSpec("extend", ingest_every=8)`` and
+    ``MFDriftSource(rows_per_ingest=256, density=Netflix's,
+    kind="extend", seed=seed + 2)``: boundaries 8, 16, …, 72 bring in
+    9 × 256 users, which land on the ring's oldest rows (every row holds
+    ratings, so the ring starts full).  Every run starts from the
+    original data (the touched rows saved first and written back).
+
+    Checks: the streamed scan sweep's cursor is (2,304, 2,304, 0, the
+    valid rows); its objective is finite; its peak memory within
+    STREAM_PEAK_GB of the unstreamed sweep's, measured the same way
+    (the ingest writes only the rows it names, and no span keeps its
+    start state alive), and what each replace-kind sweep adds at its peak
+    within STREAM_PEAK_GB of what the unstreamed one adds (the ssp run
+    starts while the replace scan run's report is held); the streamed
+    loop sweep equals it to the bit, and in it each ingest lands on the rows the
+    ring arithmetic gives, with R = (A − WH)·mask in f64 on those rows
+    just after their boundary (within STATE_TOL of max(1, |R|)).  Then
+    ``kind="replace"`` on scan and on ssp at s = 1, equal to the bit, as
+    unstreamed s = 1 is."""
+    from repro_torch.stream import (Ingestor, MFDriftSource,
+                                    ScheduledSource, StreamSpec)
+    import numpy as np
+    t_phase = time.perf_counter()
+    N, M, K, P = cfg.num_rows, cfg.num_cols, cfg.rank, MF_WORKERS
+    R = 2 * K
+    density = NETFLIX["ratings"] / (NETFLIX["users"] * NETFLIX["movies"])
+    eng = mf.make_engine(cfg, workers=P, device=DEVICE)
+    data = eng.shard_data({"A": A, "mask": mask})
+    specs = {kind: StreamSpec(kind=kind, ingest_every=MF_STREAM_EVERY)
+             for kind in ("extend", "replace")}
+    bounds = range(MF_STREAM_EVERY, R, MF_STREAM_EVERY)
+    deltas, take_s = {}, {}
+    for kind in specs:
+        src = MFDriftSource(num_rows=N, num_cols=M,
+                            rows_per_ingest=MF_STREAM_ROWS,
+                            density=density, kind=kind, seed=seed + 2)
+        t0 = time.perf_counter()
+        deltas[kind] = {t: src.take(t) for t in bounds}
+        take_s[kind] = (time.perf_counter() - t0) / len(bounds) * 1e3
+    fill0 = int(mask.any(dim=1).sum())
+    rows = np.unique(np.concatenate(sum(
+        (stream_rows(Ingestor, ScheduledSource, specs[k], deltas[k], eng,
+                     data) for k in specs), [])))
+    restore = backup_rows(torch, data, rows)
+    obj = eng.app.objective_collect()
+
+    def run(executor, kind=None, staleness=0):
+        """(report, seconds, peak GB, peak GB above what was held when
+        the run began: the reports this function still keeps hold 9.3
+        GB each)"""
+        restore()                       # the original data
+        state = eng.init_state(A=A, mask=mask, generator=gen())
+        torch.cuda.reset_peak_memory_stats()
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated() / 1e9
+        t0 = time.perf_counter()
+        rep = eng.execute(state, data, None, ExecutionPlan(
+            executor=executor, rounds=R, workers=P, staleness=staleness),
+            collect=obj, stream=specs[kind] if kind else None,
+            source=ScheduledSource(deltas[kind]) if kind else None)
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated() / 1e9
+        return rep, time.perf_counter() - t0, peak, peak - base
+
+    def same(a, b, what):
+        for k in ("W", "H", "R"):
+            check(torch.equal(a.state[k], b.state[k]),
+                  f"mf stream: {what} ({k})")
+        check(torch.equal(a.trace, b.trace), f"mf stream: {what} (trace)")
+
+    plain, plain_s, plain_peak, plain_rise = run("scan")
+    del plain
+    ext, ext_s, ext_peak, ext_rise = run("scan", "extend")
+    n_in = len(bounds) * MF_STREAM_ROWS
+    cursor = {k: int(v) for k, v in ext.stream.items()}
+    check(cursor == dict(cursor=n_in, rows_in=n_in, rows_dropped=0,
+                         fill0=fill0), f"mf stream: cursor {cursor}")
+    trace = ext.trace.cpu().tolist()
+    check(len(trace) == R and all(map(math.isfinite, trace)),
+          "mf stream: the objective is not finite")
+    check(abs(ext_peak - plain_peak) <= STREAM_PEAK_GB,
+          f"mf stream: peak {ext_peak} GB not within {STREAM_PEAK_GB} GB "
+          f"of the unstreamed sweep's {plain_peak} GB")
+    # the loop sweep, each ingest checked just after its boundary
+    landed, worst = [], [0.0]
+    ingest = eng.app.ingest
+
+    def checked(data_, state, rows_, delta):
+        out = ingest(data_, state, rows_, delta)
+        seen = sum(len(r) for r in landed)
+        want_rows = (fill0 + seen + np.arange(len(rows_))) % N
+        check(np.array_equal(rows_, want_rows),
+              "mf stream: the rows differ from the ring arithmetic")
+        landed.append(rows_)
+        idx = torch.as_tensor(rows_, device=DEVICE)
+        m = flat_rows(data_["mask"])[idx].double()
+        want = (flat_rows(data_["A"])[idx].double()
+                - flat_rows(state["W"])[idx].double()
+                @ state["H"].double()) * m
+        err = float((flat_rows(state["R"])[idx].double() - want).abs()
+                    .max())
+        scale = max(1.0, float(want.abs().max()))
+        check(err <= STATE_TOL * scale, f"mf stream: R off (A − WH)·mask "
+                                        f"by {err} > {STATE_TOL}·{scale}")
+        worst[0] = max(worst[0], err / scale)
+        return out
+
+    eng.app.ingest = checked
+    try:
+        loop, loop_s, _, _ = run("loop", "extend")
+    finally:
+        del eng.app.ingest
+    check(len(landed) == len(bounds), f"mf stream: {len(landed)} ingests")
+    same(loop, ext, "loop and scan differ under the stream")
+    del loop, ext                       # each holds a 9.3 GB R
+    rep_scan, rep_s, rep_peak, rep_rise = run("scan", "replace")
+    rep_ssp, ssp_s, ssp_peak, ssp_rise = run("ssp", "replace", staleness=1)
+    same(rep_ssp, rep_scan, "ssp at s = 1 and scan differ under the stream")
+    # rep_scan is held through the ssp run: compare what each run adds
+    for name, rise in (("replace", rep_rise), ("replace on ssp", ssp_rise)):
+        check(abs(rise - plain_rise) <= STREAM_PEAK_GB,
+              f"mf stream: the {name} sweep adds {rise} GB at its peak, "
+              f"not within {STREAM_PEAK_GB} GB of the unstreamed sweep's "
+              f"{plain_rise} GB")
+    check(rep_ssp.stream == rep_scan.stream
+          and int(rep_scan.stream["rows_in"]) == n_in,
+          f"mf stream: replace cursor {rep_scan.stream}")
+    out = {
+        "rounds": R, "rows_per_ingest": MF_STREAM_ROWS,
+        "boundaries": list(bounds), "cursor": cursor,
+        "objective_end": trace[-1], "loop_equals_scan": True,
+        "ssp_s1_equals_scan_replace": True,
+        "residual_f64_max_rel_err": worst[0],
+        "source_take_ms": take_s,
+        "peak_memory_gb": {"unstreamed": plain_peak, "extend": ext_peak,
+                           "replace": rep_peak, "replace_ssp_s1": ssp_peak},
+        "peak_rise_gb": {"unstreamed": plain_rise, "extend": ext_rise,
+                         "replace": rep_rise, "replace_ssp_s1": ssp_rise},
+        "seconds": {"unstreamed": plain_s, "extend": ext_s,
+                    "extend_loop": loop_s, "replace": rep_s,
+                    "replace_ssp_s1": ssp_s},
+        "rounds_per_s": {"unstreamed": R / plain_s, "extend": R / ext_s,
+                         "replace": R / rep_s,
+                         "replace_ssp_s1": R / ssp_s}}
+    del rep_scan, rep_ssp
+    restore()                           # later runs read the original
+    torch.cuda.empty_cache()
+    out["phase_seconds"] = time.perf_counter() - t_phase
+    return out
+
+
+def lda_stream_runs(torch, lda, lg, ExecutionPlan, cfg, words, docs, z0,
+                    seed: int, scan_rounds_per_s: float) -> dict:
+    """Streaming ingest on LDA at the NYTimes shape: two rotations (2U
+    rounds) on scan with ``StreamSpec("extend", ingest_every=U)`` and
+    ``LDADriftSource(tokens_per_ingest=65,536, seed=seed + 2)``:
+    boundary U brings in 65,536 tokens (the corpus has no padding, so
+    they land on the oldest slots).  Every run starts from the original
+    corpus (the touched slots saved first and written back) and a state
+    built from it, the launch counts set to 0 just before and read just
+    after.
+
+    Checks: 2U ``lda_gibbs`` launches; the cursor; D, B and s recounted
+    from the streamed (words, docs, z) equal the state; every count below
+    2²⁴; the log-likelihood finite; the loop run (timed round by round)
+    equal to scan to the bit.  The token index rebuild (``gibbs_index``
+    after the ingest's in-place write) is timed on its own, and the
+    first round after the boundary beside the median round of the loop
+    run.  Then ``kind="replace"`` on scan, and the same stream served
+    (``ServeSpec("snapshot")``: pins at 0, U and 2U) whose training
+    equals the unserved streamed run to the bit."""
+    from repro_torch.serve import ServeSpec, serve_while_training
+    from repro_torch.stream import (Ingestor, LDADriftSource,
+                                    ScheduledSource, StreamSpec)
+    import numpy as np
+    t_phase = time.perf_counter()
+    U, K, T = cfg.num_workers, cfg.num_topics, cfg.tokens_per_worker
+    R = 2 * U
+    eng = lda.make_engine(cfg, device=DEVICE)
+    data = eng.shard_data({"words": words, "docs": docs})
+    specs = {kind: StreamSpec(kind=kind, ingest_every=U)
+             for kind in ("extend", "replace")}
+    deltas, take_ms = {}, {}
+    for kind in specs:
+        src = LDADriftSource(num_tokens=U * T, vocab=cfg.vocab,
+                             num_topics=K, docs_per_worker=cfg.docs_per_worker,
+                             tokens_per_ingest=LDA_STREAM_TOKENS, kind=kind,
+                             seed=seed + 2)
+        t0 = time.perf_counter()
+        deltas[kind] = {U: src.take(U)}
+        take_ms[kind] = (time.perf_counter() - t0) * 1e3
+    fill0 = int((words >= 0).sum())
+    rows = np.unique(np.concatenate(sum(
+        (stream_rows(Ingestor, ScheduledSource, specs[k], deltas[k], eng,
+                     data) for k in specs), [])))
+    restore = backup_rows(torch, data, rows)
+
+    def run(executor, kind, callback=None):
+        restore()                       # the original corpus
+        state = eng.init_state(words=words, docs=docs, z0=z0)
+        lg.reset_launch_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        rep = eng.execute(state, data, None, ExecutionPlan(
+            executor=executor, rounds=R), callback=callback,
+            stream=specs[kind], source=ScheduledSource(deltas[kind]))
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        check(lg.LAUNCHES["lda_gibbs"] == R,
+              f"lda stream {executor} {kind}: {lg.LAUNCHES['lda_gibbs']} "
+              f"launches in {R} rounds")
+        return rep, secs
+
+    def same(a, b, what):
+        for k in ("z", "D", "B", "s", "s_err"):
+            check(torch.equal(a.state[k], b.state[k]),
+                  f"lda stream: {what} ({k})")
+
+    ext, ext_s = run("scan", "extend")
+    cursor = {k: int(v) for k, v in ext.stream.items()}
+    check(cursor == dict(cursor=LDA_STREAM_TOKENS,
+                         rows_in=LDA_STREAM_TOKENS, rows_dropped=0,
+                         fill0=fill0), f"lda stream: cursor {cursor}")
+    flat = eng.unshard(ext.state)
+    rec = lda.build_state(cfg, data["words"], data["docs"], flat["z"],
+                          device=DEVICE)
+    for k in ("D", "B", "s"):
+        check(torch.equal(rec[k], flat[k]),
+              f"lda stream: {k} recounted from (words, z) differs")
+    s_max = float(flat["s"].max())
+    check(s_max < 2 ** 24 and float(flat["D"].max()) < 2 ** 24
+          and float(flat["B"].max()) < 2 ** 24,
+          f"lda stream: a count is not exact in f32 (s max {s_max})")
+    ll = float(lda.log_likelihood(cfg, ext.state))
+    check(math.isfinite(ll), "lda stream: the log-likelihood is not finite")
+    del rec, flat
+    # the index rebuild the ingest's write costs, on its own
+    Vb = cfg.block_vocab
+    idx_ms = []
+    for _ in range(3):
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+        torch.cuda.synchronize()
+        ev[0].record()
+        lg.gibbs_index(data["words"], Vb, U)
+        ev[1].record()
+        torch.cuda.synchronize()
+        idx_ms.append(ev[0].elapsed_time(ev[1]))
+    stamps = []
+
+    def stamp(t, s, out):
+        torch.cuda.synchronize()
+        stamps.append(time.perf_counter())
+        return False
+
+    loop, loop_s = run("loop", "extend", callback=stamp)
+    same(loop, ext, "loop and scan differ under the stream")
+    del loop
+    round_ms = [(b - a) * 1e3 for a, b in zip(stamps, stamps[1:])]
+    # round_ms[i] is round i + 1's: the first round after boundary U is
+    # round U (its sweep rebuilds the index first)
+    first_after = round_ms[U - 1]
+    steady = sorted(round_ms[U:])[len(round_ms[U:]) // 2]
+    rep_scan, rep_s = run("scan", "replace")
+    restore()
+    start = eng.init_state(words=words, docs=docs, z0=z0)
+    reqs = [(t, {"words": words[i * 4096:i * 4096 + LDA_DOC_LEN].clone()})
+            for i, t in enumerate((0, U, R))]
+    lg.reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    srep = serve_while_training(eng, start, data, None, ExecutionPlan(
+        executor="scan", rounds=R), spec=ServeSpec.default_for("snapshot"),
+        requests=reqs, stream=specs["replace"],
+        source=ScheduledSource(deltas["replace"]))
+    torch.cuda.synchronize()
+    served_s = time.perf_counter() - t0
+    check(lg.LAUNCHES["lda_gibbs"] == R,
+          f"lda stream serve: {lg.LAUNCHES['lda_gibbs']} launches")
+    same(srep.report, rep_scan, "the served streamed run differs from the "
+                                "unserved one")
+    clocks = sorted({r["clock"] for r in srep.reads})
+    check(srep.ingest == rep_scan.stream and len(srep.responses) == 3
+          and set(clocks) <= {0, U, R},
+          f"lda stream serve: cursor {srep.ingest}, reads {srep.reads}")
+    out = {
+        "rounds": R, "tokens_per_ingest": LDA_STREAM_TOKENS,
+        "boundaries": [U], "cursor": cursor, "launches": R,
+        "counts_recount_exactly": True, "s_max": s_max, "loglik_end": ll,
+        "loop_equals_scan": True, "served_equals_unserved": True,
+        "served_read_clocks": clocks, "source_take_ms": take_ms, "index_rebuild_ms": sorted(idx_ms)[1],
+        "loop_round_ms_first_after_boundary": first_after,
+        "loop_round_ms_median_after_boundary": steady,
+        "seconds": {"extend": ext_s, "extend_loop": loop_s,
+                    "replace": rep_s, "replace_served": served_s},
+        "rounds_per_s": {"extend": R / ext_s, "replace": R / rep_s,
+                         "replace_served": R / served_s,
+                         "unstreamed_rotation_earlier": scan_rounds_per_s}}
+    del ext, rep_scan, srep, start
+    restore()
+    torch.cuda.empty_cache()
+    out["phase_seconds"] = time.perf_counter() - t_phase
+    return out
+
+
+def serve_cli_stream_run() -> dict:
+    """``python -m repro_torch.launch.serve --engine lda --stream
+    --requests 32`` as a subprocess on the card: it must exit 0 and print
+    ``rows ingested=`` with a count above 0."""
+    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
+    cmd = [sys.executable, "-m", "repro_torch.launch.serve", "--engine",
+           "lda", "--stream", "--requests", "32"]
+    t0 = time.perf_counter()
+    p = subprocess.run(cmd, cwd=ROOT, env=env, capture_output=True,
+                       text=True, timeout=600)
+    secs = time.perf_counter() - t0
+    check(p.returncode == 0, f"serve CLI --stream exited {p.returncode}: "
+                             f"{p.stderr[-2000:]}")
+    got = [ln for ln in p.stdout.splitlines()
+           if ln.startswith("rows ingested=")]
+    n_in = int(got[0].split("=")[1].split()[0]) if got else 0
+    check(n_in > 0, f"serve CLI --stream ingested nothing: {p.stdout}")
+    return {"command": " ".join(cmd[1:]), "seconds": secs,
+            "rows_ingested": n_in,
+            "stdout": p.stdout.strip().splitlines()}
+
+
+# ---------------------------------------------------------------------------
 # STRADS MF at the Netflix Prize shape, STRADS LDA at the NYTimes shape
 # ---------------------------------------------------------------------------
 
@@ -1372,6 +2027,8 @@ def mf_phase(torch, mf, ExecutionPlan, seed: int) -> dict:
                            scan.state, ssp["rounds_per_s"]["s1"], seed)
     ckpt = mf_checkpoint_run(torch, mf, ExecutionPlan, cfg, A, mask, gen,
                              scan.state)
+    stream = mf_stream_runs(torch, mf, ExecutionPlan, cfg, A, mask, gen,
+                            seed)
     _, _, one, one_secs, _, _ = run(1, "scan")
     diffs = {}
     for k in ("W", "H", "R"):
@@ -1393,7 +2050,7 @@ def mf_phase(torch, mf, ExecutionPlan, seed: int) -> dict:
         seconds={"scan": secs, "loop": loop_secs, "scan_w1": one_secs,
                  "pipelined": pipe_secs},
         pipelined_equals_scan=True, checkpoint=ckpt, ssp=ssp,
-        counters=obs, serve=serving,
+        counters=obs, serve=serving, stream=stream,
         objective_ms=time_ms(torch, lambda: obj_fn(scan.state), iters=10,
                              warmup=2),
         peak_memory_gb=peak)
@@ -2576,7 +3233,12 @@ def lda_phase(torch, lda, lg, ref, ExecutionPlan, KernelSpec, seed: int):
         del e, d, s0, rep
         torch.cuda.empty_cache()
     res["baseline_vs_strads"] = side
-    del words, docs, z0, sub
+    del sub
+    res["stream"] = lda_stream_runs(torch, lda, lg, ExecutionPlan, cfg, words,
+                                    docs, z0, seed,
+                                    res["rounds_per_s"]["scan"])
+    entry["launches_stream"] = res["stream"]["launches"]
+    del words, docs, z0
     torch.cuda.empty_cache()
     return entry, res
 
@@ -3587,6 +4249,11 @@ def main() -> int:
                                args.seed)
     print("lasso serve: " + json.dumps(lserve))
     phase("lasso counters and serving")
+    lstream = lasso_stream_phase(torch, lasso, lc, ExecutionPlan, cfg, X, y,
+                                 args.seed)
+    print("lasso stream: " + json.dumps(
+        {k: v for k, v in lstream.items() if k != "span_totals_traced"}))
+    phase("lasso streaming")
     for k in ("lasso_partial", "gram_block"):
         kern[k]["launches_pipelined"] = pipelined["launches"][k]
         kern[k]["launches_loadbal"] = loadbal["launches"][k]
@@ -3594,6 +4261,8 @@ def main() -> int:
         kern[k]["launches_counters"] = lobs["launches"][k]
         kern[k]["launches_serve"] = {n: lserve[n]["launches"][k]
                                      for n in ("stale", "snapshot")}
+        kern[k]["launches_stream"] = lstream["launches"][k]
+        kern[k]["launches_stream_serve"] = lstream["serve"]["launches"][k]
 
     eng = lasso.make_engine(cfg, workers=W, device=DEVICE)
     data = eng.shard_data({"X": X, "y": y})
@@ -3638,7 +4307,8 @@ def main() -> int:
     # 4. STRADS MF at the Netflix Prize shape (no kernel of its own)
     mfres = mf_phase(torch, mf, ExecutionPlan, args.seed)
     print("mf: " + json.dumps({k: v for k, v in mfres.items()
-                               if k != "profile"}))
+                               if k not in ("profile", "stream")}))
+    print("mf stream: " + json.dumps(mfres["stream"]))
     print("mf profile (4 rounds): " + json.dumps(
         {k: v for k, v in mfres["profile"].items() if k != "top"}))
     for row in mfres["profile"]["top"][:6]:
@@ -3654,7 +4324,8 @@ def main() -> int:
             _build.build_log["lda_gibbs"]["ptxas"]).items()
         if k.startswith("lda_gibbs_kernel")}
     print("lda: " + json.dumps({k: v for k, v in ldares.items()
-                                if k != "profile"}))
+                                if k not in ("profile", "stream")}))
+    print("lda stream: " + json.dumps(ldares["stream"]))
     print("lda profile (4 rounds): " + json.dumps(
         {k: v for k, v in ldares["profile"].items() if k != "top"}))
     for row in ldares["profile"]["top"][:6]:
@@ -3674,6 +4345,8 @@ def main() -> int:
     torch.cuda.empty_cache()
     cli = serve_cli_run()
     print("serve CLI: " + json.dumps(cli))
+    cli_stream = serve_cli_stream_run()
+    print("serve CLI --stream: " + json.dumps(cli_stream))
     phase("serve CLI")
 
     # 6. model-zoo serving: Phi-3.5-MoE at full width, bf16
@@ -3770,7 +4443,8 @@ def main() -> int:
     result.update(kernels=list(kern.values()), main=main, profile=prof,
                   lasso_pipelined=pipelined, lasso_loadbal=loadbal,
                   lasso_ssp=lssp, lasso_counters=lobs, lasso_serve=lserve,
-                  lasso_trace=ltrace, serve_cli=cli, phase_seconds=phase_s,
+                  lasso_trace=ltrace, lasso_stream=lstream, serve_cli=cli,
+                  serve_cli_stream=cli_stream, phase_seconds=phase_s,
                   launch_floor_ms=launch_floor_ms,
                   small={"objective": got, "reference_cd": want},
                   mf=mfres, lda=ldares,

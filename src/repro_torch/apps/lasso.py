@@ -118,11 +118,13 @@ class StradsLasso(StradsAppBase):
         if y is None:
             raise ValueError("StradsLasso.init_state needs y (the initial "
                              "residual r = y at β = 0)")
+        # r = y − Xβ at β = 0, a copy: the data's y may be the same
+        # storage, and a streamed run writes both in place
         return {
             "beta": torch.zeros((self.cfg.num_features,),
                                 dtype=torch.float32, device=self.device),
             "r": torch.as_tensor(y, dtype=torch.float32,
-                                 device=self.device),   # r = y − Xβ, β=0
+                                 device=self.device).clone(),
         }
 
     def state_specs(self):
@@ -185,6 +187,35 @@ class StradsLasso(StradsAppBase):
         so under ``ServeSpec(kind="stale")`` a prediction is exactly as
         stale as an SSP worker's own read of β."""
         return {"y_hat": batch["x"] @ state["beta"]}
+
+    # -- streaming (ingest primitives) ---------------------------------------
+
+    #: every observation row is real (no validity channel to derive an
+    #: extend-kind ring mask from), so only in-place replacement streams
+    supported_stream_kinds = ("replace",)
+
+    def ingest_specs(self):
+        return {"leaves": ("X", "y"), "valid": None}
+
+    def ingest(self, data, state, rows, delta):
+        """Overwrite observation rows and keep the residual invariant
+        ``r = y − Xβ`` true on exactly those rows (β is untouched — the
+        next scheduled rounds react to the new data through r).  Global
+        row g is worker g // (n/W)'s local row g % (n/W), as
+        ``shard_data`` lays X out (W, n/W, J), so the flat view of each
+        leaf takes the rows as they are.  Writes X, y and r in place."""
+        dev, J = self.device, self.cfg.num_features
+        rows = torch.as_tensor(rows, device=dev).long()
+        X_new = torch.as_tensor(delta["data"]["X"], dtype=torch.float32,
+                                device=dev)
+        y_new = torch.as_tensor(delta["data"]["y"], dtype=torch.float32,
+                                device=dev)
+        data["X"].view(-1, J)[rows] = X_new
+        data["y"].view(-1)[rows] = y_new
+        if state is None:
+            return data, None
+        state["r"].view(-1)[rows] = y_new - X_new @ state["beta"]
+        return data, state
 
     # -- objective -----------------------------------------------------------
 

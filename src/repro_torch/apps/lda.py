@@ -99,7 +99,8 @@ class _GibbsApp(StradsAppBase):
 
     def _index(self, words: torch.Tensor, block_vocab: int, n_blocks: int):
         """``gibbs_index`` of the words, built once and kept while the
-        same tensor is unchanged (ingest makes a new one)."""
+        same tensor is unchanged (an in-place write, as ``ingest``'s,
+        bumps its version, so the next sweep rebuilds it)."""
         c = self._index_of
         if c is None or c[0] is not words or c[1] != words._version:
             self._index_of = c = (words, words._version,
@@ -229,56 +230,54 @@ class StradsLDA(_GibbsApp):
         """Swap token slots (flat over U·T_p) and keep the collapsed
         counts exact: each displaced active token is decremented out of
         D, B and s, each incoming one (topic ``delta["z"]``) incremented
-        in.  Word −1 in a delta deletes the slot's token.  Returns new
-        tensors (the inputs are not changed)."""
-        cfg = self.cfg
-        dev = self.device
+        in.  Word −1 in a delta deletes the slot's token.  Writes words,
+        docs, z, B, D and s in place, only where the slots reach (the
+        in-place write bumps the words tensor's version, so the sweep's
+        token index is rebuilt before the next round).  ``rows`` and the
+        delta's arrays may be numpy or tensors on any device; their range
+        checks read the card at most once a delta."""
+        cfg, dev = self.cfg, self.device
         Tp, dpw, K = (cfg.tokens_per_worker, cfg.docs_per_worker,
                       cfg.num_topics)
-        slots = torch.as_tensor(np.asarray(rows, np.int64), device=dev)
-        w_new = torch.as_tensor(np.asarray(delta["data"]["words"],
-                                           np.int64), device=dev)
-        d_new = torch.as_tensor(np.asarray(delta["data"]["docs"],
-                                           np.int64), device=dev)
-        if w_new.numel() and (int(w_new.max()) >= cfg.vocab
-                              or int(w_new.min()) < -1):
+        raw = [delta["data"]["words"], delta["data"]["docs"]]
+        if state is not None:
+            raw.append(delta["z"])
+        lo_hi = _ranges(raw)
+        w_rng, d_rng = lo_hi[0], lo_hi[1]
+        if w_rng and (w_rng[1] >= cfg.vocab or w_rng[0] < -1):
             raise ValueError(f"ingested words out of [-1, {cfg.vocab})")
-        if d_new.numel() and (int(d_new.min()) < 0
-                              or int(d_new.max()) >= dpw):
+        if d_rng and (d_rng[0] < 0 or d_rng[1] >= dpw):
             raise ValueError(f"ingested docs out of [0, {dpw}) (doc ids "
                              f"are worker-local)")
-
-        def put(x, vals):
-            out = x.reshape(-1).clone()
-            out[slots] = vals.to(out.dtype)
-            return out.view(x.shape)
-
-        new_data = dict(data, words=put(data["words"], w_new),
-                        docs=put(data["docs"], d_new))
-        if state is None:
-            return new_data, None
-        z_new = torch.as_tensor(np.asarray(delta["z"], np.int64),
-                                device=dev)
-        if z_new.numel() and (int(z_new.min()) < 0
-                              or int(z_new.max()) >= K):
+        if state is not None and lo_hi[2] and (lo_hi[2][0] < 0
+                                               or lo_hi[2][1] >= K):
             raise ValueError(f"ingested z out of [0, {K})")
+        slots = torch.as_tensor(rows, device=dev).long()
+        w_new, d_new = (torch.as_tensor(x, device=dev).long()
+                        for x in raw[:2])
+        words, docs = data["words"].view(-1), data["docs"].view(-1)
+        if state is not None:
+            # the displaced tokens, read before the slots are written
+            w_old, d_old = words[slots].long(), docs[slots].long()
+        words[slots] = w_new.to(words.dtype)
+        docs[slots] = d_new.to(docs.dtype)
+        if state is None:
+            return data, None
+        z = state["z"].view(-1)
+        z_new = torch.as_tensor(raw[2], device=dev).long()
+        z_old = z[slots].long()
+        z[slots] = z_new.to(z.dtype)
+        B, D, s = state["B"].view(-1, K), state["D"].view(-1, K), state["s"]
         u = slots // Tp                             # owning worker
-        w_old = data["words"].reshape(-1)[slots].long()
-        d_old = data["docs"].reshape(-1)[slots].long()
-        z_old = state["z"].reshape(-1)[slots].long()
-        B = state["B"].reshape(-1, K).clone()
-        D = state["D"].reshape(-1, K).clone()
-        s = state["s"].clone()
         for w, d, k, sign in ((w_old, d_old, z_old, -1.0),
                               (w_new, d_new, z_new, 1.0)):
-            on = w >= 0
-            one = torch.full((int(on.sum()),), sign, device=dev)
-            B.index_put_((w[on], k[on]), one, accumulate=True)
-            D.index_put_((u[on] * dpw + d[on], k[on]), one, accumulate=True)
-            s.index_put_((k[on],), one, accumulate=True)
-        return new_data, dict(state, z=put(state["z"], z_new),
-                              D=D.view(state["D"].shape),
-                              B=B.view(state["B"].shape), s=s)
+            # inactive slots (word −1) add exactly 0 at a valid index, so
+            # no boolean mask (and no host read) is needed
+            one = (w >= 0).to(B.dtype) * sign
+            B.index_put_((w.clamp_min(0), k), one, accumulate=True)
+            D.index_put_((u * dpw + d, k), one, accumulate=True)
+            s.index_put_((k,), one, accumulate=True)
+        return data, state
 
     def loglik_collect(self) -> Callable:
         """The collapsed log P(W, Z) (a ``collect`` fn) and the s-error."""
@@ -328,6 +327,28 @@ class DataParallelLDAApp(_GibbsApp):
 # ---------------------------------------------------------------------------
 # Synthetic corpus, state and drivers
 # ---------------------------------------------------------------------------
+
+def _ranges(arrays) -> list:
+    """(min, max) of each array (``None`` for an empty one): numpy ones
+    on the host, tensors with one read for all of them."""
+    out = [None] * len(arrays)
+    tens = []
+    for i, a in enumerate(arrays):
+        if torch.is_tensor(a):
+            if a.numel():
+                tens.append(i)
+        else:
+            a = np.asarray(a)
+            if a.size:
+                out[i] = (int(a.min()), int(a.max()))
+    if tens:
+        dev = arrays[tens[0]].device
+        vals = torch.cat([torch.stack([arrays[i].min(), arrays[i].max()])
+                          .long().to(dev) for i in tens]).tolist()
+        for j, i in enumerate(tens):
+            out[i] = (vals[2 * j], vals[2 * j + 1])
+    return out
+
 
 def synthetic_corpus(rng: np.random.Generator, cfg: LDAConfig,
                      true_topics: int = 10, concentration: float = 0.05):

@@ -219,23 +219,27 @@ class StradsMF(StradsAppBase):
                     -1, self.cfg.num_cols).any(dim=1)}
 
     def ingest(self, data, state, rows, delta):
-        """Overwrite user rows and keep ``R = (A − WH) · mask`` true on
-        exactly those rows; the W rows stay as warm starts.  Returns new
-        tensors (the inputs are not changed)."""
+        """Overwrite user rows (refreshed ratings, or new users landing in
+        ring slots) and keep ``R = (A − WH) · mask`` true on exactly those
+        rows; the W rows stay as warm starts.  Global row g is worker
+        g // (N/W)'s local row, as ``shard_data`` lays the rows out, so
+        the flat view of each leaf takes the rows as they are.  Writes A,
+        the mask and R in place, only on those rows (a copy of any of
+        them is N × M floats).  ``rows`` and the delta's arrays may be
+        numpy or tensors on any device."""
         M, dev = self.cfg.num_cols, self.device
-        rows = torch.as_tensor(np.asarray(rows), device=dev).long()
+        rows = torch.as_tensor(rows, device=dev).long()
         A_new = torch.as_tensor(delta["data"]["A"], dtype=torch.float32,
                                 device=dev)
         m_new = torch.as_tensor(delta["data"]["mask"], dtype=torch.float32,
                                 device=dev)
-        new_data = dict(data, A=_set_rows(data["A"], rows, A_new, M),
-                        mask=_set_rows(data["mask"], rows, m_new, M))
+        data["A"].view(-1, M)[rows] = A_new
+        data["mask"].view(-1, M)[rows] = m_new
         if state is None:
-            return new_data, None
-        W_rows = state["W"].reshape(-1, self.cfg.rank)[rows]
-        R = _set_rows(state["R"], rows, (A_new - W_rows @ state["H"])
-                      * m_new, M)
-        return new_data, dict(state, R=R)
+            return data, None
+        W_rows = state["W"].view(-1, self.cfg.rank)[rows]
+        state["R"].view(-1, M)[rows] = (A_new - W_rows @ state["H"]) * m_new
+        return data, state
 
     def objective_collect(self) -> Callable:
         """Σ R² + λ(‖W‖² + ‖H‖²), a float64 device scalar (a ``collect``
@@ -254,13 +258,6 @@ def _sync(R: torch.Tensor, Wk: torch.Tensor, dHk: torch.Tensor,
     out = Wk.reshape(P * n, -1) @ dHk
     return torch.addcmul(R.reshape(P * n, M), out, mask.reshape(P * n, M),
                          value=-1, out=out).view(P, n, M)
-
-
-def _set_rows(x: torch.Tensor, rows: torch.Tensor, vals: torch.Tensor,
-              width: int) -> torch.Tensor:
-    out = x.reshape(-1, width).clone()
-    out[rows] = vals
-    return out.view(x.shape)
 
 
 # ---------------------------------------------------------------------------

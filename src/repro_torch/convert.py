@@ -3,7 +3,7 @@
 Carriers: :func:`lasso_from_jax`, :func:`mf_from_jax` and
 :func:`lda_from_jax` for the STRADS apps' runs,
 :func:`checkpoint_from_jax` for a checkpoint the JAX package's engine
-wrote, and :func:`model_params_from_jax` for the model zoo's parameters.
+wrote (:func:`stream_state_from_jax` for a streamed one's cursor), and :func:`model_params_from_jax` for the model zoo's parameters.
 
 The JAX package keeps β replicated, r and the data row-sharded over a
 ``data`` mesh axis, and the dynamic-priority scheduler's Δβ history in
@@ -149,6 +149,22 @@ def checkpoint_from_jax(flat: dict, engine):
                             sched=sched or None, depth=1 if sched else 0,
                             obs=obs)
     return state, carry, sub("assignment/") or None
+
+
+def stream_state_from_jax(flat: dict) -> Optional[dict]:
+    """The ``"stream"`` payload of a streamed JAX checkpoint (its
+    ``stream/cursor``, ``stream/rows_in``, ``stream/rows_dropped`` and
+    ``stream/fill0``) as the ``stream_state=`` the port's ``execute`` and
+    :func:`repro_torch.stream.replay_data` resume from: the same
+    numpy int64 cursor.  ``None`` when the run did not stream."""
+    from .stream.ingest import _CURSOR_KEYS
+    if not any(k.startswith("stream/") for k in flat):
+        return None
+    missing = [k for k in _CURSOR_KEYS if f"stream/{k}" not in flat]
+    if missing:
+        raise ValueError(f"checkpoint stream payload missing {missing}")
+    return {k: np.int64(np.asarray(flat[f"stream/{k}"]))
+            for k in _CURSOR_KEYS}
 
 
 def _tensor(x, dtype: torch.dtype, device) -> torch.Tensor:

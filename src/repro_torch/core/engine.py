@@ -30,10 +30,17 @@ executor of :mod:`repro_torch.ps` (``run_ssp``): reads of the state's
 whole (server-resident) leaves are served from a cache up to
 ``plan.staleness`` rounds stale and the pushes are summed over the
 workers once a window of s + 1 rounds; its steps of lcm(s + 1,
-``phase_period``) rounds align its runs, chunks and resumes.  What the
-port does not run yet (streaming ingest) raises ``NotImplementedError``
-naming the ROADMAP.md step that ports it; nothing silently runs
-something else.
+``phase_period``) rounds align its runs, chunks and resumes.
+
+Streaming ingest rides the same chunk boundaries
+(``execute(..., stream=, source=)``, :mod:`repro_torch.stream`): the run
+goes in spans of the gcd of ``plan.checkpoint_every`` and
+``stream.ingest_every`` (or whichever is set), each span's boundary
+ingests at its top and checkpoints at its bottom, and the app's
+``ingest`` writes the named rows into the data and state tensors the
+engine runs on.  A pipelined run keeps the schedule in flight across a
+boundary (made before the ingest, as in the JAX package); an ``ssp``
+run's boundaries are its window flushes.
 
 Telemetry is injected like the policies (``plan.telemetry``, a
 :class:`~repro_torch.obs.TelemetrySpec`): device counters
@@ -69,6 +76,7 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import math
 import warnings
 from typing import Any, Callable, Optional
 
@@ -630,8 +638,19 @@ class StradsEngine:
         chunks' staleness summaries merged into its ``ssp``).  Without a
         spec it is ``None``.
 
-        ``stream=``/``source=``/``stream_state=`` (streaming ingest) are
-        not ported yet and raise ``NotImplementedError``."""
+        ``stream`` (a :class:`~repro_torch.stream.StreamSpec`) +
+        ``source`` (a :class:`~repro_torch.stream.DataSource`) ingest
+        data deltas at host-synced boundaries ``t % stream.ingest_every
+        == 0`` (a multiple of the executor's step length), before the
+        span that starts there and after the checkpoint of the span that
+        ends there.  The app's ``ingest`` writes the rows into ``data``'s
+        tensors and the boundary state's, in place: copy what you replay
+        from.  An ``EmptySource`` run equals an unstreamed one to the
+        bit.  ``stream_state`` resumes the ring cursor from a
+        checkpoint's ``"stream"`` payload (pair it with
+        :func:`repro_torch.stream.replay_data` when the resumed process
+        no longer holds the streamed data); the report's ``stream`` is
+        the final cursor."""
         if not isinstance(plan, ExecutionPlan):
             raise TypeError(f"execute() wants an ExecutionPlan; got "
                             f"{type(plan).__name__}")
@@ -642,11 +661,6 @@ class StradsEngine:
         if callback is not None and plan.executor != "loop":
             raise ValueError("callback is a host-loop hook; it requires "
                              f"executor='loop' (got {plan.executor!r})")
-        if stream is not None or source is not None \
-                or stream_state is not None:
-            raise NotImplementedError(
-                "streaming ingest (stream=, source=) is not ported yet: "
-                "ROADMAP.md queue 1, step 11b")
         self.set_scheduler(plan.scheduler)
         self.set_partitioner(plan.partitioner)
         self.set_kernels(plan.kernels)
@@ -703,6 +717,19 @@ class StradsEngine:
                              "was passed — the run would silently never "
                              "checkpoint")
         chunk = plan.checkpoint_every if ckpt_dir else 0
+        if (stream is None) != (source is None):
+            raise ValueError("stream= (a StreamSpec) and source= (a "
+                             "DataSource) come as a pair — got only one")
+        ingestor = None
+        if stream is not None:
+            from ..stream import Ingestor
+            ingestor = Ingestor(stream, source)
+            if stream_state is not None:
+                ingestor.restore(stream_state)
+            ingestor.bind(self, data)
+        elif stream_state is not None:
+            raise ValueError("stream_state resumes a streamed run; pass "
+                             "the stream=/source= pair with it")
         pspec = self._active_part_spec
         if chunk and pspec is not None and pspec.rebalance_every \
                 and pspec.rebalance_every % chunk:
@@ -711,7 +738,7 @@ class StradsEngine:
                 f"must be a multiple of plan.checkpoint_every={chunk} — "
                 f"repartition checks only run at chunk boundaries, so a "
                 f"misaligned cadence would silently (almost) never fire")
-        if not chunk and pspec is not None \
+        if not chunk and ingestor is None and pspec is not None \
                 and pspec.kind == "load_balanced":
             warnings.warn(
                 "a load_balanced partitioner only rebalances at "
@@ -725,18 +752,24 @@ class StradsEngine:
         rec = (Recorder(profiler=tspec.profiler)
                if tspec is not None and tspec.events else None)
         self._recorder = rec
+        # the run gets this frame's reference to the start state: a
+        # caller that drops its own (the serve loop) frees it after the
+        # first round
+        held, state = [state], None
         try:
             with (rec.span("execute", executor=plan.executor,
                            rounds=plan.rounds) if rec is not None
                   else _NULL_CTX):
-                if chunk:
+                if chunk or ingestor is not None:
                     rep = self._execute_chunked(
-                        state, data, generator, plan, t_done, carry,
-                        collect, callback, noise, chunk, ckpt_dir)
+                        held.pop(), data, generator, plan, t_done, carry,
+                        collect, callback, noise, chunk, ckpt_dir,
+                        ingestor)
                 else:
                     rep = self._execute_span(
-                        state, data, generator, plan, plan.rounds - t_done,
-                        t_done, carry, collect, callback, noise)
+                        held.pop(), data, generator, plan,
+                        plan.rounds - t_done, t_done, carry, collect,
+                        callback, noise)
         finally:
             self._recorder = None
         if tspec is None:
@@ -757,18 +790,30 @@ class StradsEngine:
 
     def _execute_chunked(self, state, data, generator, plan, t_done: int,
                          carry, collect, callback, noise, chunk: int,
-                         ckpt_dir: str) -> ExecutionReport:
-        """The checkpoint-chunked run: spans of ``chunk`` rounds, each
-        followed by the partition check and a checkpoint.  Under an ssp
+                         ckpt_dir: Optional[str],
+                         ingestor=None) -> ExecutionReport:
+        """The boundary-chunked run (checkpoint cadence, ingest cadence,
+        or their gcd when both are set): spans from boundary to boundary,
+        each boundary ingesting at its top; at the checkpoint boundaries
+        (every boundary without a checkpoint cadence) the partition check
+        and, with ``ckpt_dir``, a checkpoint at its bottom.  Under an ssp
         plan with telemetry the report's ``telemetry`` is the list of the
-        chunks' staleness summaries (``execute`` merges them)."""
+        spans' staleness summaries (``execute`` merges them)."""
+        ing_every = ingestor.spec.ingest_every if ingestor is not None \
+            else 0
         step_len = self._step_length(plan)
-        if chunk % step_len:
+        if chunk and chunk % step_len:
             raise ValueError(
                 f"plan.checkpoint_every={chunk} must be a multiple of the "
                 f"{plan.executor!r} executor's step length {step_len} "
                 f"(phase/window alignment), so every chunk resumes on a "
                 f"step boundary")
+        if ing_every and ing_every % step_len:
+            raise ValueError(
+                f"stream.ingest_every={ing_every} must be a multiple of "
+                f"the {plan.executor!r} executor's step length {step_len} "
+                f"(phase/window alignment), so every ingest boundary is "
+                f"host-synced")
         if plan.executor in ("pipelined", "ssp") \
                 and plan.rounds % step_len:
             # fail before any chunk runs — the same plan without ckpt_dir
@@ -777,6 +822,10 @@ class StradsEngine:
                 f"plan.rounds={plan.rounds} must be a multiple of the "
                 f"{plan.executor!r} executor's step length {step_len}; "
                 f"the final checkpoint chunk would be unrunnable")
+        # with both cadences set, spans run boundary to boundary; a plain
+        # checkpointed run keeps span == chunk
+        span = (math.gcd(chunk, ing_every) if chunk and ing_every
+                else (chunk or ing_every))
         stops: list = []                        # callback early-stop marker
         cb = callback
         if callback is not None:
@@ -793,8 +842,18 @@ class StradsEngine:
         sig0 = (self._partition_signal_snapshot(state)
                 if self._part_stats is not None else None)
         while t < plan.rounds:
-            rep = self._execute_span(state, data, generator, plan,
-                                     min(chunk, plan.rounds - t), t, carry,
+            if ingestor is not None:
+                # ingest at the top, checkpoint at the bottom: the
+                # checkpoint at t precedes the ingest at t, so a resumed
+                # run ingests boundary t as the uninterrupted one did
+                state, data = ingestor.step(self, state, data, t)
+            # hand the span the only reference this loop has to its start
+            # state (not this variable, nor the last span's report or
+            # checkpoint payload), so its first round can free it as an
+            # unchunked run's does: MF's R is 9.3 GB at the chip shape
+            held, state, rep, payload = [state], None, None, None
+            rep = self._execute_span(held.pop(), data, generator, plan,
+                                     min(span, plan.rounds - t), t, carry,
                                      collect, cb, noise)
             state, carry = rep.state, rep.carry
             if rep.trace is not None:
@@ -802,20 +861,27 @@ class StradsEngine:
             if rep.telemetry is not None:
                 ssp_parts.append(rep.telemetry)
             t = int(carry.t)
-            if self.partitioner is not None:
+            at_chunk = (not chunk or t % chunk == 0 or t >= plan.rounds
+                        or bool(stops))
+            if self.partitioner is not None and at_chunk:
                 # after the last chunk no round runs: measure, never move
                 state, sig0 = self._partition_step(
                     state, sig0, t, allow_move=t < plan.rounds)
-            payload = {"state": state, "carry": carry}
-            if self.partitioner is not None:
-                payload["assignment"] = self.partition_payload()
-            with self._obs_span("checkpoint", t=t):
-                save_checkpoint(ckpt_dir, t, payload)
+            if ckpt_dir and at_chunk:
+                payload = {"state": state, "carry": carry}
+                if self.partitioner is not None:
+                    payload["assignment"] = self.partition_payload()
+                if ingestor is not None:
+                    payload["stream"] = ingestor.payload()
+                with self._obs_span("checkpoint", t=t):
+                    save_checkpoint(ckpt_dir, t, payload)
             if stops:                           # honored across chunks
                 break
         return ExecutionReport(state=state, trace=_concat(traces),
                                telemetry=ssp_parts or None, carry=carry,
-                               plan=plan)
+                               plan=plan,
+                               stream=(ingestor.payload()
+                                       if ingestor is not None else None))
 
     def _step_length(self, plan: ExecutionPlan) -> int:
         """Rounds one step of the plan's executor covers — the alignment
@@ -848,11 +914,16 @@ class StradsEngine:
         obs = getattr(prev_carry, "obs", None)
         if obs is None and plan.telemetry:
             obs = obs_counters.init_counters(self.phase_period, self.device)
+        # ssp and pipelined get the only reference this frame has to the
+        # start state, so they can free it after its first round (see
+        # _execute_chunked); loop and scan rebind it below
+        held, state = [state], None
         if plan.executor == "ssp":
+            from ..ps.ssp import run_ssp
             with self._obs_span("ssp", t0=t0, rounds=rounds,
                                 staleness=plan.staleness):
-                state, *rest = self.run_ssp(
-                    state, data, generator, rounds,
+                state, *rest = run_ssp(
+                    self, held.pop(), data, generator, rounds,
                     staleness=plan.staleness, collect=collect,
                     with_telemetry=bool(plan.telemetry), t0=t0,
                     clocks=getattr(prev_carry, "clocks", None),
@@ -869,14 +940,15 @@ class StradsEngine:
                              f"({period}) so phases stay static; got {t0}")
         if plan.executor == "pipelined":
             with self._obs_span("pipelined", t0=t0, rounds=rounds):
-                return self._execute_pipelined(state, data, generator, plan,
-                                               rounds, t0, prev_carry, sc,
-                                               collect, noise, obs)
+                return self._execute_pipelined(held.pop(), data, generator,
+                                               plan, rounds, t0, prev_carry,
+                                               sc, collect, noise, obs)
         # loop and scan share this body; scan has no callback and nothing
         # in it reads a device value on the host
         ys: list = []
         executed = 0
         num_cand = self._obs_num_candidates()
+        state = held.pop()
         with self._obs_span(plan.executor, t0=t0, rounds=rounds):
             for k in range(rounds):
                 t = t0 + k

@@ -263,9 +263,15 @@ class ExecutionReport:
                 (:class:`repro_torch.ps.SSPCarry` for ``ssp``); pass it
                 back to ``execute`` to continue the same plan bit-exactly.
     plan:       the plan that produced this report.
+    stream:     the final stream-cursor payload (flat numpy int64:
+                ``cursor``/``rows_in``/``rows_dropped``/``fill0``) when
+                the run streamed data in via ``execute(..., stream=,
+                source=)``; ``None`` for unstreamed runs.  The same dict
+                rides each checkpoint as its ``"stream"`` subtree.
     """
     state: Any
     trace: Any = None
     telemetry: Any = None
     carry: Any = None
     plan: Optional[ExecutionPlan] = None
+    stream: Optional[dict] = None

@@ -38,6 +38,26 @@ in with one primitive, ``query(state, batch) -> result``: one batched
 inference request against a (possibly stale) state view, the leaves of
 ``batch`` and of the result carrying a leading request axis.  It reads
 the state and never writes it.
+
+The ingest-injection contract: streaming (:mod:`repro_torch.stream`)
+writes new observations into a running job at host-synced chunk
+boundaries.  Apps opt in with two primitives:
+
+* ``ingest_specs() -> {"leaves": (...), "valid": fn | None}`` — which
+  data leaves stream (every delta carries all of them) and, for the
+  ``"extend"`` kind, how to derive the per-row validity mask of a data
+  dict (``valid(data) -> (rows,)`` bool tensor; ``None``: no validity
+  channel, so ``supported_stream_kinds`` must exclude ``"extend"``);
+* ``ingest(data, state, rows, delta) -> (data, state)`` — write the
+  ``rows`` (host int64 global rows, flat over the worker layout, unique)
+  of the streamable leaves with ``delta["data"]`` and bring the derived
+  state of those rows up to date (Lasso's r, MF's R, LDA's counts).
+  Delta arrays are numpy or tensors on any device.  The port writes into
+  the tensors it is handed and touches only the named rows (no
+  whole-leaf copies); ``state=None`` applies the data-leaf writes only.
+
+``supported_stream_kinds`` (``None`` = any) is checked when the stream
+is bound, as the scheduler kinds are.
 """
 from __future__ import annotations
 
@@ -151,6 +171,29 @@ class StradsAppBase:
             f"{type(self).__name__} declares no query() primitive — "
             f"serving (repro_torch.serve) needs one; see the "
             f"serving-injection contract in repro_torch.core.primitives")
+
+    #: which StreamSpec kinds this app can ingest (None = any; apps
+    #: without a validity channel cannot host "extend")
+    supported_stream_kinds = None
+
+    def ingest_specs(self) -> dict:
+        """``{"leaves": (...), "valid": fn | None}`` — the
+        ingest-injection contract (see the module docstring).  Default:
+        the app declares no ingest primitives and cannot stream."""
+        raise NotImplementedError(
+            f"{type(self).__name__} declares no ingest_specs() primitive "
+            f"— streaming (repro_torch.stream) needs one; see the "
+            f"ingest-injection contract in repro_torch.core.primitives")
+
+    def ingest(self, data, state, rows, delta):
+        """Write the ``rows`` slots of the streamable leaves with
+        ``delta["data"]`` and bring derived state up to date — the
+        ingest-injection contract (see the module docstring).  Default:
+        the app declares no ingest primitive and cannot stream."""
+        raise NotImplementedError(
+            f"{type(self).__name__} declares no ingest() primitive — "
+            f"streaming (repro_torch.stream) needs one; see the "
+            f"ingest-injection contract in repro_torch.core.primitives")
 
 
 @dataclasses.dataclass(frozen=True)

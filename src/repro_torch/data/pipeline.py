@@ -11,7 +11,7 @@ same tokens.
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict
+from typing import Dict, Iterator
 
 import numpy as np
 import torch
@@ -53,3 +53,19 @@ def make_batch(cfg: SyntheticLMConfig, step: int,
     seq = (base + torch.where(last >= 0, t - last, t + 1)) % V
     seq = seq.to(device)
     return {"tokens": seq[:, :-1], "labels": seq[:, 1:]}
+
+
+def synthetic_batches(cfg: SyntheticLMConfig, **kw
+                      ) -> Iterator[Dict[str, torch.Tensor]]:
+    """The trainer-facing batch iterator — a thin walk over
+    :class:`repro_torch.stream.source.SyntheticLMSource`, so the streaming
+    subsystem's DataSource and this generator share one batch-derivation
+    path (same ``(seed, step)`` schedule, same deltas).  ``kw`` goes to
+    :func:`make_batch` (``device=``)."""
+    from ..stream.source import SyntheticLMSource
+    src = SyntheticLMSource(cfg, kwargs=kw or None)
+    step = 0
+    while True:
+        for delta in src.take(step):
+            yield delta["data"]
+        step += 1

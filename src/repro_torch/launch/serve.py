@@ -17,8 +17,11 @@ a Chrome trace of serve batches interleaved with training chunks;
 ``--out`` writes the JSON artifact (spec and plan embedded).  Runs on
 the card unless ``--device cpu``.
 
-``--stream``, ``--stream-kind`` and ``--ingest-every`` (streaming
-ingest) are parsed and refused: ROADMAP.md queue 1, step 11b.
+``--stream`` folds a deterministic drift source (the JAX package's
+``_drift_source`` dimensions, from ``--seed``) into the training data at
+the chunk boundaries (``--stream-kind``: ``replace`` for lasso,
+``extend`` otherwise; ``--ingest-every``: one SSP window by default,
+aligned up to whole windows) and prints ``rows ingested=``.
 """
 from __future__ import annotations
 
@@ -45,9 +48,11 @@ def _build(engine: str, workers: int, seed: int, device):
         eng = lasso.make_engine(cfg, workers=workers, device=device)
         data = eng.shard_data({"X": X, "y": y})
         state = eng.init_state(y=y)
+        Xq = X.copy()          # on the CPU the data shares X's memory,
+                               # and --stream writes it in place
 
         def payload(i):
-            return {"x": X[i % n]}
+            return {"x": Xq[i % n]}
     elif engine == "lda":
         from ..apps import lda
         cfg = lda.LDAConfig(vocab=workers * 32, num_topics=8,
@@ -84,6 +89,25 @@ def _phase_period(engine: str, workers: int) -> int:
     return workers if engine == "lda" else {"lasso": 1, "mf": 2}[engine]
 
 
+def _drift_source(engine: str, workers: int, kind: str, seed: int):
+    """A deterministic drift source matching ``_build``'s workload
+    dimensions (fresh rows every ingest boundary)."""
+    from ..stream import LassoDriftSource, LDADriftSource, MFDriftSource
+    if engine == "lasso":
+        return LassoDriftSource(num_rows=workers * 32, num_features=128,
+                                rows_per_ingest=4 * workers,
+                                seed=seed + 2)
+    if engine == "lda":
+        return LDADriftSource(num_tokens=workers * 64,
+                              vocab=workers * 32, num_topics=8,
+                              docs_per_worker=8,
+                              tokens_per_ingest=8 * workers, kind=kind,
+                              seed=seed + 2)
+    return MFDriftSource(num_rows=workers * 16, num_cols=64,
+                         rows_per_ingest=2 * workers, true_rank=4,
+                         kind=kind, seed=seed + 2)
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(
         description="serve model state out of the STRADS SSP caches")
@@ -106,11 +130,15 @@ def main(argv=None):
                     help="train first, then serve the final state "
                          "(no interleaving)")
     ap.add_argument("--stream", action="store_true",
-                    help="streaming ingest (not ported yet)")
+                    help="fold synthetic drift deltas into the training "
+                         "data at chunk boundaries (repro_torch.stream)")
     ap.add_argument("--stream-kind", choices=("replace", "extend"),
-                    default=None, help="streaming ingest (not ported yet)")
+                    default=None,
+                    help="StreamSpec kind (default: replace for lasso, "
+                         "extend otherwise)")
     ap.add_argument("--ingest-every", type=int, default=None,
-                    help="streaming ingest (not ported yet)")
+                    help="ingest cadence in rounds (default: one SSP "
+                         "window; aligned up like --rounds)")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default="cuda",
                     help="where the engine runs (default: the card)")
@@ -120,11 +148,12 @@ def main(argv=None):
                     help="write the JSON artifact (spec/plan embedded)")
     args = ap.parse_args(argv)
 
-    if args.stream or args.stream_kind is not None \
-            or args.ingest_every is not None:
-        raise NotImplementedError(
-            "--stream/--stream-kind/--ingest-every: streaming ingest is "
-            "not ported yet: ROADMAP.md queue 1, step 11b")
+    if not args.stream:
+        for flag, name in ((args.stream_kind, "--stream-kind"),
+                           (args.ingest_every, "--ingest-every")):
+            if flag is not None:
+                raise SystemExit(f"{name} needs --stream (it configures "
+                                 f"the streaming ingest)")
 
     from ..core import ExecutionPlan, resolve_device
     from ..obs import Recorder
@@ -171,19 +200,38 @@ def main(argv=None):
     rec = Recorder()
     gen = torch.Generator(device=device).manual_seed(args.seed + 1)
 
+    stream_kw: dict = {}
+    sspec = None
+    if args.stream:
+        from ..stream import StreamSpec
+        kind = args.stream_kind or ("replace" if args.engine == "lasso"
+                                    else "extend")
+        L = math.lcm((plan.staleness + 1) if plan.executor == "ssp"
+                     else 1, _phase_period(args.engine, workers))
+        every = args.ingest_every if args.ingest_every else L
+        aligned = -(-every // L) * L
+        if aligned != every:
+            print(f"[align] ingest-every {every} -> {aligned} "
+                  f"(whole boundary windows of {L})")
+        sspec = StreamSpec.default_for(kind, ingest_every=aligned)
+        stream_kw = dict(stream=sspec,
+                         source=_drift_source(args.engine, workers,
+                                              kind, args.seed))
+
     t0 = time.perf_counter()
     if args.serve_only:
-        rep0 = eng.execute(state, data, gen, plan)
+        rep0 = eng.execute(state, data, gen, plan, **stream_kw)
         srep = serve_only(eng, rep0.state, spec=spec,
                           requests=[payload(i)
                                     for i in range(args.requests)],
                           t=plan.rounds, recorder=rec)
+        srep.ingest = rep0.stream
     else:
         reqs = [((i * plan.rounds) // max(args.requests, 1), payload(i))
                 for i in range(args.requests)]
         srep = serve_while_training(eng, state, data, gen, plan,
                                     spec=spec, requests=reqs,
-                                    recorder=rec)
+                                    recorder=rec, **stream_kw)
     secs = time.perf_counter() - t0
 
     pct = srep.latency_percentiles()
@@ -195,6 +243,10 @@ def main(argv=None):
     print(f"serve spec: {spec.to_json()}")
     print(f"latency p50={pct['p50_ms']:.2f}ms p99={pct['p99_ms']:.2f}ms "
           f"({len(srep.responses) / secs:.1f} requests/s over {secs:.2f} s)")
+    if srep.ingest is not None:
+        print(f"stream spec: {sspec.to_json()}")
+        print(f"rows ingested={int(srep.ingest['rows_in'])} "
+              f"dropped={int(srep.ingest['rows_dropped'])}")
     print(f"staleness-at-read hist: "
           f"{ {k: hist[k] for k in sorted(hist)} } (max {worst})")
     if args.trace:
@@ -209,6 +261,10 @@ def main(argv=None):
             "staleness_hist": {str(k): v for k, v in hist.items()},
             "max_staleness_read": worst, "reads": srep.reads,
         }
+        if srep.ingest is not None:
+            artifact["stream_spec"] = sspec.to_json()
+            artifact["ingest"] = {k: int(v)
+                                  for k, v in srep.ingest.items()}
         with open(args.out, "w") as f:
             json.dump(artifact, f, indent=1)
         print(f"wrote {args.out}")

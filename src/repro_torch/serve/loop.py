@@ -23,8 +23,13 @@ Requests fold in by due round: ``requests`` is a sequence of
 reaches ``t_due``.  Spans and instants ride a caller's
 :class:`~repro_torch.obs.Recorder` (``train_chunk`` spans around each
 executor span, ``serve_batch`` spans and ``serve_read`` /
-``serve_refresh`` / ``serve_pin`` instants between them).  Streaming
-ingest (``stream=``/``source=``) is not ported yet.
+``serve_refresh`` / ``serve_pin`` instants between them).
+
+Streaming ingest (``stream=``/``source=``) lands at the same boundaries:
+boundary 0 ingests before the clock-0 publish, each later boundary after
+its chunk and before its publish.  The ingest writes the state in place,
+and the view was released before the chunk, so no published view holds
+a tensor the ingest writes.
 """
 from __future__ import annotations
 
@@ -48,6 +53,7 @@ class ServeReport:
     latencies_ms: List[float]
     reads: List[dict]
     spec: ServeSpec
+    ingest: Optional[dict] = None
 
     def latency_percentiles(self) -> dict:
         return _percentiles(self.latencies_ms)
@@ -105,12 +111,18 @@ def serve_while_training(engine, state, data, generator,
 
     ``chunk_rounds`` overrides the publish cadence (a multiple of the
     executor's step length; default: one step — for SSP, one flush
-    window).  ``stream``/``source``/``stream_state`` (streaming ingest)
-    are not ported yet and raise ``NotImplementedError``."""
-    if stream is not None or source is not None or stream_state is not None:
-        raise NotImplementedError(
-            "streaming ingest (stream=, source=) is not ported yet: "
-            "ROADMAP.md queue 1, step 11b")
+    window).
+
+    ``stream`` (a :class:`~repro_torch.stream.StreamSpec`) + ``source``
+    ingest data deltas at the same boundaries serving publishes at: each
+    boundary ``t`` ingests *before* the chunk covering ``[t, t+chunk)``
+    runs and before the clock-``t`` publish, the ordering
+    ``engine.execute(..., stream=)`` uses — so a served streamed run's
+    trained state equals an unserved streamed one to the bit, and every
+    published view includes all deltas due ≤ its clock.  As in
+    ``execute``, the ingest writes into ``data``'s tensors and the
+    state's.  The final cursor payload lands on the report as
+    :attr:`ServeReport.ingest`."""
     spec = _resolve_spec(spec, plan)
     due = _check_requests(requests)
     step = engine._step_length(plan)
@@ -123,6 +135,24 @@ def serve_while_training(engine, state, data, generator,
         if not 0 <= t_due <= plan.rounds:
             raise ValueError(f"request due round {t_due} outside the "
                              f"plan's 0..{plan.rounds}")
+    if (stream is None) != (source is None):
+        raise ValueError("stream= (a StreamSpec) and source= (a "
+                         "DataSource) come as a pair — got only one")
+    ing = None
+    if stream is not None:
+        from ..stream import Ingestor
+        ing = Ingestor(stream, source)
+        if stream_state is not None:
+            ing.restore(stream_state)
+        ing.bind(engine, data)
+        if stream.ingest_every % chunk:
+            raise ValueError(
+                f"stream.ingest_every={stream.ingest_every} must be a "
+                f"multiple of the serve chunk cadence {chunk} — ingest "
+                f"boundaries land only where the loop syncs")
+    elif stream_state is not None:
+        raise ValueError("stream_state resumes a streamed run; pass "
+                         "the stream=/source= pair with it")
 
     view = ModelView(engine, spec, recorder=recorder)
     frontend = ServeFrontend(engine, view, spec, recorder=recorder)
@@ -132,6 +162,10 @@ def serve_while_training(engine, state, data, generator,
             frontend.submit(due.pop(0)[1])
         frontend.flush(force=force)
 
+    # boundary 0 ingests first, so the clock-0 publish (serving before
+    # any training commits) already includes the deltas due at 0
+    if ing is not None:
+        state, data = ing.step(engine, state, data, 0)
     view.publish(state, 0)
     pump(0, force=False)
 
@@ -145,22 +179,31 @@ def serve_while_training(engine, state, data, generator,
         span = (recorder.span("train_chunk", t0=t, t1=target)
                 if recorder is not None else contextlib.nullcontext())
         with span:
-            rep = engine.execute(state, data, generator,
+            # hand the chunk the loop's only reference to its start state,
+            # so its first round frees it (MF's R is 9.3 GB at the chip
+            # shape)
+            held, state, rep = [state], None, None
+            rep = engine.execute(held.pop(), data, generator,
                                  dataclasses.replace(plan, rounds=target),
                                  collect=collect, carry=carry, noise=noise)
         state, carry = rep.state, rep.carry
         t = int(carry.t)
         if rep.trace is not None:
             traces.append(rep.trace)
+        if ing is not None and t < plan.rounds:
+            state, data = ing.step(engine, state, data, t)
         view.publish(state, t)
         pump(t, force=(t >= plan.rounds))
 
     report = ExecutionReport(state=state, trace=_concat(traces),
                              telemetry=rep.telemetry if rep is not None
-                             else None, carry=carry, plan=plan)
+                             else None, carry=carry, plan=plan,
+                             stream=ing.payload() if ing is not None
+                             else None)
     return ServeReport(report=report, responses=frontend.responses,
                        latencies_ms=frontend.latencies_ms,
-                       reads=view.reads, spec=spec)
+                       reads=view.reads, spec=spec,
+                       ingest=ing.payload() if ing is not None else None)
 
 
 def serve_only(engine, state, *, spec: Optional[ServeSpec] = None,

@@ -268,7 +268,7 @@ def test_execute_rejects_what_is_not_ported(problem):
     data = eng.shard_data({"X": X, "y": y})
     state = eng.init_state(y=y)
     from repro_torch.part import PartitionerSpec
-    with pytest.raises(NotImplementedError, match="ROADMAP.md.*step 11b"):
+    with pytest.raises(TypeError, match="stream= wants a StreamSpec"):
         eng.execute(state, data, None, ExecutionPlan(rounds=2),
                     stream=object(), source=object())
     with pytest.raises(ValueError, match="plan.workers=4"):

@@ -539,9 +539,17 @@ def test_ingest_keeps_the_collapsed_counts_exact():
     delta = {"data": {"words": np.array([3, -1, 52, 0], np.int32),
                       "docs": np.array([1, 0, 4, 2], np.int32)},
              "z": np.array([6, 0, 2, 5], np.int32)}
+    version = data["words"]._version
     new_data, new_state = eng.app.ingest(data, state, rows, delta)
-    for k, v in before.items():
-        assert torch.equal(state[k], v)      # the inputs are not changed
+    # written in place: the same tensors, the words' version bumped (so
+    # the sweep's token index is rebuilt), other slots untouched
+    for k in state:
+        assert new_state[k] is state[k]
+    assert new_data["words"] is data["words"]
+    assert data["words"]._version > version
+    keep = np.setdiff1d(np.arange(U * T), rows)
+    assert torch.equal(new_state["z"].reshape(-1)[keep],
+                       before["z"].reshape(-1)[keep])
     w = new_data["words"].reshape(-1).numpy()
     d = new_data["docs"].reshape(-1).numpy()
     flat = eng.unshard(new_state)

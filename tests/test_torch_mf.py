@@ -373,16 +373,20 @@ def test_ingest_keeps_the_residual_on_touched_rows(problem):
     m_new = (r.uniform(size=(3, M)) < 0.5).astype(np.float32)
     A_new = (r.standard_normal((3, M)) * m_new).astype(np.float32)
     before = {k: v.clone() for k, v in state.items()}
+    A2, m2 = A.copy(), mask.copy()      # the data shares A's memory here
+    A2[rows] = A_new
+    m2[rows] = m_new
     new_data, new_state = eng.app.ingest(
         data, state, rows, {"data": {"A": A_new, "mask": m_new}})
-    for k, v in before.items():
-        assert torch.equal(state[k], v)      # the inputs are not changed
+    # written in place, only on the rows: the same tensors back
+    for k in state:
+        assert new_state[k] is state[k]
+    for k in data:
+        assert new_data[k] is data[k]
+    assert torch.equal(new_state["W"], before["W"])
+    assert torch.equal(new_state["H"], before["H"])
     fd = {k: v.reshape(N, M) for k, v in new_data.items()}
     fs = eng.unshard(new_state)
-    A2 = A.copy()
-    A2[rows] = A_new
-    m2 = mask.copy()
-    m2[rows] = m_new
     np.testing.assert_array_equal(fd["A"].numpy(), A2)
     np.testing.assert_array_equal(fd["mask"].numpy(), m2)
     W, H = fs["W"].numpy(), fs["H"].numpy()
@@ -390,7 +394,7 @@ def test_ingest_keeps_the_residual_on_touched_rows(problem):
                                (A_new - W[rows] @ H) * m_new, atol=1e-5)
     keep = np.setdiff1d(np.arange(N), rows)
     np.testing.assert_array_equal(fs["R"].numpy()[keep],
-                                  eng.unshard(state)["R"].numpy()[keep])
+                                  eng.unshard(before)["R"].numpy()[keep])
     valid = eng.app.ingest_specs()["valid"](new_data)
     np.testing.assert_array_equal(valid.numpy(), m2.any(axis=1))
     assert eng.app.ingest(data, None, rows, {"data": {

@@ -510,7 +510,7 @@ def test_serve_while_training_records_spans_and_rejects_bad_input(
         serve_while_training(eng, init(), data, None,
                              ExecutionPlan(executor="ssp", rounds=12,
                                            staleness=2), chunk_rounds=4)
-    with pytest.raises(NotImplementedError, match="step 11b"):
+    with pytest.raises(TypeError, match="stream= wants a StreamSpec"):
         serve_while_training(eng, init(), data, None, plan,
                              stream=object(), source=object())
 
@@ -585,9 +585,8 @@ def test_serve_cli_options_and_refusals(tmp_path):
     srep = tserve.main(["--engine", "lasso", "--requests", "4", "--device",
                         "cpu", "--serve-only", "--staleness", "0"])
     assert srep.report is None and srep.reads[0]["t"] == 12
-    for argv in (["--stream"], ["--stream-kind", "extend"],
-                 ["--ingest-every", "4"]):
-        with pytest.raises(NotImplementedError, match="step 11b"):
+    for argv in (["--stream-kind", "extend"], ["--ingest-every", "4"]):
+        with pytest.raises(SystemExit, match="needs --stream"):
             tserve.main(["--engine", "lasso", "--device", "cpu"] + argv)
     with pytest.raises(SystemExit, match="conflicts"):
         tserve.main(["--engine", "lasso", "--device", "cpu", "--plan", plan,
