@@ -182,6 +182,22 @@
    of a float64 control above twice the plain path's own distance from
    it; a row below that is a tie at f32's resolution, and its token must
    be one of the control's top two).
+10. Model-zoo training of MiniCPM-2B at its published widths and full
+   depth (40 layers, 3.01 × 10⁹ parameters), bf16, batch 4, sequence
+   2,048, through ``repro_torch.launch.train.main``: 8 plain steps (WSD),
+   with the launch counts set to 0 just before and read just after (2 ×
+   40 forward launches a step, the forward and the group checkpoint's
+   recompute, and 40 backward launches), a falling loss, every
+   parameter's gradient finite and the attention projections' nonzero in
+   every layer; then 8 ``--strads`` steps (U = 20 of 41 blocks,
+   ``--weight-decay 0``) in which every block the mask left out keeps its
+   bits; profiler windows over a plain and a STRADS step; the backward
+   kernel (and the forward's ``lse``) at layer 0's real inputs and at
+   GQA, head-dim 80, windowed, Sq ≠ Skv and ragged shapes against its
+   plain version, timed with SDPA's forward and backward beside it; a
+   2-layer float32 step (loss and every gradient leaf) with the kernels
+   against the plain attention; and at 4 layers a checkpointed run
+   resumed from step 4 equal to the uninterrupted run to the bit.
 
 Kernel times: ``ms`` is the eager loop (CUDA events around 50–200 calls
 enqueued back to back), which for a kernel of a few microseconds times
@@ -257,14 +273,19 @@ SOURCES = {"lasso_partial": SOURCE, "gram_block": SOURCE,
                "src/repro_torch/kernels/csrc/flash_attention.cu",
            "topk_gating": "src/repro_torch/kernels/csrc/moe_gating.cu",
            "ssm_scan": "src/repro_torch/kernels/csrc/ssm_scan.cu",
-           "lda_gibbs": "src/repro_torch/kernels/csrc/lda_gibbs.cu"}
+           "lda_gibbs": "src/repro_torch/kernels/csrc/lda_gibbs.cu",
+           "flash_attention_bwd":
+               "src/repro_torch/kernels/csrc/flash_attention.cu"}
 REPLACES = {"lasso_partial": "src/repro/kernels/lasso_cd.py:50",
             "gram_block": "src/repro/kernels/lasso_cd.py:94",
             "flash_attention": "src/repro/kernels/flash_attention.py:100",
             "topk_gating": "src/repro/kernels/moe_gating.py:56",
             "ssm_scan": "src/repro/kernels/ssm_scan.py:67",
             # no Pallas kernel: the lax.scan of _gibbs_scan
-            "lda_gibbs": "src/repro/apps/lda.py:73"}
+            "lda_gibbs": "src/repro/apps/lda.py:73",
+            # no Pallas kernel: the JAX package differentiates the forward
+            # (its _sdpa, models/layers.py:186) by autodiff
+            "flash_attention_bwd": "src/repro/kernels/flash_attention.py:100"}
 ARCH = "phi3.5-moe-42b-a6.6b"
 BATCH, PROMPT, GEN = 4, 1024, 32
 ZAMBA = "zamba2-2.7b"
@@ -3690,6 +3711,7 @@ def serve_phase(torch, ops, ref, M, serve_lm, layers: int, seed: int):
 
         toks, numbers = main_path(torch, ops, M, srv, {
             "flash_attention": cfg.num_layers,
+            "flash_attention_bwd": 0,
             "topk_gating": cfg.num_layers * (GEN + 1), "ssm_scan": 0})
         for name in kern:
             kern[name]["launches"] = numbers["launches"][name]
@@ -3740,7 +3762,8 @@ def parity_phase(torch, ops, ref, M, get_config, data, seed: int):
     with torch.inference_mode():
         ops.reset_launch_counts()
         lk, tk, dk = first_step(torch, M, cfg, prm, batch, cache_len)
-        check(ops.LAUNCHES == {"flash_attention": 2, "topk_gating": 4,
+        check(ops.LAUNCHES == {"flash_attention": 2,
+                               "flash_attention_bwd": 0, "topk_gating": 4,
                                "ssm_scan": 0},
               f"f32 run launches {ops.LAUNCHES}")
         with patched(ops, attention=ref.attention_ref,
@@ -3933,8 +3956,8 @@ def zamba_phase(torch, ops, ref, M, serve_lm, layers: int, seed: int):
         del sfirst
 
         toks, numbers = main_path(torch, ops, M, srv, {
-            "flash_attention": groups, "topk_gating": 0,
-            "ssm_scan": cfg.num_layers})
+            "flash_attention": groups, "flash_attention_bwd": 0,
+            "topk_gating": 0, "ssm_scan": cfg.num_layers})
         res.update(numbers)
 
         # the same first step with the plain versions (printed only)
@@ -3995,7 +4018,8 @@ def zamba_parity_phase(torch, ops, ref, M, get_config, data, seed: int):
     with torch.inference_mode():
         ops.reset_launch_counts()
         lk, tk, dk = first_step(torch, M, cfg, prm, batch, cache_len)
-        check(ops.LAUNCHES == {"flash_attention": 2, "topk_gating": 0,
+        check(ops.LAUNCHES == {"flash_attention": 2,
+                               "flash_attention_bwd": 0, "topk_gating": 0,
                                "ssm_scan": 12},
               f"Zamba2 f32 run launches {ops.LAUNCHES}")
         with patched(ops, attention=ref.attention_ref,
@@ -4054,6 +4078,497 @@ def zamba_parity_phase(torch, ops, ref, M, get_config, data, seed: int):
     return out
 
 
+# ---------------------------------------------------------------------------
+# Model-zoo training of MiniCPM-2B: flash_attention forward and backward
+# ---------------------------------------------------------------------------
+
+TRAIN_ARCH = "minicpm-2b"
+TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 4, 2048, 8
+TRAIN_RESUME_LAYERS = 4        # the resume check's depth (checkpoints of the
+                               # full-depth state take ~36 GB each)
+ATTN_BWD_TOL = 2e-2            # bf16 dq, dk, dv vs the f32 plain version:
+                               # |Δ| ≤ ATTN_BWD_TOL·max|plain| (P and dS are
+                               # rounded to bf16 as operands)
+ATTN_BWD_TOL_F32 = 1e-4        # f32 kernels vs the f64 plain version
+LSE_TOL = 1e-4                 # |Δ lse| ≤ LSE_TOL·max(1, max|lse|)
+TRAIN_LOSS_TOL = 1e-5          # f32 parity: |Δ loss| ≤ TRAIN_LOSS_TOL·|loss|
+TRAIN_GRAD_TOL = 1e-3          # f32 parity: |Δ g| ≤ TRAIN_GRAD_TOL·max|g|
+                               # for every parameter leaf
+
+
+def train_argv(seed: int, *extra) -> list:
+    return ["--arch", TRAIN_ARCH, "--preset", "full", "--batch",
+            str(TRAIN_BATCH), "--seq", str(TRAIN_SEQ), "--steps",
+            str(TRAIN_STEPS), "--log-every", "1", "--seed", str(seed),
+            "--device", DEVICE, *extra]
+
+
+def train_run(torch, ops, tlaunch, argv, on_step, layers: int) -> tuple:
+    """One ``launch.train.main`` run with the launch counts set to 0 just
+    before and read just after: 2 forward launches a layer a step (the
+    forward and the group checkpoint's recompute) and 1 backward."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    hist = tlaunch.main(argv, on_step=on_step)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    launches = dict(ops.LAUNCHES)
+    want = {"flash_attention": 2 * layers * TRAIN_STEPS,
+            "flash_attention_bwd": layers * TRAIN_STEPS, "topk_gating": 0,
+            "ssm_scan": 0}
+    check(launches == want, f"training run {argv[-4:]}: launches "
+                            f"{launches}, expected {want}")
+    losses = [h["loss"] for h in hist]
+    check(len(hist) == TRAIN_STEPS and all(map(math.isfinite, losses)),
+          f"training run: losses {losses}")
+    check(losses[-1] < losses[0], f"training run: the loss did not fall: "
+                                  f"{losses}")
+    step_ms = median([h["step_ms"] for h in hist[1:]])
+    return hist, {
+        "seconds": secs, "launches": launches, "losses": losses,
+        "grad_norms": [h["grad_norm"] for h in hist],
+        "lrs": [h["lr"] for h in hist],
+        "step_ms": [h["step_ms"] for h in hist],
+        "step_ms_median_2_8": step_ms,
+        "tokens_per_s": TRAIN_BATCH * TRAIN_SEQ / (step_ms / 1e3),
+        "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9}
+
+
+def bwd_bound(torch, ref, q, k, causal, window) -> tuple[float, str]:
+    """Least time for one backward call: its five products (QKᵀ, dO·Vᵀ,
+    Pᵀ·dO, dSᵀ·Q, dS·K; 2·D operations a visible pair each) at the
+    tensor cores' bf16 rate (FP32 rate for f32), or q, k, v, o, dO and
+    lse read and dq, dk, dv written once, if that takes longer."""
+    B, Sq, Hq, D = q.shape
+    Skv, Hkv = k.shape[1], k.shape[2]
+    pairs = int(ref.attention_mask(Sq, Skv, Skv - Sq, causal,
+                                   window).sum())
+    rate = PEAK_BF16_FLOPS if q.dtype == torch.bfloat16 else PEAK_F32_FLOPS
+    t_ops = 10.0 * B * Hq * D * pairs / rate
+    nbytes = (q.element_size() * (4 * B * Sq * Hq * D + 4 * B * Skv * Hkv * D)
+              + 4 * B * Hq * Sq)
+    t_bytes = nbytes / PEAK_BYTES_PER_S
+    return max(t_ops, t_bytes) * 1e3, ("bytes" if t_bytes >= t_ops
+                                       else "operations")
+
+
+def bwd_check(torch, ref, tfa, q, k, v, kw, seed: int) -> dict:
+    """The forward (with lse) and the backward kernel at (q, k, v) (B, S,
+    H, D) against the plain versions: f32 math for bf16 inputs within
+    ATTN_BWD_TOL of each gradient's largest magnitude, f64 math for f32
+    inputs within ATTN_BWD_TOL_F32; lse within LSE_TOL, −inf on exactly
+    the rows that see no key; two runs equal to the bit."""
+    t = lambda x: x.transpose(1, 2)
+    gen = torch.Generator(device=DEVICE).manual_seed(seed)
+    dout = torch.randn(q.shape, generator=gen, device=DEVICE).to(q.dtype)
+
+    def run():
+        o, lse = tfa.flash_attention(t(q), t(k), t(v), return_lse=True, **kw)
+        g = tfa.flash_attention_bwd(t(q), t(k), t(v), o, lse, t(dout), **kw)
+        return (t(o), lse) + tuple(t(x) for x in g)
+    first, again = run(), run()
+    torch.cuda.synchronize()
+    check(all(torch.equal(a, b) for a, b in zip(first, again)),
+          f"flash_attention_bwd: two runs differ at {tuple(q.shape)}")
+    o, lse, dq, dk, dv = first
+    bf16 = q.dtype == torch.bfloat16
+    rdt, tol = (torch.float32, ATTN_BWD_TOL) if bf16 else \
+        (torch.float64, ATTN_BWD_TOL_F32)
+    shape = f"q {tuple(q.shape)} k {tuple(k.shape)} {kw} {q.dtype}"
+    lse_ref = ref.attention_lse_ref(q, k, **kw, dtype=rdt)
+    seen = torch.isfinite(lse_ref)
+    check(torch.equal(seen, torch.isfinite(lse))
+          and bool((lse[~seen] == float("-inf")).all()),
+          f"flash_attention lse: rows without a key differ at {shape}")
+    lse_err = (lse[seen].double() - lse_ref[seen].double()).abs().max()
+    lse_err = lse_err.item() if seen.any() else 0.0
+    lse_scale = max(1.0, lse_ref[seen].abs().max().item()) \
+        if seen.any() else 1.0
+    check(lse_err <= LSE_TOL * lse_scale,
+          f"flash_attention lse: error {lse_err} at {shape}")
+    fwd_err, fwd_rel = rel_err(torch, o, ref.attention_ref(q, k, v, **kw))
+    check(fwd_rel <= (ATTN_TOL if bf16 else ATTN_TOL_F32),
+          f"flash_attention: forward error {fwd_rel} at {shape}")
+    want = ref.attention_bwd_ref(q, k, v, o, dout, lse_ref, **kw, dtype=rdt)
+    out = {"shape": shape, "lse_max_abs_err": lse_err,
+           "forward_max_abs_err": fwd_err, "tolerance": tol}
+    for name, got, w in zip(("dq", "dk", "dv"), (dq, dk, dv), want):
+        err = (got.to(rdt) - w).abs().max().item()
+        scale = w.abs().max().item()
+        out[f"{name}_max_abs_err"] = err
+        out[f"{name}_max_abs"] = scale
+        check(err <= tol * scale, f"flash_attention_bwd: {name} error {err} "
+                                  f"> {tol}·{scale} at {shape}")
+    del want, first, again
+    return out
+
+
+# B, Sq, Skv, Hq, Hkv, D, causal, window, dtype: Granite's GQA 32/8 at head
+# dim 64, Phi's 32/8 at 128 (bf16); Zamba2's head dim 80 with a window,
+# Sq < Skv and Sq > Skv (rows that see no key) with ragged tails, and
+# full attention, in f32 against the f64 plain version
+TRAIN_BWD_CASES = [
+    (1, 2048, 2048, 32, 8, 64, True, None, "bfloat16"),
+    (1, 2048, 2048, 32, 8, 128, True, None, "bfloat16"),
+    (2, 1000, 1000, 32, 32, 80, True, 300, "float32"),
+    (2, 333, 1001, 8, 2, 64, True, None, "float32"),
+    (1, 700, 333, 8, 2, 128, True, 100, "float32"),
+    (2, 129, 257, 4, 1, 80, False, None, "float32"),
+]
+
+
+def train_kernel_phase(torch, ops, ref, tfa, first, seed: int) -> tuple:
+    """flash_attention_bwd at layer 0's inputs of a training step and at
+    the shapes of TRAIN_BWD_CASES against its plain version, then timed
+    at layer 0's inputs: the raw launchers eager and in a CUDA graph,
+    the plain version, and SDPA's forward and backward beside them.
+    Returns (the bwd kernel's entry, the forward's training-shape
+    entry)."""
+    import torch.nn.functional as F
+    q, k, v, kw = first
+    checks = {"layer0": bwd_check(torch, ref, tfa, q, k, v, kw, seed)}
+    gen = torch.Generator().manual_seed(seed + 5)
+    for i, (B, Sq, Skv, Hq, Hkv, D, causal, window, dt) in enumerate(
+            TRAIN_BWD_CASES):
+        dtype = getattr(torch, dt)
+        a, b, c = (torch.randn(s, generator=gen).to(DEVICE, dtype) for s in
+                   ((B, Sq, Hq, D), (B, Skv, Hkv, D), (B, Skv, Hkv, D)))
+        checks[f"case{i}"] = bwd_check(torch, ref, tfa, a, b, c,
+                                       {"causal": causal, "window": window},
+                                       seed + i)
+        del a, b, c
+    t = lambda x: x.transpose(1, 2)
+    gen = torch.Generator(device=DEVICE).manual_seed(seed)
+    dout = torch.randn(q.shape, generator=gen, device=DEVICE).to(q.dtype)
+    o, lse = tfa.flash_attention(t(q), t(k), t(v), return_lse=True, **kw)
+    bwd = lambda: tfa.flash_attention_bwd(t(q), t(k), t(v), o, lse, t(dout),
+                                          **kw)
+    fwd_lse = lambda: tfa.flash_attention(t(q), t(k), t(v), return_lse=True,
+                                          **kw)
+    fwd = lambda: tfa.flash_attention(t(q), t(k), t(v), **kw)
+    lse_ref = ref.attention_lse_ref(q, k, **kw)
+    plain = lambda: ref.attention_bwd_ref(q, k, v, t(o), dout, lse_ref,
+                                          **kw)
+    qs, ks, vs = (t(x).detach().requires_grad_() for x in (q, k, v))
+
+    def sdpa_fwd_bwd():
+        out = F.scaled_dot_product_attention(qs, ks, vs, is_causal=True)
+        torch.autograd.grad(out, (qs, ks, vs), t(dout))
+
+    def sdpa_fwd():
+        with torch.no_grad():
+            F.scaled_dot_product_attention(qs, ks, vs, is_causal=True)
+    check(kw["causal"] and kw["window"] is None,
+          f"flash_attention_bwd: SDPA's yardstick here is causal, no "
+          f"window; the call has {kw}")
+    timing = {
+        "ms": time_ms(torch, bwd, iters=20),
+        "device_ms": graph_ms(torch, bwd),
+        "plain_ms": time_ms(torch, plain, iters=3, warmup=1),
+        "forward_lse_ms": time_ms(torch, fwd_lse, iters=20),
+        "forward_lse_device_ms": graph_ms(torch, fwd_lse),
+        "forward_device_ms": graph_ms(torch, fwd),
+        "library_fwd_bwd_ms": time_ms(torch, sdpa_fwd_bwd, iters=20),
+        "library_fwd_ms": time_ms(torch, sdpa_fwd, iters=20),
+        "ms_repeat": time_ms(torch, bwd, iters=20)}
+    timing["library_ms"] = (timing["library_fwd_bwd_ms"]
+                            - timing["library_fwd_ms"])
+    bms, by = bwd_bound(torch, ref, q, k, kw["causal"], kw["window"])
+    fbms, fby = attention_bound(torch, ref, q, k, kw["causal"], kw["window"])
+    entry = {
+        **timing, "bound_ms": bms, "bound_by": by,
+        "bound_share": bms / timing["ms"],
+        "device_bound_share": bms / timing["device_ms"],
+        "max_abs_err": max(checks["layer0"][f"d{x}_max_abs_err"]
+                           for x in "qkv"),
+        "tolerance": f"{ATTN_BWD_TOL} of each gradient's max|plain| (bf16, "
+                     f"f32 plain), {ATTN_BWD_TOL_F32} (f32, f64 plain)",
+        "library": "F.scaled_dot_product_attention(is_causal=True) forward "
+                   "and backward, less its forward (SDPA has no backward "
+                   "call of its own)",
+        "checks": checks,
+        "shape": {"q": list(q.shape), "k": list(k.shape),
+                  "dtype": str(q.dtype)}}
+    fwd_entry = {"shape": entry["shape"],
+                 "ms": timing["forward_lse_ms"],
+                 "device_ms": timing["forward_lse_device_ms"],
+                 "device_ms_without_lse": timing["forward_device_ms"],
+                 "library_ms": timing["library_fwd_ms"], "bound_ms": fbms,
+                 "bound_by": fby,
+                 "device_bound_share": fbms / timing["forward_lse_device_ms"],
+                 "max_rel_err": checks["layer0"]["forward_max_abs_err"]}
+    del o, lse, dout, qs, ks, vs, lse_ref
+    return entry, fwd_entry
+
+
+def train_f32_parity(torch, ops, ref, M, tstep, get_config, data,
+                     seed: int) -> dict:
+    """MiniCPM-2B at full width in float32 with 2 layers: one step's loss
+    and gradients through the kernels (forward and backward) against the
+    same model through the plain attention under autograd on the card.
+
+    At the reference's init (every stacked weight of std L^-0.5) the
+    gradients are ill-conditioned: a change of rounding inside attention
+    moves some leaves by ~1e-3 of their largest value.  So the stated
+    tolerances are held with the layer weights scaled by 0.1
+    (``scaled``), and at the reference's init the kernels are held
+    within the larger of TRAIN_GRAD_TOL and twice the distance of a
+    control (the plain attention in float64) from the plain path."""
+    import dataclasses
+    from repro_torch.optim import tree_flatten
+    cfg = dataclasses.replace(get_config(TRAIN_ARCH), num_layers=2,
+                              dtype="float32")
+    gen = torch.Generator(device=DEVICE).manual_seed(seed)
+    prm = M.init_params(cfg, gen)
+    batch = data.make_batch(data.SyntheticLMConfig(
+        vocab_size=cfg.vocab_size, seq_len=TRAIN_SEQ,
+        batch_size=TRAIN_BATCH, seed=seed), 0, device=DEVICE)
+
+    def leaf_rel(ga, gb) -> dict:
+        return {n: (a - b).abs().max().item() / max(b.abs().max().item(),
+                                                   1e-30)
+                for (n, a), (_, b) in zip(tree_flatten(ga),
+                                          tree_flatten(gb))}
+    out = {"layers": 2, "dtype": "float32",
+           "tolerance": f"loss {TRAIN_LOSS_TOL} relative; each gradient "
+                        f"leaf {TRAIN_GRAD_TOL} of its max|g| (scaled), "
+                        f"max({TRAIN_GRAD_TOL}, 2x the f64 control's "
+                        f"distance) at the reference init"}
+    for name in ("scaled", "reference_init"):
+        if name == "scaled":
+            p = {k: v for k, v in prm.items()}
+            p["layers"] = {sub: {n: (x if n == "norm" else x * 0.1)
+                                 for n, x in leaves.items()}
+                           for sub, leaves in prm["layers"].items()}
+        else:
+            p = prm
+        ops.reset_launch_counts()
+        (lk, _), gk = tstep.value_and_grad(cfg, p, batch)
+        torch.cuda.synchronize()
+        check(ops.LAUNCHES["flash_attention"] == 4
+              and ops.LAUNCHES["flash_attention_bwd"] == 2,
+              f"f32 training step launches {ops.LAUNCHES}")
+        with patched(ops, attention=ref.attention_ref):
+            (lp, _), gp = tstep.value_and_grad(cfg, p, batch)
+        rel = leaf_rel(gk, gp)
+        res = {"loss_kernels": float(lk), "loss_plain": float(lp),
+               "grad_rel": rel, "grad_worst_rel": max(rel.values())}
+        del gk
+        limit = TRAIN_GRAD_TOL
+        if name == "reference_init":
+            with patched(ops, attention=attention_f64(torch, ref)):
+                (lc, _), gc = tstep.value_and_grad(cfg, p, batch)
+            crel = leaf_rel(gc, gp)
+            res.update(loss_f64_control=float(lc), control_grad_rel=crel,
+                       control_grad_worst_rel=max(crel.values()))
+            limit = max(limit, 2 * res["control_grad_worst_rel"])
+            del gc
+        del gp, p
+        res["limit"] = limit
+        out[name] = res
+        check(abs(float(lk) - float(lp)) <= TRAIN_LOSS_TOL * abs(float(lp)),
+              f"f32 training step ({name}): loss {float(lk)} vs plain "
+              f"{float(lp)}")
+        check(res["grad_worst_rel"] <= limit,
+              f"f32 training step ({name}): a gradient leaf differs by "
+              f"{res['grad_worst_rel']} of its largest > {limit}")
+    print("training f32 parity (2 layers, full width): " + json.dumps(out))
+    del prm
+    return out
+
+
+def train_resume(torch, tlaunch, tree_flatten, seed: int) -> dict:
+    """Full width, TRAIN_RESUME_LAYERS layers: ``--ckpt-every 4`` over 8
+    steps, then the file of step 8 removed and ``--resume`` from step 4
+    through a new ``main`` call (new state, new step functions): the final
+    state equal to the uninterrupted run's to the bit."""
+    import shutil
+    import tempfile
+    d = tempfile.mkdtemp(prefix="chip_smoke_train_")
+    argv = train_argv(seed, "--layers", str(TRAIN_RESUME_LAYERS),
+                      "--ckpt-dir", d, "--ckpt-every", "4")
+    finals = []
+
+    def keep_last(i, state, metrics):
+        if i == TRAIN_STEPS - 1:
+            finals.append({n: x.clone() for n, x in tree_flatten(state)})
+    try:
+        t0 = time.perf_counter()
+        full = tlaunch.main(argv, on_step=keep_last)
+        torch.cuda.synchronize()
+        full_s = time.perf_counter() - t0
+        files = sorted(os.listdir(d))
+        check(files == ["step_00000004.npz", "step_00000008.npz"],
+              f"resume run: checkpoint files {files}")
+        file_gb = os.path.getsize(os.path.join(d, files[0])) / 1e9
+        os.remove(os.path.join(d, files[1]))
+        t0 = time.perf_counter()
+        resumed = tlaunch.main(argv + ["--resume"], on_step=keep_last)
+        torch.cuda.synchronize()
+        resumed_s = time.perf_counter() - t0
+    finally:
+        shutil.rmtree(d, ignore_errors=True)
+    check([h["step"] for h in resumed] == [4, 5, 6, 7],
+          f"resumed run logged steps {[h['step'] for h in resumed]}")
+    a, b = finals
+    differ = {n: (a[n].double() - b[n].double()).abs().max().item()
+              for n in a if not torch.equal(a[n], b[n])}
+    out = {"layers": TRAIN_RESUME_LAYERS, "checkpoint_gb": file_gb,
+           "uninterrupted_s": full_s, "resumed_s": resumed_s,
+           "losses_uninterrupted": [h["loss"] for h in full],
+           "losses_resumed": [h["loss"] for h in resumed],
+           "leaves": len(a), "leaves_differing": differ}
+    print("training resume (full width, 4 layers): " + json.dumps(out))
+    check(not differ and resumed[-1]["loss"] == full[-1]["loss"],
+          f"resumed run differs from the uninterrupted one: {differ}")
+    del finals, a, b
+    return out
+
+
+def train_phase(torch, ops, ref, tfa, M, tlaunch, tstep, get_config, data,
+                seed: int) -> tuple:
+    """MiniCPM-2B at full width and depth, bf16, batch 4, sequence 2,048,
+    through ``launch.train.main``: 8 plain steps, then 8 STRADS steps
+    (U = 20 of 41 blocks, ``--weight-decay 0``), profiler windows over
+    one plain and one STRADS step, the backward kernel at layer 0's
+    inputs and other shapes, and the f32 parity and resume checks.  Returns
+    (the bwd kernel's entry, the forward's training-shape entry, the
+    numbers)."""
+    from repro_torch.optim import tree_flatten
+    from repro_torch.sched.block import BlockScheduleConfig
+    cfg = get_config(TRAIN_ARCH)
+    L = cfg.num_layers
+    res = {"arch": cfg.name, "layers": L, "batch": TRAIN_BATCH,
+           "seq": TRAIN_SEQ, "steps": TRAIN_STEPS,
+           "params": M.num_params(cfg)}
+
+    # 1. plain training
+    box = {}
+    hist, res["plain"] = train_run(
+        torch, ops, tlaunch, train_argv(seed),
+        lambda i, state, metrics: box.update(state=state), L)
+    print("training plain: " + json.dumps(res["plain"]))
+    state = box.pop("state")
+    batch = data.make_batch(data.SyntheticLMConfig(
+        vocab_size=cfg.vocab_size, seq_len=TRAIN_SEQ,
+        batch_size=TRAIN_BATCH, seed=seed), TRAIN_STEPS, device=DEVICE)
+    first = {}
+    real = ops.attention
+
+    def capture(q, k, v, **kw):
+        if "qkv" not in first:
+            first["qkv"] = (q.detach().clone(), k.detach().clone(),
+                            v.detach().clone(), kw)
+        return real(q, k, v, **kw)
+    with patched(ops, attention=capture):
+        (loss, _), grads = tstep.value_and_grad(cfg, state["params"], batch)
+    flat = tree_flatten(grads)
+    bad = [n for n, g in flat if g is None or not bool(torch.isfinite(g)
+                                                       .all())]
+    check(not bad, f"training: gradients not finite for {bad}")
+    proj = {}
+    for n in ("wq", "wk", "wv", "wo"):
+        per_layer = grads["layers"]["attn0"][n].flatten(1).abs().amax(1)
+        proj[n] = {"layers_nonzero": int((per_layer > 0).sum()),
+                   "min_layer_max_abs": per_layer.min().item()}
+        check(bool((per_layer > 0).all()), f"training: the {n} gradient is "
+                                           f"0 in some layer: {proj[n]}")
+    res["gradients"] = {"leaves": len(flat), "all_finite": True,
+                        "attention_projections": proj,
+                        "loss": float(loss)}
+    del grads, flat, state
+    torch.cuda.empty_cache()
+
+    # 2. STRADS training (wd 0: an unscheduled layer keeps its bits)
+    nblocks = L + 1
+    U = nblocks // 2
+    prev, sstats = {}, {"blocks_active": [], "scheduled_moved": [],
+                        "unscheduled_layers_checked": 0}
+
+    def strads_check(i, state, metrics):
+        params = tree_flatten(state["params"])
+        if metrics is not None:
+            mask = metrics["mask"] > 0
+            active = int(mask.sum())
+            sstats["blocks_active"].append(active)
+            check(active == float(metrics["blocks_active"]) and active <= U,
+                  f"STRADS step {i}: {active} blocks active, U = {U}")
+            moved = torch.zeros(L + 1, dtype=torch.bool, device=DEVICE)
+            for n, x in params:
+                b = prev[n]
+                if n.startswith("layers/"):
+                    same = (x.view(torch.int16) == b.view(torch.int16)) \
+                        .flatten(1).all(1)
+                    moved[:L] |= ~same
+                else:
+                    moved[L] |= not torch.equal(x, b)
+            check(not bool((moved & ~mask).any()),
+                  f"STRADS step {i}: unscheduled blocks "
+                  f"{(moved & ~mask).nonzero().flatten().tolist()} moved")
+            sstats["unscheduled_layers_checked"] += int((~mask).sum())
+            sstats["scheduled_moved"].append(int((moved & mask).sum()))
+        prev.clear()
+        prev.update({n: x.clone() for n, x in params})
+        box["state"] = state
+    hist, res["strads"] = train_run(
+        torch, ops, tlaunch, train_argv(seed, "--strads", "--weight-decay",
+                                        "0"), strads_check, L)
+    res["strads"].update(sstats, U=U, blocks=nblocks,
+                         peak_memory_note="includes the check's copy of "
+                                          "the parameters (bf16)")
+    print("training STRADS: " + json.dumps(res["strads"]))
+    prev.clear()
+
+    # profiler windows over one plain and one STRADS step on the STRADS
+    # run's state (a session slows the host's later launches: nothing
+    # after this in the phase is timed on the host)
+    state = box.pop("state")
+    tc = tstep.TrainConfig()
+    plain_step = tstep.make_train_step(cfg, tc, donate=True)
+    sched = BlockScheduleConfig(nblocks, U, min(nblocks, 2 * U),
+                                min_distance=1)
+    strads_step = tstep.make_strads_train_step(cfg, tc, sched, donate=True)
+    kernels = {"flash_attention": (ops.LAUNCHES, ("flash_fwd_bf16",)),
+               "flash_attention_bwd": (ops.LAUNCHES, ("flash_bwd_dq_bf16",))}
+    plain_step(state, batch)                    # warm
+    res["profile_plain_step"] = profile_window(
+        torch, lambda: plain_step(state, batch), kernels)
+    res["profile_strads_step"] = profile_window(
+        torch, lambda: strads_step(state, batch), kernels)
+    for w in ("profile_plain_step", "profile_strads_step"):
+        print(f"training {w}: " + json.dumps(
+            {k: v for k, v in res[w].items() if k != "top"}))
+        for row in res[w]["top"][:8]:
+            print(f"    {row['device_ms']:9.3f} ms  x{row['count']:<5d} "
+                  f"{row['name'][:90]}")
+    del state, box
+    torch.cuda.empty_cache()
+
+    # 3. the backward kernel at layer 0's inputs and other shapes
+    kentry, fentry = train_kernel_phase(torch, ops, ref, tfa, first["qkv"],
+                                        seed)
+    del first
+    kentry["launches"] = res["plain"]["launches"]["flash_attention_bwd"]
+    kentry["launches_strads"] = res["strads"]["launches"][
+        "flash_attention_bwd"]
+    print("flash_attention_bwd at layer 0's inputs: " + json.dumps(
+        {k: v for k, v in kentry.items() if k != "checks"}))
+    print("flash_attention_bwd checks: " + json.dumps(kentry["checks"]))
+    torch.cuda.empty_cache()
+
+    # 4. f32 parity, 5. resume
+    res["f32_parity"] = train_f32_parity(torch, ops, ref, M, tstep,
+                                         get_config, data, seed)
+    torch.cuda.empty_cache()
+    res["resume"] = train_resume(torch, tlaunch, tree_flatten, seed)
+    torch.cuda.empty_cache()
+
+    torch.cuda.empty_cache()
+    return kentry, fentry, res
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -4084,9 +4599,12 @@ def main() -> int:
     from repro_torch.core import ExecutionPlan
     from repro_torch.kernels import KernelSpec, _build, ops, ref
     from repro_torch.kernels import lasso_cd as lc
+    from repro_torch.kernels import flash_attention as tfa
     from repro_torch.kernels import lda_gibbs as lg
     from repro_torch.launch import serve_lm
+    from repro_torch.launch import train as tlaunch
     from repro_torch.models import model as M
+    from repro_torch.train import step as tstep
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -4405,8 +4923,18 @@ def main() -> int:
     zparity = zamba_parity_phase(torch, ops, ref, M, get_config, tdata,
                                  args.seed)
     phase("zamba2 f32 parity")
+    torch.cuda.empty_cache()
 
-    # 10. lasso_loadbal.json traced, inside a profiler session: last, since
+    # 10. model-zoo training: MiniCPM-2B at full width and depth
+    skern["flash_attention_bwd"], fentry, train = train_phase(
+        torch, ops, ref, tfa, M, tlaunch, tstep, get_config, tdata,
+        args.seed)
+    skern["flash_attention"]["by_shape"][f"{TRAIN_ARCH} training"] = fentry
+    skern["flash_attention"]["launches_training"] = \
+        train["plain"]["launches"]["flash_attention"]
+    phase("minicpm-2b training")
+
+    # 11. lasso_loadbal.json traced, inside a profiler session: last, since
     # a session slows the host's later launches (decode is host-bound)
     torch.cuda.empty_cache()
     X, y, _ = lasso.synthetic_correlated_device(args.seed, n, J, k_true=16,
@@ -4449,7 +4977,7 @@ def main() -> int:
                   small={"objective": got, "reference_cd": want},
                   mf=mfres, lda=ldares,
                   serve=serve, f32_parity=parity, zamba2=zamba,
-                  zamba2_f32_parity=zparity)
+                  zamba2_f32_parity=zparity, train=train)
     os.makedirs(os.path.join(ROOT, "chiprun_out"), exist_ok=True)
     with open(os.path.join(ROOT, "chiprun_out", "chip_smoke.json"),
               "w") as f:

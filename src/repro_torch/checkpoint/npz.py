@@ -11,7 +11,11 @@ attribute key, so the port's files hold the JAX package's keys
 ``assignment/owner``).
 ``None`` subtrees hold no leaf.  Tensors are written through
 ``.detach().cpu().numpy()``; a ``torch.Generator``'s ``get_state()`` is
-a uint8 tensor and is stored as a leaf like any other.
+a uint8 tensor and is stored as a leaf like any other.  A bfloat16 leaf
+(which numpy has no type for) is stored as its 16 bits in a 2-byte void
+array (``|V2``), the form in which numpy writes and reads back a JAX
+package's bfloat16 (``ml_dtypes``) leaf; :func:`leaf_tensor` reads either
+back to the bit, with no ``ml_dtypes`` needed.
 
 The save is synchronous: the file holds the values the tree had at the
 call, even where the caller's next step writes those tensors in place
@@ -41,10 +45,25 @@ def _children(tree: Any):
     return None
 
 
+BF16_VOID = np.dtype("V2")
+
+
 def _leaf_array(leaf: Any) -> np.ndarray:
     if torch.is_tensor(leaf):
-        return leaf.detach().cpu().numpy()
+        x = leaf.detach().cpu()
+        if x.dtype == torch.bfloat16:
+            return x.view(torch.int16).numpy().view(BF16_VOID)
+        return x.numpy()
     return np.asarray(leaf)
+
+
+def leaf_tensor(arr: np.ndarray) -> torch.Tensor:
+    """A checkpoint leaf as a CPU tensor of its own type: a 2-byte void
+    or ``ml_dtypes`` bfloat16 array as bfloat16, bit for bit."""
+    a = np.array(arr)                        # a writable copy
+    if a.dtype == BF16_VOID or a.dtype.name == "bfloat16":
+        return torch.from_numpy(a.view(np.int16)).view(torch.bfloat16)
+    return torch.from_numpy(a)
 
 
 def _flatten(tree: Any, prefix: str = "") -> Dict[str, np.ndarray]:
@@ -64,8 +83,8 @@ def _restore_leaf(name: str, template: Any, arr: np.ndarray) -> Any:
     if tuple(arr.shape) != shape:
         raise ValueError(f"{name}: shape {arr.shape} != {shape}")
     if torch.is_tensor(template):
-        return torch.from_numpy(np.ascontiguousarray(arr)).to(
-            device=template.device, dtype=template.dtype)
+        return leaf_tensor(arr).to(device=template.device,
+                                   dtype=template.dtype)
     if isinstance(template, (np.ndarray, np.generic)):
         return np.asarray(arr).astype(template.dtype)
     return type(template)(arr.item())          # a Python int/float/bool

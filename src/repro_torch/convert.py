@@ -3,7 +3,9 @@
 Carriers: :func:`lasso_from_jax`, :func:`mf_from_jax` and
 :func:`lda_from_jax` for the STRADS apps' runs,
 :func:`checkpoint_from_jax` for a checkpoint the JAX package's engine
-wrote (:func:`stream_state_from_jax` for a streamed one's cursor), and :func:`model_params_from_jax` for the model zoo's parameters.
+wrote (:func:`stream_state_from_jax` for a streamed one's cursor),
+:func:`model_params_from_jax` for the model zoo's parameters and
+:func:`train_state_from_jax` for its train states.
 
 The JAX package keeps β replicated, r and the data row-sharded over a
 ``data`` mesh axis, and the dynamic-priority scheduler's Δβ history in
@@ -20,6 +22,7 @@ from typing import Optional
 import numpy as np
 import torch
 
+from .checkpoint.npz import leaf_tensor
 from .core import EngineCarry, resolve_device
 from .models import params as P
 from .ps import SSPCarry
@@ -168,12 +171,7 @@ def stream_state_from_jax(flat: dict) -> Optional[dict]:
 
 
 def _tensor(x, dtype: torch.dtype, device) -> torch.Tensor:
-    a = np.array(x)                          # a writable copy
-    if a.dtype.name == "bfloat16":           # ml_dtypes: keep the bits
-        t = torch.from_numpy(a.view(np.uint16)).view(torch.bfloat16)
-    else:
-        t = torch.from_numpy(a)
-    return t.to(device=device, dtype=dtype)
+    return leaf_tensor(x).to(device=device, dtype=dtype)
 
 
 def model_params_from_jax(params_numpy: dict, cfg, device="cuda") -> dict:
@@ -206,3 +204,57 @@ def model_params_from_jax(params_numpy: dict, cfg, device="cuda") -> dict:
     tmpl = stack_template(cfg)
     check_keys((), tmpl, params_numpy)
     return P.tree_map(leaf, tmpl, params_numpy)
+
+
+def train_state_from_jax(state_numpy: dict, cfg, device="cuda",
+                         generator: Optional[torch.Generator] = None
+                         ) -> dict:
+    """A train state of the JAX package (``init_train_state`` /
+    ``init_strads_state``, or a restored checkpoint, with numpy leaves) as
+    the port's: the parameters through :func:`model_params_from_jax`,
+    the AdamW moments in their own dtype (bfloat16 bit for bit), ``count``
+    and ``step`` (int32), and for STRADS ``priority`` and ``mask``.
+
+    The JAX PRNG key (``rng``) cannot cross: a STRADS state takes
+    ``generator``'s state as its ``rng`` (required when the JAX state has
+    one), or the caller passes the JAX Gumbel draws to each step.  A flat
+    dict of '/'-joined paths (a checkpoint's :func:`~repro_torch.
+    checkpoint.load_flat`) is taken too."""
+    device = resolve_device(device)
+    if any("/" in k for k in state_numpy):
+        nested: dict = {}
+        for k, x in state_numpy.items():
+            *head, last = k.split("/")
+            node = nested
+            for h in head:
+                node = node.setdefault(h, {})
+            node[last] = x
+        state_numpy = nested
+    out = {"params": model_params_from_jax(state_numpy["params"], cfg,
+                                           device)}
+    tmpl = stack_template(cfg)
+
+    def moment(path, meta, x):
+        if tuple(np.shape(x)) != meta.shape:
+            raise ValueError(f"opt{list(path)}: shape {np.shape(x)} is not "
+                             f"the template's {meta.shape}")
+        t = leaf_tensor(x)
+        return t.to(device=device, dtype=t.dtype)
+
+    opt = state_numpy["opt"]
+    out["opt"] = {"m": P.tree_map(moment, tmpl, opt["m"]),
+                  "v": P.tree_map(moment, tmpl, opt["v"]),
+                  "count": torch.tensor(np.asarray(opt["count"]),
+                                        dtype=torch.int32, device=device)}
+    out["step"] = torch.tensor(np.asarray(state_numpy["step"]),
+                               dtype=torch.int32, device=device)
+    for k in ("priority", "mask"):
+        if k in state_numpy:
+            out[k] = torch.tensor(np.asarray(state_numpy[k], np.float32),
+                                  device=device)
+    if "rng" in state_numpy or "priority" in state_numpy:
+        if generator is None:
+            raise ValueError("a STRADS state's JAX PRNG key cannot cross: "
+                             "pass generator= for the port's rng")
+        out["rng"] = generator.get_state()
+    return out

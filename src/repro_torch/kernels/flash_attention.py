@@ -1,7 +1,8 @@
-"""The hand-written Hopper flash-attention kernel, bound with ctypes.
+"""The hand-written Hopper flash-attention kernels, bound with ctypes.
 
-Replaces the Pallas kernel of the JAX package's
-``kernels/flash_attention.py``.  The source is
+The forward replaces the Pallas kernel of the JAX package's
+``kernels/flash_attention.py``; the backward (:func:`flash_attention_bwd`)
+is the port's own, for the gradients the JAX package takes by autodiff.  The source is
 ``csrc/flash_attention.cu`` (the note at its top says what bounds the
 kernel and how it is split), built by ``nvcc`` at first use
 (:mod:`._build`).  :func:`flash_attention` takes the TPU kernel's
@@ -9,7 +10,8 @@ kernel and how it is split), built by ``nvcc`` at first use
 and a head_dim stride of 1, so the model's (B, S, H, D) activations go
 in without a copy.  It launches on the current stream and counts
 nothing: :func:`repro_torch.kernels.ops.attention` is the wrapper that
-picks the plain version on the CPU and counts launches.
+picks the plain version on the CPU, counts launches and binds the two
+into autograd.
 """
 from __future__ import annotations
 
@@ -21,6 +23,7 @@ import torch
 from . import _build
 
 MAX_HEAD_DIM = 256
+MAX_HEAD_DIM_BWD = 128
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _GRID_LIMIT = 65535          # grid y (query heads) and z (batch)
 
@@ -30,64 +33,129 @@ def _lib() -> ctypes.CDLL:
     if not getattr(lib, "_typed", False):
         p, i = ctypes.c_void_p, ctypes.c_int
         lib.flash_attention_launch.argtypes = [
-            p, p, p, p, i, i, i, i, i, i, i, p, i, i, ctypes.c_float, p]
+            p, p, p, p, p, i, i, i, i, i, i, i, p, i, i, ctypes.c_float, p]
         lib.flash_attention_launch.restype = i
+        lib.flash_attention_bwd_launch.argtypes = [
+            p, p, p, p, p, p, p, p, p, p, i, i, i, i, i, i, i, p, i, i,
+            ctypes.c_float, p]
+        lib.flash_attention_bwd_launch.restype = i
         lib.flash_attention_error_string.argtypes = [i]
         lib.flash_attention_error_string.restype = ctypes.c_char_p
         lib._typed = True
     return lib
 
 
-def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
-                    causal: bool = True, window: Optional[int] = None,
-                    scale: Optional[float] = None) -> torch.Tensor:
-    """q (B, Hq, Sq, D); k, v (B, Hkv, Skv, D) CUDA tensors of one dtype
-    (float32 or bfloat16) → (B, Hq, Sq, D) in q.dtype, a view of a
-    (B, Sq, Hq, D) contiguous tensor.  Raises on what the kernel does not
-    take; never falls back."""
+def _check(name: str, q, k, v, window) -> None:
     if q.dim() != 4 or k.dim() != 4 or v.shape != k.shape:
-        raise ValueError(f"flash_attention wants q (B, Hq, Sq, D) and k, v "
+        raise ValueError(f"{name} wants q (B, Hq, Sq, D) and k, v "
                          f"(B, Hkv, Skv, D); got {tuple(q.shape)}, "
                          f"{tuple(k.shape)}, {tuple(v.shape)}")
     B, Hq, Sq, D = q.shape
     _, Hkv, Skv, _ = k.shape
     if k.shape[0] != B or k.shape[3] != D or Hkv < 1 or Hq % Hkv:
-        raise ValueError(f"flash_attention: q {tuple(q.shape)} does not "
-                         f"match k {tuple(k.shape)} (GQA needs Hq % Hkv "
-                         f"== 0)")
+        raise ValueError(f"{name}: q {tuple(q.shape)} does not match k "
+                         f"{tuple(k.shape)} (GQA needs Hq % Hkv == 0)")
     for x in (q, k, v):
         if x.device.type != "cuda" or x.device != q.device:
-            raise ValueError(f"flash_attention: the CUDA kernel takes "
-                             f"tensors on one card; got {x.device}")
+            raise ValueError(f"{name}: the CUDA kernel takes tensors on "
+                             f"one card; got {x.device}")
         if x.dtype != q.dtype or x.dtype not in _DTYPES:
-            raise TypeError(f"flash_attention: the CUDA kernel takes "
-                            f"float32 or bfloat16 q, k, v of one dtype; "
-                            f"got {q.dtype}, {k.dtype}, {v.dtype}")
+            raise TypeError(f"{name}: the CUDA kernel takes float32 or "
+                            f"bfloat16 q, k, v of one dtype; got {q.dtype}, "
+                            f"{k.dtype}, {v.dtype}")
         if x.stride(3) != 1:
-            raise ValueError("flash_attention: the head_dim stride must "
-                             "be 1")
+            raise ValueError(f"{name}: the head_dim stride must be 1")
+    if Hq > _GRID_LIMIT or B > _GRID_LIMIT:
+        raise ValueError(f"{name}: at most {_GRID_LIMIT} heads and batch "
+                         f"rows")
+    if window is not None and window < 1:
+        raise ValueError(f"window must be >= 1 or None; got {window}")
+
+
+def _raise_on(lib, err: int, name: str) -> None:
+    if err:
+        msg = lib.flash_attention_error_string(err).decode()
+        raise RuntimeError(f"{name}: kernel launch failed: CUDA error {err} "
+                           f"({msg})")
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                    causal: bool = True, window: Optional[int] = None,
+                    scale: Optional[float] = None, return_lse: bool = False):
+    """q (B, Hq, Sq, D); k, v (B, Hkv, Skv, D) CUDA tensors of one dtype
+    (float32 or bfloat16) → (B, Hq, Sq, D) in q.dtype, a view of a
+    (B, Sq, Hq, D) contiguous tensor; with ``return_lse`` also each row's
+    log-sum-exp of the scaled scores, (B, Hq, Sq) float32 (−inf for a row
+    that sees no key), which the backward reads.  Raises on what the
+    kernel does not take; never falls back."""
+    _check("flash_attention", q, k, v, window)
+    B, Hq, Sq, D = q.shape
+    _, Hkv, Skv, _ = k.shape
     if not 1 <= D <= MAX_HEAD_DIM:
         raise ValueError(f"flash_attention: head_dim {D} outside 1.."
                          f"{MAX_HEAD_DIM}")
-    if Hq > _GRID_LIMIT or B > _GRID_LIMIT:
-        raise ValueError(f"flash_attention: at most {_GRID_LIMIT} heads "
-                         f"and batch rows")
-    if window is not None and window < 1:
-        raise ValueError(f"window must be >= 1 or None; got {window}")
     scale = D ** -0.5 if scale is None else float(scale)
     out = torch.empty((B, Sq, Hq, D), dtype=q.dtype,
                       device=q.device).transpose(1, 2)
-    if Sq == 0:
-        return out
-    strides = (ctypes.c_longlong * 12)(*(
-        s for x in (q, k, v, out) for s in x.stride()[:3]))
+    lse = (torch.empty((B, Hq, Sq), dtype=torch.float32, device=q.device)
+           if return_lse else None)
+    if Sq > 0:
+        strides = (ctypes.c_longlong * 12)(*(
+            s for x in (q, k, v, out) for s in x.stride()[:3]))
+        lib = _lib()
+        _raise_on(lib, lib.flash_attention_launch(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+            None if lse is None else lse.data_ptr(), _DTYPES[q.dtype], B, Hq,
+            Hkv, Sq, Skv, D, strides, int(causal), window or 0, scale,
+            torch.cuda.current_stream(q.device).cuda_stream),
+            "flash_attention")
+    return (out, lse) if return_lse else out
+
+
+def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        out: torch.Tensor, lse: torch.Tensor,
+                        dout: torch.Tensor, *, causal: bool = True,
+                        window: Optional[int] = None,
+                        scale: Optional[float] = None):
+    """The gradients of :func:`flash_attention` at (q, k, v), given its
+    output ``out`` and ``lse`` and dout, the gradient of ``out`` (all in
+    the (B, H, S, D) layout, any batch, head and sequence strides, a
+    head_dim stride of 1).  Returns (dq, dk, dv) in q's dtype, views of
+    (B, S, H, D) contiguous tensors.  Head dims up to 128 (even); others
+    raise."""
+    _check("flash_attention_bwd", q, k, v, window)
+    B, Hq, Sq, D = q.shape
+    _, Hkv, Skv, _ = k.shape
+    if not 1 <= D <= MAX_HEAD_DIM_BWD or D % 2:
+        raise ValueError(f"flash_attention_bwd: head_dim {D} is not an even "
+                         f"number in 2..{MAX_HEAD_DIM_BWD}")
+    for name, x in (("out", out), ("dout", dout)):
+        if (x.shape != q.shape or x.dtype != q.dtype or x.device != q.device
+                or x.stride(3) != 1):
+            raise ValueError(f"flash_attention_bwd: {name} must match q in "
+                             f"shape, dtype and device with a head_dim "
+                             f"stride of 1")
+    if (lse.shape != (B, Hq, Sq) or lse.dtype != torch.float32
+            or not lse.is_contiguous()):
+        raise ValueError("flash_attention_bwd: lse must be (B, Hq, Sq) "
+                         "contiguous float32, as the forward returns it")
+    scale = D ** -0.5 if scale is None else float(scale)
+
+    def empty(S, H):
+        return torch.empty((B, S, H, D), dtype=q.dtype,
+                           device=q.device).transpose(1, 2)
+    dq, dk, dv = empty(Sq, Hq), empty(Skv, Hkv), empty(Skv, Hkv)
+    if Sq == 0 or Skv == 0:
+        return dq.zero_(), dk.zero_(), dv.zero_()
+    delta = torch.empty((B, Hq, Sq), dtype=torch.float32, device=q.device)
+    strides = (ctypes.c_longlong * 24)(*(
+        s for x in (q, k, v, out, dout, dq, dk, dv) for s in x.stride()[:3]))
     lib = _lib()
-    err = lib.flash_attention_launch(
+    _raise_on(lib, lib.flash_attention_bwd_launch(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-        _DTYPES[q.dtype], B, Hq, Hkv, Sq, Skv, D, strides, int(causal),
-        window or 0, scale, torch.cuda.current_stream(q.device).cuda_stream)
-    if err:
-        msg = lib.flash_attention_error_string(err).decode()
-        raise RuntimeError(f"flash_attention: kernel launch failed: CUDA "
-                           f"error {err} ({msg})")
-    return out
+        dout.data_ptr(), lse.data_ptr(), delta.data_ptr(), dq.data_ptr(),
+        dk.data_ptr(), dv.data_ptr(), _DTYPES[q.dtype], B, Hq, Hkv, Sq, Skv,
+        D, strides, int(causal), window or 0, scale,
+        torch.cuda.current_stream(q.device).cuda_stream),
+        "flash_attention_bwd")
+    return dq, dk, dv

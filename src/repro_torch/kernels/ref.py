@@ -48,6 +48,62 @@ def attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return torch.einsum("bhqk,bkhd->bqhd", p, vf).to(q.dtype)
 
 
+def attention_bwd_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                      o: torch.Tensor, do: torch.Tensor, lse: torch.Tensor,
+                      causal: bool = True, window: Optional[int] = None,
+                      scale: Optional[float] = None,
+                      dtype: torch.dtype = torch.float32):
+    """The gradients (dq, dk, dv) of :func:`attention_ref` at (q, k, v),
+    in ``dtype`` (float32, or float64 for checks), from the forward's
+    output ``o``, its row log-sum-exp ``lse`` (B, Hq, Sq) and ``do``, the
+    gradient of ``o`` — the formulas the CUDA backward computes:
+
+        P = exp(scale·q·kᵀ − lse) on the visible pairs, 0 elsewhere,
+        Δ = Σ_d dO·o,  dS = P ∘ (dO·vᵀ − Δ),
+        dv = Pᵀ·dO,  dk = scale·dSᵀ·q,  dq = scale·dS·k,
+
+    with dk and dv summed over the G query heads of each kv head.  The
+    layouts are :func:`attention_ref`'s: q, o, do (B, Sq, Hq, D); k, v
+    (B, Skv, Hkv, D).  A row that sees no key gets zero gradients."""
+    B, Sq, Hq, D = q.shape
+    _, Skv, Hkv, _ = k.shape
+    G = Hq // Hkv
+    scale = scale if scale is not None else D ** -0.5
+    qf, kf, vf = (x.to(dtype) for x in (q, k, v))
+    of, dof = o.to(dtype), do.to(dtype)
+    kr = kf.repeat_interleave(G, dim=2)
+    vr = vf.repeat_interleave(G, dim=2)
+    mask = attention_mask(Sq, Skv, Skv - Sq, causal, window, q.device)
+    s = torch.einsum("bqhd,bkhd->bhqk", qf, kr) * scale
+    p = torch.where(mask, torch.exp(s - lse.to(dtype)[..., None]),
+                    torch.zeros((), dtype=dtype, device=q.device))
+    dp = torch.einsum("bqhd,bkhd->bhqk", dof, vr)
+    delta = torch.einsum("bqhd,bqhd->bhq", dof, of)
+    ds = p * (dp - delta[..., None])
+    dq = torch.einsum("bhqk,bkhd->bqhd", ds, kr) * scale
+    dk = torch.einsum("bhqk,bqhd->bkhd", ds, qf) * scale
+    dv = torch.einsum("bhqk,bqhd->bkhd", p, dof)
+    dk = dk.reshape(B, Skv, Hkv, G, D).sum(3)
+    dv = dv.reshape(B, Skv, Hkv, G, D).sum(3)
+    return dq, dk, dv
+
+
+def attention_lse_ref(q: torch.Tensor, k: torch.Tensor, causal: bool = True,
+                      window: Optional[int] = None,
+                      scale: Optional[float] = None,
+                      dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """(B, Hq, Sq) natural-log log-sum-exp of each row's visible scaled
+    scores in ``dtype``; −inf for a row that sees no key (what the
+    forward kernel's ``lse`` output holds)."""
+    B, Sq, Hq, D = q.shape
+    _, Skv, Hkv, _ = k.shape
+    scale = scale if scale is not None else D ** -0.5
+    kr = k.to(dtype).repeat_interleave(Hq // Hkv, dim=2)
+    s = torch.einsum("bqhd,bkhd->bhqk", q.to(dtype), kr) * scale
+    mask = attention_mask(Sq, Skv, Skv - Sq, causal, window, q.device)
+    return torch.logsumexp(s.masked_fill(~mask, float("-inf")), dim=-1)
+
+
 def attention_mask(Sq: int, Skv: int, q_offset: int, causal: bool,
                    window: Optional[int], device=None) -> torch.Tensor:
     """(Sq, Skv) bool: query i (absolute i + q_offset) sees key j."""

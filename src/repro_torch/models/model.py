@@ -73,15 +73,16 @@ def _inputs(cfg, prm, batch: Dict[str, torch.Tensor]):
 # Forward
 # ---------------------------------------------------------------------------
 
-def forward(cfg, prm, batch: Dict[str, torch.Tensor], *,
+def forward(cfg, prm, batch: Dict[str, torch.Tensor], *, train: bool = False,
             window: Optional[int] = None
             ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Full-sequence forward.  Returns (logits (B, S, Vp), aux_loss)."""
+    """Full-sequence forward.  Returns (logits (B, S, Vp), aux_loss).
+    ``train=True`` checkpoints each layer group (the same values)."""
     x, _ = _inputs(cfg, prm, batch)
     positions = torch.arange(x.shape[1], device=x.device)
     x, _, aux = apply_stack(cfg, prm, x, positions=positions,
                             window=window if window is not None
-                            else cfg.window)
+                            else cfg.window, train=train)
     return _logits(cfg, prm, x), aux
 
 

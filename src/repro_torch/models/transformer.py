@@ -13,14 +13,18 @@ layout, so weights carry across one for one).  Group contents:
                          KV cache of its own for each application
 
 Where the JAX package scans over the stacked groups, the port loops in
-Python over layer slices of the stacked tensors.  The ssm (xLSTM) family
-is not ported yet.
+Python over layer slices of the stacked tensors (``torch.unbind``, once a
+leaf).  With ``train=True`` each group runs under
+``torch.utils.checkpoint`` (the JAX package's ``jax.checkpoint`` with
+``nothing_saveable``): its activations are made again in the backward.
+The ssm (xLSTM) family is not ported yet.
 """
 from __future__ import annotations
 
 from typing import Any, Dict, List, Tuple
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from ..sharding import rules
 from . import params as P
@@ -147,33 +151,53 @@ def _layer(tree, i: int):
     return P.tree_map(lambda _, t: t[i], tree)
 
 
+def _unbind(tree, n: int) -> List[Any]:
+    """The n layer slices of a stacked tree, each leaf split once with
+    ``torch.unbind``: under autograd its backward stacks the n slices'
+    gradients in one pass, where ``t[i]`` would make a gradient of the
+    whole stacked leaf for each layer and sum them one by one."""
+    parts = P.tree_map(lambda _, t: t.unbind(0), tree)
+    return [P.tree_map(lambda _, t: t[i], parts) for i in range(n)]
+
+
 # ---------------------------------------------------------------------------
 # Stack application (shared by forward / prefill / decode)
 # ---------------------------------------------------------------------------
 
 def apply_stack(cfg, prm, x, *, positions, cache=None, kpos=None, slot=None,
-                window=None):
+                window=None, train=False):
     """Runs the layer stack.  Returns (x, cache, aux_loss); a given
     ``cache`` ({"layers": …}, and "shared_attn" for the hybrid family)
-    is filled or updated in place."""
+    is filled or updated in place.  ``train=True`` checkpoints each group
+    (same values; its activations are made again in the backward)."""
     steps, subs = group_layout(cfg)
     base_ctx = {"positions": positions, "kpos": kpos, "slot": slot,
                 "window": window}
-    aux = torch.zeros((), dtype=torch.float32, device=x.device)
-    for i in range(steps):
-        layer_p = _layer(prm["layers"], i)
+
+    def group(i, layer_p, x):
         layer_cache = None if cache is None else _layer(cache["layers"], i)
+        aux = None
         for name, kind in subs:
             ctx = dict(base_ctx)
             ctx["cache"] = None if layer_cache is None \
                 else layer_cache.get(name)
             x, a = _apply_sub(kind, layer_p[name], x, cfg, ctx)
             if a is not None:
-                aux = aux + a
+                aux = a if aux is None else aux + a
         if cfg.family == "hybrid":           # the shared block, cache i
             ctx = dict(base_ctx)
             ctx["cache"] = None if cache is None \
                 else _layer(cache["shared_attn"], i)
             x, _ = _apply_sub("attn", prm["shared_attn"], x, cfg, ctx)
             x = mlp_apply(prm["shared_mlp"], x, cfg)
+        return x, aux
+
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    for i, layer_p in enumerate(_unbind(prm["layers"], steps)):
+        if train:
+            x, a = checkpoint(group, i, layer_p, x, use_reentrant=False)
+        else:
+            x, a = group(i, layer_p, x)
+        if a is not None:
+            aux = aux + a
     return x, cache, aux

@@ -1,13 +1,15 @@
 """Scheduling policies of the port and the registry a
 :class:`SchedulerSpec` resolves through."""
 from .protocol import SchedulerBase
-from .schedulers import (DynamicPriorityScheduler, RandomScheduler,
-                         RotationScheduler, RoundRobinScheduler,
-                         build_scheduler, dependency_filter,
-                         priority_weights, sample_candidates)
+from .schedulers import (BlockStructuralScheduler, DynamicPriorityScheduler,
+                         RandomScheduler, RotationScheduler,
+                         RoundRobinScheduler, build_scheduler,
+                         dependency_filter, priority_weights,
+                         sample_candidates, structural_gram)
 from .spec import SCHEDULER_KINDS, SchedulerSpec
 
-__all__ = ["SCHEDULER_KINDS", "DynamicPriorityScheduler", "RandomScheduler",
+__all__ = ["SCHEDULER_KINDS", "BlockStructuralScheduler",
+           "DynamicPriorityScheduler", "RandomScheduler",
            "RotationScheduler", "RoundRobinScheduler", "SchedulerBase",
            "SchedulerSpec", "build_scheduler", "dependency_filter",
-           "priority_weights", "sample_candidates"]
+           "priority_weights", "sample_candidates", "structural_gram"]

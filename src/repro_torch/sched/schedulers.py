@@ -10,6 +10,9 @@
 * :class:`DynamicPriorityScheduler` — the STRADS Lasso strategy: sample
   U′ candidates with probability ∝ |Δβ| + η by Gumbel top-k, then
   greedily keep at most U whose pairwise |x_jᵀx_k| is below ρ.
+* :class:`BlockStructuralScheduler` — the same two steps over the layer
+  blocks of a deep net, with the 0/1 :func:`structural_gram` (graph
+  distance) in place of the data Gram block.
 
 Shapes are static (U′ candidates, U-wide masked schedules), and nothing
 here syncs with the host: the ρ-filter is written with tensor ops only.
@@ -142,6 +145,17 @@ def dependency_filter(gram: torch.Tensor, rho: float,
     return keep
 
 
+def structural_gram(candidates: torch.Tensor,
+                    min_distance: int) -> torch.Tensor:
+    """The graph-distance dependency surrogate: a 0/1 "correlation" block
+    where candidates closer than ``min_distance`` (adjacent layers, whose
+    gradients flow through each other) count as fully correlated.  It
+    feeds :func:`dependency_filter` as the data Gram block does, so any
+    ρ ∈ (0, 1] admits exactly the distance-filtered set."""
+    d = (candidates[:, None] - candidates[None, :]).abs()
+    return (d < min_distance).to(torch.float32)
+
+
 def _compact_schedule(candidates: torch.Tensor, keep: torch.Tensor,
                       block_size: int):
     """Compact the kept candidates to the front (stable, like
@@ -195,11 +209,60 @@ class DynamicPriorityScheduler(SchedulerBase):
         return out
 
 
+@dataclasses.dataclass(frozen=True)
+class BlockStructuralScheduler(SchedulerBase):
+    """Layer-block scheduling: dynamic priorities and the structural ρ
+    filter (graph distance instead of the data Gram: the dependency
+    between blocks is adjacency, known statically).  The carry is the
+    per-block priority table (an EMA of update norms); ``finalize``
+    ignores ``stats``."""
+    num_blocks: int
+    block_size: int          # U  — blocks per step
+    num_candidates: int      # U' ≥ U
+    min_distance: int = 2
+    rho: float = 0.5         # any value in (0,1] is equivalent (0/1 gram)
+    eta: float = 1e-3
+    ema: float = 0.9
+
+    def init_carry(self, device) -> torch.Tensor:
+        return torch.ones((self.num_blocks,), dtype=torch.float32,
+                          device=device)
+
+    def propose(self, carry, noise, t=None, phase: int = 0, device=None):
+        return sample_candidates(noise, carry + self.eta,
+                                 self.num_candidates)
+
+    def keep_mask(self, candidates: torch.Tensor) -> torch.Tensor:
+        """The uncompacted (U′,) keep mask — the trainer scatters it onto
+        the (num_blocks,) 0/1 schedule mask
+        (:func:`repro_torch.sched.block.select_blocks`)."""
+        gram = structural_gram(candidates, self.min_distance)
+        return dependency_filter(gram, self.rho, self.block_size)
+
+    def finalize(self, candidates, stats=None):
+        return _compact_schedule(candidates, self.keep_mask(candidates),
+                                 self.block_size)
+
+    def update_carry(self, carry, idx, mask, dx):
+        """EMA of per-block update magnitude; only scheduled blocks
+        observed an update, the rest keep their stale priority (a new
+        tensor; the indices are distinct, so the scatters are
+        deterministic)."""
+        norms = torch.zeros_like(carry)
+        norms[idx] = torch.where(mask, dx.abs(), carry[idx])
+        new = self.ema * carry + (1 - self.ema) * norms
+        sel = torch.zeros_like(carry, dtype=torch.bool)
+        sel[idx] = mask
+        return torch.where(sel, new, carry)
+
+    mark_scheduled = DynamicPriorityScheduler.mark_scheduled
+
+
 def build_scheduler(spec: SchedulerSpec, *, num_vars: int,
                     num_workers: int):
     """Materialize the policy a :class:`SchedulerSpec` declares for a
     concrete app (``num_vars`` schedulable variables, ``num_workers``
-    workers).  The port has every kind but ``block_structural``."""
+    workers)."""
     if not isinstance(spec, SchedulerSpec):
         raise TypeError(f"build_scheduler wants a SchedulerSpec; got "
                         f"{type(spec).__name__}")
@@ -223,7 +286,9 @@ def build_scheduler(spec: SchedulerSpec, *, num_vars: int,
         return DynamicPriorityScheduler(
             num_vars=num_vars, num_candidates=spec.num_candidates,
             block_size=spec.block_size, rho=spec.rho, eta=spec.eta)
-    raise NotImplementedError(
-        f"scheduler kind {spec.kind!r} is not ported yet (ROADMAP.md "
-        f"queue 1: 'block_structural' comes with the model zoo's "
-        f"training slice in step 13c)")
+    # "block_structural" (spec validation admits nothing else)
+    return BlockStructuralScheduler(
+        num_blocks=num_vars, block_size=spec.block_size,
+        num_candidates=spec.num_candidates,
+        min_distance=spec.min_distance, rho=spec.rho, eta=spec.eta,
+        ema=spec.ema)

@@ -790,6 +790,109 @@ def test_ssm_scan_kernel_rejects_what_it_does_not_take(cuda):
 
 
 # ---------------------------------------------------------------------------
+# The flash-attention backward (the port's own kernel) on the card
+# ---------------------------------------------------------------------------
+
+# MiniCPM-2B's training shape (4, 2048, 2048, 48, 48, 64, causal) at batch
+# 1; Granite's GQA 32/8 at head dim 64 and Phi's 32/8 at 128; Zamba2's head
+# dim 80 with a window; Sq < Skv, Sq > Skv (rows that see no key), ragged
+# lengths, full attention; a view one element into a larger buffer
+GPU_ATTN_BWD_CASES = [
+    (1, 2048, 2048, 48, 48, 64, True, None),
+    (1, 512, 512, 32, 8, 64, True, None),
+    (1, 512, 512, 32, 8, 128, True, None),
+    (2, 300, 300, 8, 8, 80, True, 50),
+    (2, 100, 333, 8, 2, 64, True, 70),
+    (1, 200, 130, 4, 2, 128, True, None),
+    (2, 97, 97, 4, 1, 80, False, None),
+    (1, 65, 300, 2, 1, 64, False, 40),
+    (2, 150, 200, 8, 2, 128, True, 40, 1),
+]
+
+
+def _bwd_on_card(q, k, v, kw, seed=3):
+    """Forward and backward through ``ops.attention`` under autograd, with
+    the launch counts; returns (out, dq, dk, dv, dout)."""
+    q, k, v = (x.detach().requires_grad_() for x in (q, k, v))
+    before = dict(tops.LAUNCHES)
+    out = tops.attention(q, k, v, **kw)
+    assert out.grad_fn is not None
+    gen = torch.Generator(device=q.device).manual_seed(seed)
+    dout = torch.randn(out.shape, generator=gen, device=q.device).to(
+        out.dtype)
+    dq, dk, dv = torch.autograd.grad(out, (q, k, v), dout)
+    torch.cuda.synchronize()
+    assert tops.LAUNCHES["flash_attention"] == \
+        before["flash_attention"] + 1
+    assert tops.LAUNCHES["flash_attention_bwd"] == \
+        before["flash_attention_bwd"] + 1
+    return out.detach(), dq, dk, dv, dout
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", GPU_ATTN_BWD_CASES)
+def test_flash_attention_bwd_kernel_matches_plain_on_card(cuda, case, dtype):
+    """dq, dk, dv against ``attention_bwd_ref`` on the same inputs (f32
+    math for bf16, within 2e-2 of each gradient's largest magnitude; f64
+    math for f32, within 1e-4), and the forward's lse against
+    ``attention_lse_ref`` (−inf on the rows that see no key)."""
+    q, k, v, kw = _cuda_attn(cuda, case, dtype)
+    out, dq, dk, dv, dout = _bwd_on_card(q, k, v, kw)
+    assert (dq.shape, dk.shape, dv.shape) == (q.shape, k.shape, v.shape)
+    assert dq.dtype == dk.dtype == dv.dtype == dtype
+    rdt, tol = ((torch.float64, 1e-4) if dtype == torch.float32
+                else (torch.float32, 2e-2))
+    lse_ref = tref.attention_lse_ref(q, k, **kw, dtype=rdt)
+    _, lse = tfa.flash_attention(q.transpose(1, 2), k.transpose(1, 2),
+                                 v.transpose(1, 2), return_lse=True, **kw)
+    seen = torch.isfinite(lse_ref)
+    assert torch.equal(seen, torch.isfinite(lse))
+    assert (lse[~seen] == float("-inf")).all()
+    assert (lse[seen].double() - lse_ref[seen].double()).abs().max() <= \
+        1e-4 * max(1.0, lse_ref[seen].abs().max().item())
+    want = tref.attention_bwd_ref(q, k, v, out, dout, lse_ref, **kw,
+                                  dtype=rdt)
+    for name, got, ref_ in zip("qkv", (dq, dk, dv), want):
+        err = (got.to(rdt) - ref_).abs().max().item()
+        assert err <= tol * ref_.abs().max().item(), (name, err)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_attention_bwd_two_runs_equal_to_the_bit_on_card(cuda, dtype):
+    """No atomics: the backward gives the same bits every run."""
+    q, k, v, kw = _cuda_attn(cuda, (2, 700, 700, 16, 4, 64, True, None),
+                             dtype)
+    a = _bwd_on_card(q, k, v, kw)
+    b = _bwd_on_card(q, k, v, kw)
+    for x, y in zip(a, b):
+        assert torch.equal(x, y)
+
+
+@pytest.mark.gpu
+def test_kernels_without_a_backward_raise_under_grad_on_card(cuda):
+    """topk_gating and ssm_scan have no backward kernel: asked for a
+    gradient on the card they raise; under no_grad they serve."""
+    logits = torch.randn((16, 8), device=cuda, requires_grad=True)
+    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+        tops.topk_gating(logits, 2)
+    args = list(_cuda_ssm(cuda, 1, 8, 16, 16, True, torch.float32))
+    args[0] = args[0].requires_grad_()
+    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+        tops.ssm_scan(*args)
+    with torch.no_grad():
+        tops.topk_gating(logits, 2)
+        tops.ssm_scan(*args)
+    q = torch.zeros((1, 4, 2, 256), device=cuda)
+    with pytest.raises(ValueError, match="head_dim"):
+        tfa.flash_attention_bwd(q.transpose(1, 2), q.transpose(1, 2),
+                                q.transpose(1, 2), q.transpose(1, 2),
+                                torch.zeros((1, 2, 4), device=cuda),
+                                q.transpose(1, 2))
+
+
+# ---------------------------------------------------------------------------
 # LDA's Gibbs sweep
 # ---------------------------------------------------------------------------
 

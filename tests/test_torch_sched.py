@@ -1,5 +1,7 @@
 """The port's schedulers against the JAX package's: with the same Gram
 block and the same Gumbel draws they take the same decisions, exactly."""
+import dataclasses
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -115,11 +117,15 @@ def test_round_robin_and_random_blocks():
     assert isinstance(ts.build_scheduler(SchedulerSpec(kind="rotation"),
                                          num_vars=10, num_workers=2),
                       ts.RotationScheduler)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md") as err:
-        ts.build_scheduler(SchedulerSpec.default_for("block_structural",
-                                                     block_size=2),
-                           num_vars=10, num_workers=2)
-    assert "step 8" not in str(err.value)
+    # block_structural is ported with the training slice: the same
+    # policy, field for field, as the JAX package builds
+    spec = dict(kind="block_structural", block_size=2, min_distance=1)
+    bs = ts.build_scheduler(SchedulerSpec.default_for(**spec), num_vars=10,
+                            num_workers=2)
+    jbs = js.build_scheduler(JSpec.default_for(**spec), num_vars=10,
+                             num_workers=2)
+    assert isinstance(bs, ts.BlockStructuralScheduler)
+    assert dataclasses.asdict(bs) == dataclasses.asdict(jbs)
 
 
 def _ppermute(x: np.ndarray, pairs: list) -> np.ndarray:
