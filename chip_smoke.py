@@ -191,10 +191,15 @@
    parameter's gradient finite and the attention projections' nonzero in
    every layer; then 8 ``--strads`` steps (U = 20 of 41 blocks,
    ``--weight-decay 0``) in which every block the mask left out keeps its
-   bits; profiler windows over a plain and a STRADS step; the backward
-   kernel (and the forward's ``lse``) at layer 0's real inputs and at
-   GQA, head-dim 80, windowed, Sq ≠ Skv and ragged shapes against its
-   plain version, timed with SDPA's forward and backward beside it; a
+   bits; every backward call on the wgmma route (``flash_attention.
+   BWD_ROUTE_CALLS``); profiler windows over a plain and a STRADS step,
+   each holding 40 launches of each wgmma-route kernel and none of the
+   mma.sync route's; the backward kernel (and the forward's ``lse``) at
+   layer 0's real inputs and at GQA, head-dim 80, windowed, Sq ≠ Skv,
+   ragged and unaligned shapes against its plain version, each on the
+   route it must take, timed with SDPA's forward and backward beside it
+   (eager, and as device time from CUDA graphs), the wgmma kernels'
+   registers and spills from ptxas (none may spill); a
    2-layer float32 step (loss and every gradient leaf) with the kernels
    against the plain attention; and at 4 layers a checkpointed run
    resumed from step 4 equal to the uninterrupted run to the bit.
@@ -3529,7 +3534,7 @@ def window_records(prof, mark: str) -> dict:
             "tail": sum(c > max(corr) for c in spin) if corr else 0}
 
 
-def profile_window(torch, fn, kernels=None) -> dict:
+def profile_window(torch, fn, kernels=None, counts: bool = False) -> dict:
     """Device busy share over one call of ``fn``, from torch.profiler: the
     device's own events over the wall time of the call.  A session loses
     some device records near its start, more the older the process
@@ -3543,7 +3548,8 @@ def profile_window(torch, fn, kernels=None) -> dict:
     window that fails any of these is taken again, up to
     PROFILE_ATTEMPTS windows in all, and the run fails after the last.
     ``kernels`` maps a launch counter ``key`` of a ``LAUNCHES`` dict to
-    (that dict, the kernels' names)."""
+    (that dict, the kernels' names).  ``counts``: also the window's
+    events by kernel name."""
     from torch.profiler import ProfilerActivity, profile, record_function
     kernels = kernels or {}
     mark = "chip_smoke.profile_window.call"
@@ -3593,12 +3599,15 @@ def profile_window(torch, fn, kernels=None) -> dict:
     busy_us = sum(d for d, _ in per_name.values())
     rows = sorted(((d, k, c) for k, (d, c) in per_name.items()),
                   reverse=True)
-    return {"wall_ms": wall_us / 1e3, "device_busy_ms": busy_us / 1e3,
-            "device_idle_share": (1 - busy_us / wall_us) if busy_us else None,
-            "kernel_events": recorded, "attempts": attempt,
-            "windows": taken,
-            "top": [{"name": k[:120], "device_ms": d / 1e3, "count": c}
-                    for d, k, c in rows[:15]]}
+    out = {"wall_ms": wall_us / 1e3, "device_busy_ms": busy_us / 1e3,
+           "device_idle_share": (1 - busy_us / wall_us) if busy_us else None,
+           "kernel_events": recorded, "attempts": attempt,
+           "windows": taken,
+           "top": [{"name": k[:120], "device_ms": d / 1e3, "count": c}
+                   for d, k, c in rows[:15]]}
+    if counts:
+        out["counts"] = {k: c for k, (_, c) in per_name.items()}
+    return out
 
 
 def first_step(torch, M, cfg, params, batch, cache_len, tok=None):
@@ -4103,23 +4112,28 @@ def train_argv(seed: int, *extra) -> list:
             "--device", DEVICE, *extra]
 
 
-def train_run(torch, ops, tlaunch, argv, on_step, layers: int) -> tuple:
+def train_run(torch, ops, tfa, tlaunch, argv, on_step, layers: int) -> tuple:
     """One ``launch.train.main`` run with the launch counts set to 0 just
     before and read just after: 2 forward launches a layer a step (the
-    forward and the group checkpoint's recompute) and 1 backward."""
+    forward and the group checkpoint's recompute) and 1 backward, every
+    backward on the wgmma route."""
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     ops.reset_launch_counts()
+    routes0 = dict(tfa.BWD_ROUTE_CALLS)
     t0 = time.perf_counter()
     hist = tlaunch.main(argv, on_step=on_step)
     torch.cuda.synchronize()
     secs = time.perf_counter() - t0
     launches = dict(ops.LAUNCHES)
+    routes = {r: n - routes0[r] for r, n in tfa.BWD_ROUTE_CALLS.items()}
     want = {"flash_attention": 2 * layers * TRAIN_STEPS,
             "flash_attention_bwd": layers * TRAIN_STEPS, "topk_gating": 0,
             "ssm_scan": 0}
     check(launches == want, f"training run {argv[-4:]}: launches "
                             f"{launches}, expected {want}")
+    check(routes == {"f32": 0, "mma_sync": 0, "wgmma": layers * TRAIN_STEPS},
+          f"training run {argv[-4:]}: backward routes {routes}")
     losses = [h["loss"] for h in hist]
     check(len(hist) == TRAIN_STEPS and all(map(math.isfinite, losses)),
           f"training run: losses {losses}")
@@ -4127,7 +4141,8 @@ def train_run(torch, ops, tlaunch, argv, on_step, layers: int) -> tuple:
                                   f"{losses}")
     step_ms = median([h["step_ms"] for h in hist[1:]])
     return hist, {
-        "seconds": secs, "launches": launches, "losses": losses,
+        "seconds": secs, "launches": launches, "bwd_routes": routes,
+        "losses": losses,
         "grad_norms": [h["grad_norm"] for h in hist],
         "lrs": [h["lr"] for h in hist],
         "step_ms": [h["step_ms"] for h in hist],
@@ -4154,15 +4169,18 @@ def bwd_bound(torch, ref, q, k, causal, window) -> tuple[float, str]:
                                        else "operations")
 
 
-def bwd_check(torch, ref, tfa, q, k, v, kw, seed: int) -> dict:
+def bwd_check(torch, ref, tfa, q, k, v, kw, seed: int,
+              route: str = "wgmma") -> dict:
     """The forward (with lse) and the backward kernel at (q, k, v) (B, S,
     H, D) against the plain versions: f32 math for bf16 inputs within
     ATTN_BWD_TOL of each gradient's largest magnitude, f64 math for f32
     inputs within ATTN_BWD_TOL_F32; lse within LSE_TOL, −inf on exactly
-    the rows that see no key; two runs equal to the bit."""
+    the rows that see no key; two runs equal to the bit; the backward on
+    ``route``."""
     t = lambda x: x.transpose(1, 2)
     gen = torch.Generator(device=DEVICE).manual_seed(seed)
     dout = torch.randn(q.shape, generator=gen, device=DEVICE).to(q.dtype)
+    calls0 = tfa.BWD_ROUTE_CALLS[route]
 
     def run():
         o, lse = tfa.flash_attention(t(q), t(k), t(v), return_lse=True, **kw)
@@ -4170,6 +4188,10 @@ def bwd_check(torch, ref, tfa, q, k, v, kw, seed: int) -> dict:
         return (t(o), lse) + tuple(t(x) for x in g)
     first, again = run(), run()
     torch.cuda.synchronize()
+    took = tfa.bwd_route(t(q), t(k), t(v), t(first[0]), t(dout))
+    check(took == route and tfa.BWD_ROUTE_CALLS[route] == calls0 + 2,
+          f"flash_attention_bwd: route {took}, expected {route} at "
+          f"{tuple(q.shape)} {tuple(k.shape)}")
     check(all(torch.equal(a, b) for a, b in zip(first, again)),
           f"flash_attention_bwd: two runs differ at {tuple(q.shape)}")
     o, lse, dq, dk, dv = first
@@ -4192,7 +4214,7 @@ def bwd_check(torch, ref, tfa, q, k, v, kw, seed: int) -> dict:
     check(fwd_rel <= (ATTN_TOL if bf16 else ATTN_TOL_F32),
           f"flash_attention: forward error {fwd_rel} at {shape}")
     want = ref.attention_bwd_ref(q, k, v, o, dout, lse_ref, **kw, dtype=rdt)
-    out = {"shape": shape, "lse_max_abs_err": lse_err,
+    out = {"shape": shape, "bwd_route": route, "lse_max_abs_err": lse_err,
            "forward_max_abs_err": fwd_err, "tolerance": tol}
     for name, got, w in zip(("dq", "dk", "dv"), (dq, dk, dv), want):
         err = (got.to(rdt) - w).abs().max().item()
@@ -4205,18 +4227,52 @@ def bwd_check(torch, ref, tfa, q, k, v, kw, seed: int) -> dict:
     return out
 
 
-# B, Sq, Skv, Hq, Hkv, D, causal, window, dtype: Granite's GQA 32/8 at head
-# dim 64, Phi's 32/8 at 128 (bf16); Zamba2's head dim 80 with a window,
-# Sq < Skv and Sq > Skv (rows that see no key) with ragged tails, and
-# full attention, in f32 against the f64 plain version
+# B, Sq, Skv, Hq, Hkv, D, causal, window, dtype[, offset]: Granite's GQA
+# 32/8 at head dim 64 and Phi's 32/8 at 128 (bf16, the wgmma route), and
+# at 1,000 rows (a tail of 104, not a multiple of 128); Sq < Skv, Sq > Skv
+# with a window (rows that see no key), full attention, ragged, on the
+# wgmma route; a view one element into its buffer and Zamba2's head dim 80
+# (bf16, the mma.sync route); Zamba2's head dim 80 with a window, Sq < Skv
+# and Sq > Skv with ragged tails, and full attention, in f32 against the
+# f64 plain version
 TRAIN_BWD_CASES = [
     (1, 2048, 2048, 32, 8, 64, True, None, "bfloat16"),
     (1, 2048, 2048, 32, 8, 128, True, None, "bfloat16"),
+    (1, 1000, 1000, 32, 8, 64, True, None, "bfloat16"),
+    (1, 1000, 1000, 32, 8, 128, True, None, "bfloat16"),
+    (2, 333, 1001, 8, 2, 128, True, None, "bfloat16"),
+    (1, 700, 333, 8, 2, 64, True, 100, "bfloat16"),
+    (2, 129, 257, 4, 1, 64, False, None, "bfloat16"),
+    (1, 1000, 1000, 32, 8, 64, True, None, "bfloat16", 1),
+    (2, 1000, 1000, 32, 32, 80, True, 300, "bfloat16"),
     (2, 1000, 1000, 32, 32, 80, True, 300, "float32"),
     (2, 333, 1001, 8, 2, 64, True, None, "float32"),
     (1, 700, 333, 8, 2, 128, True, 100, "float32"),
     (2, 129, 257, 4, 1, 80, False, None, "float32"),
 ]
+
+
+def case_route(D: int, dtype: str, offset: int) -> str:
+    """The backward route a TRAIN_BWD_CASES case must take."""
+    if dtype == "float32":
+        return "f32"
+    return "wgmma" if D in (64, 128) and not offset else "mma_sync"
+
+
+def bwd_ptxas() -> dict:
+    """Registers, shared memory and spills of the wgmma route's kernels
+    (ptxas's report of the build); none may spill."""
+    from repro_torch.kernels import _build
+    regs = ptxas_kernels(_build.build_log["flash_attention"]["ptxas"])
+    out = {n: regs.get(n) for n in (
+        "flash_bwd_prep<64>", "flash_bwd_dkdv_wgmma<64>",
+        "flash_bwd_dq_wgmma<64,3>", "flash_bwd_prep<128>",
+        "flash_bwd_dkdv_wgmma<128>", "flash_bwd_dq_wgmma<128,2>")}
+    check(all(r and r.get("spill_store_bytes") == 0
+              and r.get("spill_load_bytes") == 0 for r in out.values()),
+          f"flash_attention_bwd: the wgmma route's kernels spill or are "
+          f"missing from ptxas's report: {out}")
+    return out
 
 
 def train_kernel_phase(torch, ops, ref, tfa, first, seed: int) -> tuple:
@@ -4230,14 +4286,23 @@ def train_kernel_phase(torch, ops, ref, tfa, first, seed: int) -> tuple:
     q, k, v, kw = first
     checks = {"layer0": bwd_check(torch, ref, tfa, q, k, v, kw, seed)}
     gen = torch.Generator().manual_seed(seed + 5)
-    for i, (B, Sq, Skv, Hq, Hkv, D, causal, window, dt) in enumerate(
+    for i, (B, Sq, Skv, Hq, Hkv, D, causal, window, dt, *off) in enumerate(
             TRAIN_BWD_CASES):
         dtype = getattr(torch, dt)
-        a, b, c = (torch.randn(s, generator=gen).to(DEVICE, dtype) for s in
-                   ((B, Sq, Hq, D), (B, Skv, Hkv, D), (B, Skv, Hkv, D)))
+        off = off[0] if off else 0
+
+        def put(shape):
+            x = torch.randn(shape, generator=gen).to(DEVICE, dtype)
+            if not off:
+                return x
+            buf = torch.zeros(x.numel() + off, dtype=dtype, device=DEVICE)
+            buf[off:] = x.reshape(-1)
+            return buf[off:].view(shape)
+        a, b, c = (put(s) for s in ((B, Sq, Hq, D), (B, Skv, Hkv, D),
+                                    (B, Skv, Hkv, D)))
         checks[f"case{i}"] = bwd_check(torch, ref, tfa, a, b, c,
                                        {"causal": causal, "window": window},
-                                       seed + i)
+                                       seed + i, case_route(D, dt, off))
         del a, b, c
     t = lambda x: x.transpose(1, 2)
     gen = torch.Generator(device=DEVICE).manual_seed(seed)
@@ -4272,9 +4337,13 @@ def train_kernel_phase(torch, ops, ref, tfa, first, seed: int) -> tuple:
         "forward_device_ms": graph_ms(torch, fwd),
         "library_fwd_bwd_ms": time_ms(torch, sdpa_fwd_bwd, iters=20),
         "library_fwd_ms": time_ms(torch, sdpa_fwd, iters=20),
+        "library_fwd_bwd_device_ms": graph_ms(torch, sdpa_fwd_bwd),
+        "library_fwd_device_ms": graph_ms(torch, sdpa_fwd),
         "ms_repeat": time_ms(torch, bwd, iters=20)}
     timing["library_ms"] = (timing["library_fwd_bwd_ms"]
                             - timing["library_fwd_ms"])
+    timing["library_device_ms"] = (timing["library_fwd_bwd_device_ms"]
+                                   - timing["library_fwd_device_ms"])
     bms, by = bwd_bound(torch, ref, q, k, kw["causal"], kw["window"])
     fbms, fby = attention_bound(torch, ref, q, k, kw["causal"], kw["window"])
     entry = {
@@ -4287,7 +4356,7 @@ def train_kernel_phase(torch, ops, ref, tfa, first, seed: int) -> tuple:
                      f"f32 plain), {ATTN_BWD_TOL_F32} (f32, f64 plain)",
         "library": "F.scaled_dot_product_attention(is_causal=True) forward "
                    "and backward, less its forward (SDPA has no backward "
-                   "call of its own)",
+                   "call of its own); device ms: each a CUDA graph",
         "checks": checks,
         "shape": {"q": list(q.shape), "k": list(k.shape),
                   "dtype": str(q.dtype)}}
@@ -4295,7 +4364,9 @@ def train_kernel_phase(torch, ops, ref, tfa, first, seed: int) -> tuple:
                  "ms": timing["forward_lse_ms"],
                  "device_ms": timing["forward_lse_device_ms"],
                  "device_ms_without_lse": timing["forward_device_ms"],
-                 "library_ms": timing["library_fwd_ms"], "bound_ms": fbms,
+                 "library_ms": timing["library_fwd_ms"],
+                 "library_device_ms": timing["library_fwd_device_ms"],
+                 "bound_ms": fbms,
                  "bound_by": fby,
                  "device_bound_share": fbms / timing["forward_lse_device_ms"],
                  "max_rel_err": checks["layer0"]["forward_max_abs_err"]}
@@ -4447,7 +4518,7 @@ def train_phase(torch, ops, ref, tfa, M, tlaunch, tstep, get_config, data,
     # 1. plain training
     box = {}
     hist, res["plain"] = train_run(
-        torch, ops, tlaunch, train_argv(seed),
+        torch, ops, tfa, tlaunch, train_argv(seed),
         lambda i, state, metrics: box.update(state=state), L)
     print("training plain: " + json.dumps(res["plain"]))
     state = box.pop("state")
@@ -4513,8 +4584,9 @@ def train_phase(torch, ops, ref, tfa, M, tlaunch, tstep, get_config, data,
         prev.update({n: x.clone() for n, x in params})
         box["state"] = state
     hist, res["strads"] = train_run(
-        torch, ops, tlaunch, train_argv(seed, "--strads", "--weight-decay",
-                                        "0"), strads_check, L)
+        torch, ops, tfa, tlaunch, train_argv(seed, "--strads",
+                                             "--weight-decay", "0"),
+        strads_check, L)
     res["strads"].update(sstats, U=U, blocks=nblocks,
                          peak_memory_note="includes the check's copy of "
                                           "the parameters (bf16)")
@@ -4531,13 +4603,24 @@ def train_phase(torch, ops, ref, tfa, M, tlaunch, tstep, get_config, data,
                                 min_distance=1)
     strads_step = tstep.make_strads_train_step(cfg, tc, sched, donate=True)
     kernels = {"flash_attention": (ops.LAUNCHES, ("flash_fwd_bf16",)),
-               "flash_attention_bwd": (ops.LAUNCHES, ("flash_bwd_dq_bf16",))}
+               "flash_attention_bwd": (ops.LAUNCHES,
+                                       ("flash_bwd_dq_wgmma",))}
     plain_step(state, batch)                    # warm
     res["profile_plain_step"] = profile_window(
-        torch, lambda: plain_step(state, batch), kernels)
+        torch, lambda: plain_step(state, batch), kernels, counts=True)
     res["profile_strads_step"] = profile_window(
-        torch, lambda: strads_step(state, batch), kernels)
+        torch, lambda: strads_step(state, batch), kernels, counts=True)
     for w in ("profile_plain_step", "profile_strads_step"):
+        counts = res[w].pop("counts")
+        bwd = {n: sum(c for k, c in counts.items() if n in k) for n in (
+            "flash_bwd_prep", "flash_bwd_dkdv_wgmma", "flash_bwd_dq_wgmma",
+            "flash_bwd_delta", "flash_bwd_dkdv_bf16", "flash_bwd_dq_bf16")}
+        res[w]["bwd_kernels"] = bwd
+        check(bwd == {"flash_bwd_prep": L, "flash_bwd_dkdv_wgmma": L,
+                      "flash_bwd_dq_wgmma": L, "flash_bwd_delta": 0,
+                      "flash_bwd_dkdv_bf16": 0, "flash_bwd_dq_bf16": 0},
+              f"training {w}: the backward's kernels {bwd}, expected the "
+              f"wgmma route's {L} each and none of the mma.sync route's")
         print(f"training {w}: " + json.dumps(
             {k: v for k, v in res[w].items() if k != "top"}))
         for row in res[w]["top"][:8]:
@@ -4553,6 +4636,8 @@ def train_phase(torch, ops, ref, tfa, M, tlaunch, tstep, get_config, data,
     kentry["launches"] = res["plain"]["launches"]["flash_attention_bwd"]
     kentry["launches_strads"] = res["strads"]["launches"][
         "flash_attention_bwd"]
+    kentry["bwd_route"] = kentry["checks"]["layer0"]["bwd_route"]
+    kentry["ptxas"] = bwd_ptxas()
     print("flash_attention_bwd at layer 0's inputs: " + json.dumps(
         {k: v for k, v in kentry.items() if k != "checks"}))
     print("flash_attention_bwd checks: " + json.dumps(kentry["checks"]))

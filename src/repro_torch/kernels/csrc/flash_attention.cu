@@ -74,6 +74,7 @@
 // interface (repro_torch/kernels/_build.py); the entry point returns
 // cudaGetLastError() so the Python wrapper raises on a refused launch.
 
+#include <cuda.h>  // CUtensorMap and its enums; the driver is not linked
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
@@ -767,17 +768,59 @@ cudaError_t dispatch_bf16(const void* q, const void* k, const void* v,
 // With P = exp(scale q k^T - lse) (the forward's softmax, made again from
 // its row log-sum-exp), dP = dO v^T and delta_i = sum_d dO_i o_i:
 //   dS = P * (dP - delta),  dv = P^T dO,  dk = scale dS^T q,  dq = scale dS k.
-// Three launches on the caller's stream: flash_bwd_delta (delta, one warp a
-// row), the dk/dv kernel (one block per kv tile of 64 keys, kv head and
-// batch row, walking the G query heads of its group and every q tile that
-// sees the tile) and the dq kernel (one block per q tile of 64 rows, query
-// head and batch row, walking the kv tiles the forward walks).  Each
-// gradient element is summed by one thread in one order and written once:
-// no atomics, so two runs give the same bits.  bf16 runs on the tensor
-// cores (mma.sync.m16n8k16, f32 accumulators, the forward's fragment
-// layout; P and dS rounded to bf16 only as operands), f32 on the FP32
-// cores.  Rows that see no key have lse = -inf; their pairs are masked, so
-// their gradients are 0.  The wrapper refuses head dims above 128.
+// No kernel here uses atomics: each gradient element is summed in one
+// block in one order and written once, so two runs give the same bits.
+// Rows that see no key have lse = -inf and gradient 0.  The wrapper
+// refuses head dims above 128.  Three routes, picked by bwd_route (the
+// wrapper's bwd_route is its mirror) from the dtype, head dim and
+// alignment, never from a failed launch:
+//
+// wgmma (bf16 at D = 64 or 128, q, k, v, o, dO with 16-byte aligned bases
+// and strides; MiniCPM-2B's training call, GQA 32/8 at both head dims):
+// flash_bwd_prep, then flash_bwd_dkdv_wgmma and flash_bwd_dq_wgmma (the
+// section "bf16 on Hopper" below).  Bound at the training shape (4, 2048,
+// 48, 64) causal: operations, 10 D a visible pair (five products of 2 D)
+// at 989 TFLOP/s, 0.261 ms; the bytes take 0.04 ms.  This split design
+// runs seven products (S and dP twice), 3.6e11 operations, and the
+// exponentials twice (8.6e8 of them, 0.23 ms at the card's 16 a clock an
+// SM).  On an H100 80GB HBM3 at 700 W (tools/attn_bwd_turns.py, versions
+// in turns in one process): 0.97 ms against the mma.sync kernels' 2.30
+// and SDPA's backward 0.84; dK/dV 0.57, dQ 0.37, prep 0.04.  What holds
+// it (tools/attn_bwd_stamps.py): a dK/dV step of a warpgroup takes ~2,300
+// cycles against ~1,000 of tensor-core work at peak for both warpgroups;
+// the exponentials and the softmax arithmetic (~850), issuing behind the
+// other warpgroup's products (~500) and the first stages of each block
+// (~290) take the rest.  The steps to this design, each timed in turns
+// with the one before: the first version 1.76; the exponentials under
+// dP^T and dS under dV 1.74 (against 1.77); the consumers' turns and a
+// vector prep pass 1.70; no branch around each pair's ex2 (the mask's
+// branch made every exponential wait for the last) 1.02 (against 1.69);
+// three dQ consumers at D = 64 0.97 (against 1.02).  Tried and not kept:
+//   * the fused design (FA3's deterministic mode): dQ_part = dS K in the
+//     dK/dV block from a shared dS^T tile, added to an f32 dq_acc in the
+//     kv tiles' order under per-q-tile counters (blocks taken by ticket,
+//     a head's kv tiles and q tiles last first): right and equal to the
+//     bit, but 3.61 ms against the split's 1.70 of then: the ordered
+//     read-add-write chains the 16 kv tiles of every q tile and stalls the
+//     consumer that holds it, and the consumers meet at the dS^T tile
+//     every step;
+//   * 128-row steps at D = 64 (m64n128 first products, dV/dK over k =
+//     128): 1.78 against 1.70 (the exponentials no longer overlap dP^T,
+//     and dK/dV spilled);
+//   * three dK/dV consumers at D = 64 (192 keys a block): 1.01 against
+//     0.97, 48 bytes spilled at 160 registers;
+//   * K_w, V_w (Q_w, dO_w in dQ) as register A operands loaded by
+//     ldmatrix: 0.98 against 1.02, with wrong gradients, not pursued.
+//
+// mma_sync (every other bf16 call: D = 80, D % 8 != 0, unaligned views):
+// flash_bwd_delta, then the dk/dv kernel (one block per kv tile of 64
+// keys, kv head and batch row, walking the G query heads of its group and
+// every q tile that sees the tile) and the dq kernel (one block per q tile
+// of 64 rows, query head and batch row, walking the kv tiles the forward
+// walks), on mma.sync.m16n8k16 with f32 accumulators in the forward's
+// fragment layout (P and dS rounded to bf16 only as operands).
+//
+// f32: the same three launches on the FP32 cores.
 
 __device__ __forceinline__ float to_f32(float x) { return x; }
 __device__ __forceinline__ float to_f32(bf16 x) { return __bfloat162float(x); }
@@ -1414,6 +1457,940 @@ flash_bwd_dq_bf16(const bf16* __restrict__ q, const bf16* __restrict__ k,
                  g, t);
 }
 
+// ---- bf16 on Hopper: a TMA ring, warp-specialised wgmma -------------------
+//
+// Two kernels, one block an SM: consumer warpgroups, each on its own
+// 64-row slab, and a last warpgroup that produces, one thread issuing TMA
+// copies (its registers lowered to 24 by setmaxnreg, the consumers' raised
+// to what that frees).  Tiles land 128-byte swizzled (64 bf16 = one
+// 128-byte row; D = 128 as two 64-column halves) in shared memory, where
+// wgmma reads them through descriptors.  A ring of kRing stages, each with
+// a full barrier (the producer's expect_tx, then TMA's bytes) and an empty
+// one (one arrival from each consumer thread), replaces the block-wide
+// waits of the mma.sync kernels.  Named barriers take the consumers in
+// turns through each step's first products.
+
+constexpr int kWg = 128;                 // threads a warpgroup
+constexpr int kWsThreads = 3 * kWg;      // dK/dV: consumers 0, 1; producer 2
+constexpr int kSlab = 64;                // rows of a box, an m64 slab, a
+                                         // streamed tile
+constexpr int kKvTile = 2 * kSlab;       // keys a dK/dV block
+constexpr int kRing = 4;                 // stages of the streamed ring
+constexpr int kSwRow = 128;              // bytes of one swizzled row
+constexpr int kBwdPad = 384;             // the padded lse/delta rows: a
+                                         // multiple of a dQ block's rows
+
+__device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar),
+               "r"(count)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::
+                   "r"(bar),
+               "r"(bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar)
+               : "memory");
+}
+
+// Until the phase of parity `parity` of the barrier has completed.
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  asm volatile(
+      "{\n.reg .pred done;\n"
+      "WAIT:\n"
+      "mbarrier.try_wait.parity.shared::cta.b64 done, [%0], %1;\n"
+      "@!done bra WAIT;\n}\n" ::"r"(bar),
+      "r"(parity)
+      : "memory");
+}
+
+// One box of a 4-D tensor map (D, S, H, B) at (c0, c1, c2, c3) into shared
+// memory, its bytes counted on `bar`.  Rows past S land as zeros.
+__device__ __forceinline__ void tma_load_4d(uint32_t dst,
+                                            const CUtensorMap* map, int c0,
+                                            int c1, int c2, int c3,
+                                            uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%2, %3, %4, %5}], [%6];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(c2),
+      "r"(c3), "r"(bar)
+      : "memory");
+}
+
+// `bytes` (a multiple of 16, both addresses 16-byte aligned) into shared
+// memory, counted on `bar`.
+__device__ __forceinline__ void bulk_load(uint32_t dst, const void* src,
+                                          uint32_t bytes, uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1], %2, [%3];\n" ::"r"(dst),
+      "l"(src), "r"(bytes), "r"(bar)
+      : "memory");
+}
+
+// Rows [row, row + 64) of the (h, b) slice of `map`, all DP columns, into
+// rows [r_off, r_off + 64) of a tile of ROWS rows laid out as DP / 64
+// column halves of ROWS swizzled rows each.
+template <int DP, int ROWS>
+__device__ __forceinline__ void tma_slab(const CUtensorMap* map, uint32_t tile,
+                                         int r_off, int row, int h, int b,
+                                         uint32_t bar) {
+#pragma unroll
+  for (int c = 0; c < DP / 64; ++c)
+    tma_load_4d(tile + (c * ROWS + r_off) * kSwRow, map, 64 * c, row, h, b,
+                bar);
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+
+// Pin registers that an in-flight wgmma reads or writes: the compiler may
+// not move them across this point.
+template <int N>
+__device__ __forceinline__ void keep(float (&d)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+__device__ __forceinline__ void keep(uint32_t (&a)[4][4]) {
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) asm volatile("" : "+r"(a[i][j])::"memory");
+}
+
+// The wgmma descriptor of a 128-byte-swizzled bf16 operand at `addr` (the
+// layout TMA writes: 16-byte chunk c of row r at chunk c ^ (r % 8), 8-row
+// atoms of 1,024 bytes, which set the stride between 8-row groups).
+// K-major operands (K along the 128-byte row) step 32 bytes a k16 step;
+// MN-major ones (MN along the row) step 16 rows, 2,048 bytes, and `lbo`
+// is the distance from one 64-column half of the tile to the next.
+__device__ __forceinline__ uint64_t sw128_desc(uint32_t addr, uint32_t lbo) {
+  return (uint64_t)((addr & 0x3FFFF) >> 4) |
+         (uint64_t)((lbo >> 4) & 0x3FFF) << 16 | (uint64_t)(1024 >> 4) << 32 |
+         (uint64_t)1 << 62;
+}
+
+// Named barriers 1 .. NC take the NC consumer warpgroups in turns through
+// the first products of a step: warpgroup w waits on 1 + w, issues, and
+// lets the next go (1 + (w + 1) % NC), so one's exponentials run under
+// another's products instead of beside them.
+__device__ __forceinline__ void turn_wait(int wg) {
+  asm volatile("bar.sync %0, 256;\n" ::"r"(1 + wg) : "memory");
+}
+
+__device__ __forceinline__ void turn_pass(int wg, int nc) {
+  asm volatile("bar.arrive %0, 256;\n" ::"r"(1 + (wg + 1) % nc) : "memory");
+}
+
+// d (64 x 64, f32) (+)= A (64 x 16, K-major in shared memory) B^T (B:
+// 64 x 16, K-major in shared memory); `accumulate` 0 overwrites d.
+__device__ __forceinline__ void wgmma_ss_n64(float (&d)[32], uint64_t da,
+                                             uint64_t db, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7,"
+      "%8, %9, %10, %11, %12, %13, %14, %15,"
+      "%16, %17, %18, %19, %20, %21, %22, %23,"
+      "%24, %25, %26, %27, %28, %29, %30, %31}, "
+      "%32, %33, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(da), "l"(db), "r"(accumulate));
+}
+
+// d (64 x 64, f32) (+)= A (64 x 16, bf16 pairs in registers, the
+// mma.sync A layout a warp) B (16 x 64, MN-major in shared memory);
+// `accumulate` 0 overwrites d.
+__device__ __forceinline__ void wgmma_rs_n64(float (&d)[32],
+                                             const uint32_t (&a)[4],
+                                             uint64_t db, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7,"
+      "%8, %9, %10, %11, %12, %13, %14, %15,"
+      "%16, %17, %18, %19, %20, %21, %22, %23,"
+      "%24, %25, %26, %27, %28, %29, %30, %31}, "
+      "{%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db),
+        "r"(accumulate));
+}
+
+// d (64 x 128, f32) (+)= A (64 x 16, bf16 pairs in registers, the
+// mma.sync A layout a warp) B (16 x 128, MN-major in shared memory);
+// `accumulate` 0 overwrites d.
+__device__ __forceinline__ void wgmma_rs_n128(float (&d)[64],
+                                             const uint32_t (&a)[4],
+                                             uint64_t db, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7,"
+      "%8, %9, %10, %11, %12, %13, %14, %15,"
+      "%16, %17, %18, %19, %20, %21, %22, %23,"
+      "%24, %25, %26, %27, %28, %29, %30, %31,"
+      "%32, %33, %34, %35, %36, %37, %38, %39,"
+      "%40, %41, %42, %43, %44, %45, %46, %47,"
+      "%48, %49, %50, %51, %52, %53, %54, %55,"
+      "%56, %57, %58, %59, %60, %61, %62, %63}, "
+      "{%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
+        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db),
+        "r"(accumulate));
+}
+
+
+#ifdef FA_BWD_STAMPS
+// Phase timers of the wgmma route's consumers (tools/attn_bwd_stamps.py):
+// lane 0 of each consumer warp sums the clock64 cycles of each phase of
+// its loop (slot kBwdPhases: its steps), for blocks below 4096; kernel 0
+// is flash_bwd_dkdv_wgmma, 1 flash_bwd_dq_wgmma.
+constexpr int kBwdPhases = 9;
+__device__ long long fa_bwd_stamps[2 * 4096 * 16 * (kBwdPhases + 1)];
+#define BWD_STAMP_INIT() \
+  long long stamp_t = clock64(), stamp_sum[kBwdPhases] = {};
+#define BWD_STAMP(i)                      \
+  do {                                    \
+    const long long t_ = clock64();       \
+    stamp_sum[i] += t_ - stamp_t;         \
+    stamp_t = t_;                         \
+  } while (0)
+#define BWD_STAMP_END(kern, steps)                                          \
+  do {                                                                      \
+    long long* o_ = fa_bwd_stamps +                                         \
+        (((kern) * 4096 + blockIdx.x) * 16 + threadIdx.x / 32) *            \
+            (kBwdPhases + 1);                                               \
+    if (threadIdx.x % 32 == 0 && blockIdx.x < 4096) {                       \
+      for (int i_ = 0; i_ < kBwdPhases; ++i_) o_[i_] = stamp_sum[i_];       \
+      o_[kBwdPhases] = (steps);                                             \
+    }                                                                       \
+  } while (0)
+#else
+#define BWD_STAMP_INIT()
+#define BWD_STAMP(i)
+#define BWD_STAMP_END(kern, steps)
+#endif
+
+// Whether some (`any`) or every (`full`) pair of the keys [k0, k1] and the
+// query rows [r0, r1] (at positions r + offs) is visible; `whole`: the two
+// ranges are whole 64-row slabs (no key past Skv, no row past Sq).
+__device__ __forceinline__ void slab_cover(int k0, int k1, int r0, int r1,
+                                           int offs, int causal, int window,
+                                           bool whole, bool& any,
+                                           bool& full) {
+  const int p0 = r0 + offs, p1 = r1 + offs;
+  any = k0 <= k1 && r0 <= r1 && (!causal || k0 <= p1) &&
+        (window <= 0 || p0 - k1 < window);
+  full = whole && (!causal || k1 <= p0) && (window <= 0 || p1 - k0 < window);
+}
+
+// The 64-row q tiles [begin, end) whose rows see some key of [k0, k1].
+__device__ __forceinline__ void seeing_slabs(int k0, int k1, int Sq, int Skv,
+                                             int causal, int window,
+                                             int& begin, int& end) {
+  const int offs = Skv - Sq;
+  int lo = causal ? k0 - offs : 0;
+  int hi = window > 0 ? k1 + window - 1 - offs : Sq - 1;
+  lo = max(lo, 0);
+  hi = min(hi, Sq - 1);
+  begin = lo / kSlab;
+  end = hi < lo ? begin : hi / kSlab + 1;
+}
+
+// The 32 f32 of an m64n64 accumulator as the A operand of the next
+// product (k = the 64 columns): a[kk] holds columns 16 kk .. 16 kk + 15.
+__device__ __forceinline__ void acc_to_a4(uint32_t (&a)[4][4],
+                                          const float (&c)[32]) {
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+    for (int r = 0; r < 4; ++r)
+      a[kk][r] = pack_bf16(c[8 * kk + 2 * r], c[8 * kk + 2 * r + 1]);
+}
+
+template <int DP>
+__device__ __forceinline__ void wgmma_rs(float (&d)[DP / 2],
+                                         const uint32_t (&a)[4], uint64_t db);
+
+template <>
+__device__ __forceinline__ void wgmma_rs<64>(float (&d)[32],
+                                             const uint32_t (&a)[4],
+                                             uint64_t db) {
+  wgmma_rs_n64(d, a, db, 1);
+}
+
+template <>
+__device__ __forceinline__ void wgmma_rs<128>(float (&d)[64],
+                                              const uint32_t (&a)[4],
+                                              uint64_t db) {
+  wgmma_rs_n128(d, a, db, 1);
+}
+
+// Rows row0 + 16 wi + g (+ 8) of an m64nDP accumulator (columns 8 j + 2 t,
+// + 1 in acc[4 j + 2 hr + {0, 1}]), times mul, to dst (rows past `rows`
+// left out).
+template <int DP>
+__device__ __forceinline__ void store_slab(bf16* dst, long long stride,
+                                           const float (&acc)[DP / 2],
+                                           float mul, int row0, int rows,
+                                           int g, int t) {
+#pragma unroll
+  for (int hr = 0; hr < 2; ++hr) {
+    const int row = row0 + g + 8 * hr;
+    if (row >= rows) continue;
+#pragma unroll
+    for (int j = 0; j < DP / 8; ++j)
+      *reinterpret_cast<uint32_t*>(dst + row * stride + 8 * j + 2 * t) =
+          pack_bf16(acc[4 * j + 2 * hr] * mul, acc[4 * j + 2 * hr + 1] * mul);
+  }
+}
+
+// Shared memory of flash_bwd_dkdv_wgmma, in bytes from a 1,024-aligned base.
+template <int DP>
+struct DkdvSmem {
+  static constexpr int kTile = kKvTile * DP * 2;   // K or V, kept
+  static constexpr int kStage = kSlab * DP * 2;    // Q or dO, streamed
+  static constexpr int K = 0, V = kTile, Q = 2 * kTile,
+                       O = Q + kRing * kStage, L = O + kRing * kStage,
+                       Dl = L + kRing * kSlab * 4, Bar = Dl + kRing * kSlab * 4,
+                       bytes = Bar + (2 * kRing + 1) * 8 + 1024;
+};
+
+// Shared memory of flash_bwd_dq_wgmma with NC consumer warpgroups.
+template <int DP, int NC>
+struct DqSmem {
+  static constexpr int kTile = NC * kSlab * DP * 2;  // Q or dO, kept
+  static constexpr int kStage = kSlab * DP * 2;    // K or V, streamed
+  static constexpr int Q = 0, O = kTile, K = 2 * kTile,
+                       V = K + kRing * kStage, Bar = V + kRing * kStage,
+                       bytes = Bar + (2 * kRing + 1) * 8 + 1024;
+};
+
+__device__ __forceinline__ unsigned char* align1024(unsigned char* p) {
+  return p + ((1024u - (smem_addr(p) & 1023u)) & 1023u);
+}
+
+// dK and dV: one block per (kv tile of 128 keys, kv head, batch row), the
+// kv tiles of a head side by side (heaviest first) so the blocks that
+// stream one head's Q and dO run together and share them in L2.  K and V
+// are loaded once; the producer streams (Q, dO, lse, delta) of every
+// (query head of the group, q tile of 64 rows) that sees the tile.
+// Consumer w owns keys k0 + 64 w .. + 63:
+//   S^T = K_w Q^T, dP^T = V_w dO^T   (SS wgmma m64n64k16, D / 16 steps),
+//   P^T = 2^(S^T scale_log2 - lse_log2), dS^T = P^T (dP^T - delta)  (f32),
+//   dV += P^T dO, dK += dS^T Q       (RS wgmma m64nDk16, 4 steps; P^T,
+//                                     dS^T rounded to bf16 in registers,
+//                                     Q and dO read MN-major).
+// ll, dl: lse * log2(e) (+inf on a row that sees no key or lies past Sq)
+// and delta (0 there), (B, Hq, Sq_pad) from flash_bwd_prep.
+template <int DP>
+__global__ void __launch_bounds__(kWsThreads, 1)
+flash_bwd_dkdv_wgmma(const __grid_constant__ CUtensorMap tq,
+                     const __grid_constant__ CUtensorMap tk,
+                     const __grid_constant__ CUtensorMap tv,
+                     const __grid_constant__ CUtensorMap tdo,
+                     const float* __restrict__ ll,
+                     const float* __restrict__ dl, bf16* __restrict__ dk,
+                     bf16* __restrict__ dv, Strides dks, Strides dvs, int Hq,
+                     int Hkv, int G, int Sq, int Sq_pad, int Skv, int causal,
+                     int window, float scale_log2, float scale) {
+  using Sm = DkdvSmem<DP>;
+  extern __shared__ __align__(1024) unsigned char smem_raw[];
+  unsigned char* sm = align1024(smem_raw);
+  const uint32_t base = smem_addr(sm);
+  const uint32_t full0 = base + Sm::Bar, empty0 = full0 + 8 * kRing,
+                 kv_bar = empty0 + 8 * kRing;
+
+  const int nkt = (Skv + kKvTile - 1) / kKvTile;
+  const int kt = blockIdx.x % nkt;
+  const int hk = blockIdx.x / nkt % Hkv;
+  const int b = blockIdx.x / nkt / Hkv;
+  const int k0 = kt * kKvTile;
+  const int offs = Skv - Sq;
+  int qt_begin, qt_end;
+  seeing_slabs(k0, min(k0 + kKvTile, Skv) - 1, Sq, Skv, causal, window,
+               qt_begin, qt_end);
+  const int nq = qt_end - qt_begin;
+  const int n = G * nq;
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < kRing; ++s) {
+      mbar_init(full0 + 8 * s, 1);
+      mbar_init(empty0 + 8 * s, 2 * kWg);
+    }
+    mbar_init(kv_bar, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  const int wg = threadIdx.x / kWg;
+  if (wg == 2) {                                // producer
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 24;\n");
+    if (threadIdx.x == 2 * kWg && n > 0) {
+      mbar_expect_tx(kv_bar, 2 * Sm::kTile);
+      for (int r = 0; r < kKvTile; r += kSlab) {
+        tma_slab<DP, kKvTile>(&tk, base + Sm::K, r, k0 + r, hk, b, kv_bar);
+        tma_slab<DP, kKvTile>(&tv, base + Sm::V, r, k0 + r, hk, b, kv_bar);
+      }
+      for (int i = 0; i < n; ++i) {
+        const int st = i % kRing;
+        const uint32_t full = full0 + 8 * st;
+        mbar_wait(empty0 + 8 * st, ((i / kRing) & 1) ^ 1);
+        const int h = hk * G + i / nq;
+        const int q0 = (qt_begin + i % nq) * kSlab;
+        mbar_expect_tx(full, 2 * Sm::kStage + 2 * kSlab * 4);
+        tma_slab<DP, kSlab>(&tq, base + Sm::Q + st * Sm::kStage, 0, q0, h, b,
+                            full);
+        tma_slab<DP, kSlab>(&tdo, base + Sm::O + st * Sm::kStage, 0, q0, h, b,
+                            full);
+        const long long r = ((long long)b * Hq + h) * Sq_pad + q0;
+        bulk_load(base + Sm::L + st * kSlab * 4, ll + r, kSlab * 4, full);
+        bulk_load(base + Sm::Dl + st * kSlab * 4, dl + r, kSlab * 4, full);
+      }
+    }
+  } else {                                      // consumers
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 240;\n");
+    const int tid = threadIdx.x % kWg;
+    const int wi = tid / 32;
+    const int lane = tid % 32;
+    const int g = lane >> 2;
+    const int t = lane & 3;
+    const int kw0 = k0 + kSlab * wg;            // this warpgroup's keys
+    const int kw1 = min(kw0 + kSlab, Skv) - 1;
+    const int key0 = kw0 + 16 * wi + g;         // this thread's rows
+    float dv_acc[DP / 2], dk_acc[DP / 2];
+#pragma unroll
+    for (int x = 0; x < DP / 2; ++x) dv_acc[x] = dk_acc[x] = 0.f;
+    // A of S^T and dP^T: this warpgroup's 64 rows of K and V
+    const uint64_t ka = sw128_desc(base + Sm::K + wg * kSlab * kSwRow, 0);
+    const uint64_t va = sw128_desc(base + Sm::V + wg * kSlab * kSwRow, 0);
+    if (n > 0) mbar_wait(kv_bar, 0);
+    BWD_STAMP_INIT();
+
+    for (int i = 0; i < n; ++i) {
+      const int st = i % kRing;
+      const int q0 = (qt_begin + i % nq) * kSlab;
+      bool any, full;
+      slab_cover(kw0, kw1, q0, min(q0 + kSlab, Sq) - 1, offs, causal, window,
+                 kw0 + kSlab <= Skv && q0 + kSlab <= Sq, any, full);
+      const uint32_t qs = base + Sm::Q + st * Sm::kStage;
+      const uint32_t os = base + Sm::O + st * Sm::kStage;
+      mbar_wait(full0 + 8 * st, (i / kRing) & 1);
+      BWD_STAMP(0);
+      if (i > 0 || wg == 1) turn_wait(wg);      // warpgroup 0 goes first
+      BWD_STAMP(1);
+      if (any) {
+        float s[32], dp[32];                      // set by the first k step
+        wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < DP / 16; ++kk)      // S^T = K_w Q^T
+          wgmma_ss_n64(s, ka + (((kk / 4) * kKvTile * kSwRow +
+                                 (kk % 4) * 32) >> 4),
+                       sw128_desc(qs + (kk / 4) * kSlab * kSwRow +
+                                      (kk % 4) * 32, 0),
+                       kk > 0);
+        wgmma_commit();
+#pragma unroll
+        for (int kk = 0; kk < DP / 16; ++kk)      // dP^T = V_w dO^T
+          wgmma_ss_n64(dp, va + (((kk / 4) * kKvTile * kSwRow +
+                                  (kk % 4) * 32) >> 4),
+                       sw128_desc(os + (kk / 4) * kSlab * kSwRow +
+                                      (kk % 4) * 32, 0),
+                       kk > 0);
+        wgmma_commit();
+        turn_pass(wg, 2);
+        BWD_STAMP(2);
+        const float* cL = reinterpret_cast<const float*>(
+            sm + Sm::L + st * kSlab * 4);
+        const float* cD = reinterpret_cast<const float*>(
+            sm + Sm::Dl + st * kSlab * 4);
+        wgmma_wait<1>();                          // S^T here, dP^T running
+        keep(s);
+        BWD_STAMP(3);
+        // P^T: keys key0 (+ 8) as rows, q rows 8 j + 2 t (+ 1) as columns;
+        // a masked pair's exponent is -inf, so its P is 0 without a branch
+        // around the ex2 (one per pair would serialise them)
+#pragma unroll
+        for (int j = 0; j < 8; ++j) {
+          const float2 l2 =
+              *reinterpret_cast<const float2*>(cL + 8 * j + 2 * t);
+#pragma unroll
+          for (int e = 0; e < 4; ++e)
+            s[4 * j + e] =
+                s[4 * j + e] * scale_log2 - ((e & 1) ? l2.y : l2.x);
+        }
+        if (!full) {
+#pragma unroll
+          for (int x = 0; x < 32; ++x) {
+            const int qr = 8 * (x / 4) + 2 * t + (x & 1);
+            if (!(q0 + qr < Sq && sees(key0 + 8 * ((x >> 1) & 1),
+                                       q0 + qr + offs, Skv, causal, window)))
+              s[x] = -INFINITY;
+          }
+        }
+#pragma unroll
+        for (int x = 0; x < 32; ++x) s[x] = ex2(s[x]);
+        uint32_t pa[4][4], da[4][4];
+        acc_to_a4(pa, s);
+        keep(dv_acc);
+        wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk)            // dV += P^T dO
+          wgmma_rs<DP>(dv_acc, pa[kk],
+                       sw128_desc(os + kk * 16 * kSwRow, kSlab * kSwRow));
+        wgmma_commit();
+        BWD_STAMP(4);
+        wgmma_wait<1>();                          // dP^T here, dV running
+        keep(dp);
+        BWD_STAMP(5);
+#pragma unroll
+        for (int j = 0; j < 8; ++j) {             // dS^T = P^T (dP^T - delta)
+          const float2 d2 =
+              *reinterpret_cast<const float2*>(cD + 8 * j + 2 * t);
+#pragma unroll
+          for (int e = 0; e < 4; ++e)
+            dp[4 * j + e] =
+                s[4 * j + e] * (dp[4 * j + e] - ((e & 1) ? d2.y : d2.x));
+        }
+        acc_to_a4(da, dp);
+        keep(dk_acc);
+        wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk)            // dK += dS^T Q
+          wgmma_rs<DP>(dk_acc, da[kk],
+                       sw128_desc(qs + kk * 16 * kSwRow, kSlab * kSwRow));
+        wgmma_commit();
+        BWD_STAMP(6);
+        wgmma_wait<0>();
+        BWD_STAMP(7);
+        keep(dv_acc);
+        keep(dk_acc);
+        keep(pa);
+        keep(da);
+      } else {
+        turn_pass(wg, 2);
+      }
+      mbar_arrive(empty0 + 8 * st);
+      BWD_STAMP(8);
+    }
+    if (wg == 0 && n > 0) turn_wait(wg);        // warpgroup 1's last pass
+    BWD_STAMP_END(0, n);
+    store_slab<DP>(dk + b * dks.b + hk * dks.h, dks.s, dk_acc, scale,
+                   kw0 + 16 * wi, Skv, g, t);
+    store_slab<DP>(dv + b * dvs.b + hk * dvs.h, dvs.s, dv_acc, 1.f,
+                   kw0 + 16 * wi, Skv, g, t);
+  }
+}
+
+// dQ: one block per (q tile of 64 NC rows, query head, batch row), the q
+// tiles of a head side by side (heaviest first) and the heads of a GQA
+// group next to each other, so they share K and V in L2.  NC consumer
+// warpgroups (3 at D = 64, whose registers fit 160 a thread, 2 at D =
+// 128) and a producer.  Q and dO are loaded once; the producer streams
+// (K, V) tiles of 64 keys, the ones the forward walks.  Consumer w owns
+// rows q0 + 64 w .. + 63:
+//   S = Q_w K^T, dP = dO_w V^T   (SS wgmma m64n64k16, D / 16 steps),
+//   P, dS = P (dP - delta)        (f32; lse and delta in registers),
+//   dQ += dS K                    (RS wgmma m64nDk16, 4 steps; K MN-major).
+template <int DP, int NC>
+__global__ void __launch_bounds__((NC + 1) * kWg, 1)
+flash_bwd_dq_wgmma(const __grid_constant__ CUtensorMap tq,
+                   const __grid_constant__ CUtensorMap tk,
+                   const __grid_constant__ CUtensorMap tv,
+                   const __grid_constant__ CUtensorMap tdo,
+                   const float* __restrict__ ll, const float* __restrict__ dl,
+                   bf16* __restrict__ dq, Strides dqs, int Hq, int G, int Sq,
+                   int Sq_pad, int Skv, int causal, int window,
+                   float scale_log2, float scale) {
+  using Sm = DqSmem<DP, NC>;
+  constexpr int QT = NC * kSlab;                // q rows a block
+  extern __shared__ __align__(1024) unsigned char smem_raw[];
+  unsigned char* sm = align1024(smem_raw);
+  const uint32_t base = smem_addr(sm);
+  const uint32_t full0 = base + Sm::Bar, empty0 = full0 + 8 * kRing,
+                 q_bar = empty0 + 8 * kRing;
+
+  const int nqt = (Sq + QT - 1) / QT;
+  const int qt = nqt - 1 - blockIdx.x % nqt;   // heaviest first
+  const int h = blockIdx.x / nqt % Hq;
+  const int b = blockIdx.x / nqt / Hq;
+  const int hk = h / G;
+  const int q0 = qt * QT;
+  const int offs = Skv - Sq;
+  int kt_begin, kt_end;
+  visible_tiles(q0 + offs, min(q0 + QT, Sq) - 1 + offs, Skv, causal,
+                window, kt_begin, kt_end);
+  const int nt = kt_end - kt_begin;
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < kRing; ++s) {
+      mbar_init(full0 + 8 * s, 1);
+      mbar_init(empty0 + 8 * s, NC * kWg);
+    }
+    mbar_init(q_bar, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  const int wg = threadIdx.x / kWg;
+  if (wg == NC) {                               // producer
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 24;\n");
+    if (threadIdx.x == NC * kWg && nt > 0) {
+      mbar_expect_tx(q_bar, 2 * Sm::kTile);
+      for (int r = 0; r < QT; r += kSlab) {
+        tma_slab<DP, QT>(&tq, base + Sm::Q, r, q0 + r, h, b, q_bar);
+        tma_slab<DP, QT>(&tdo, base + Sm::O, r, q0 + r, h, b, q_bar);
+      }
+      for (int i = 0; i < nt; ++i) {
+        const int st = i % kRing;
+        const uint32_t full = full0 + 8 * st;
+        mbar_wait(empty0 + 8 * st, ((i / kRing) & 1) ^ 1);
+        const int k0 = (kt_begin + i) * kSlab;
+        mbar_expect_tx(full, 2 * Sm::kStage);
+        tma_slab<DP, kSlab>(&tk, base + Sm::K + st * Sm::kStage, 0, k0, hk, b,
+                            full);
+        tma_slab<DP, kSlab>(&tv, base + Sm::V + st * Sm::kStage, 0, k0, hk, b,
+                            full);
+      }
+    }
+  } else {                                      // consumers
+    // the registers the producer gives up: 240 a thread for 2 consumer
+    // warpgroups, 160 for 3
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(
+        NC == 2 ? 240 : 160));
+    const int tid = threadIdx.x % kWg;
+    const int wi = tid / 32;
+    const int lane = tid % 32;
+    const int g = lane >> 2;
+    const int t = lane & 3;
+    const int r0 = q0 + kSlab * wg;             // this warpgroup's rows
+    const int r1 = min(r0 + kSlab, Sq) - 1;
+    const int row0 = r0 + 16 * wi + g;          // this thread's rows
+    float rl[2], rd[2];
+#pragma unroll
+    for (int hr = 0; hr < 2; ++hr) {            // row < Sq_pad: padded
+      const long long r = ((long long)b * Hq + h) * Sq_pad + row0 + 8 * hr;
+      rl[hr] = ll[r];
+      rd[hr] = dl[r];
+    }
+    float dq_acc[DP / 2];
+#pragma unroll
+    for (int x = 0; x < DP / 2; ++x) dq_acc[x] = 0.f;
+    // A of S and dP: this warpgroup's 64 rows of Q and dO
+    const uint64_t qa = sw128_desc(base + Sm::Q + wg * kSlab * kSwRow, 0);
+    const uint64_t oa = sw128_desc(base + Sm::O + wg * kSlab * kSwRow, 0);
+    if (nt > 0) mbar_wait(q_bar, 0);
+    BWD_STAMP_INIT();
+
+    for (int i = 0; i < nt; ++i) {
+      const int st = i % kRing;
+      const int k0 = (kt_begin + i) * kSlab;
+      bool any, full;
+      slab_cover(k0, min(k0 + kSlab, Skv) - 1, r0, r1, offs, causal, window,
+                 k0 + kSlab <= Skv && r0 + kSlab <= Sq, any, full);
+      const uint32_t ks = base + Sm::K + st * Sm::kStage;
+      const uint32_t vs = base + Sm::V + st * Sm::kStage;
+      mbar_wait(full0 + 8 * st, (i / kRing) & 1);
+      BWD_STAMP(0);
+      if (i > 0 || wg > 0) turn_wait(wg);       // warpgroup 0 goes first
+      BWD_STAMP(1);
+      if (any) {
+        float s[32], dp[32];                      // set by the first k step
+        wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < DP / 16; ++kk)      // S = Q_w K^T
+          wgmma_ss_n64(s, qa + (((kk / 4) * QT * kSwRow +
+                                 (kk % 4) * 32) >> 4),
+                       sw128_desc(ks + (kk / 4) * kSlab * kSwRow +
+                                      (kk % 4) * 32, 0),
+                       kk > 0);
+        wgmma_commit();
+#pragma unroll
+        for (int kk = 0; kk < DP / 16; ++kk)      // dP = dO_w V^T
+          wgmma_ss_n64(dp, oa + (((kk / 4) * QT * kSwRow +
+                                  (kk % 4) * 32) >> 4),
+                       sw128_desc(vs + (kk / 4) * kSlab * kSwRow +
+                                      (kk % 4) * 32, 0),
+                       kk > 0);
+        wgmma_commit();
+        turn_pass(wg, NC);
+        BWD_STAMP(2);
+        wgmma_wait<1>();                          // S here, dP running
+        keep(s);
+        BWD_STAMP(3);
+        // P: rows row0 (+ 8), keys k0 + 8 j + 2 t (+ 1) as columns; a
+        // masked pair's exponent is -inf (no branch around the ex2)
+#pragma unroll
+        for (int x = 0; x < 32; ++x)
+          s[x] = s[x] * scale_log2 - rl[(x >> 1) & 1];
+        if (!full) {
+#pragma unroll
+          for (int x = 0; x < 32; ++x) {
+            const int hr = (x >> 1) & 1;
+            if (!(row0 + 8 * hr < Sq &&
+                  sees(k0 + 8 * (x / 4) + 2 * t + (x & 1),
+                       row0 + 8 * hr + offs, Skv, causal, window)))
+              s[x] = -INFINITY;
+          }
+        }
+#pragma unroll
+        for (int x = 0; x < 32; ++x) s[x] = ex2(s[x]);
+        BWD_STAMP(4);
+        wgmma_wait<0>();
+        keep(dp);
+        BWD_STAMP(5);
+#pragma unroll
+        for (int x = 0; x < 32; ++x)              // dS = P (dP - delta)
+          dp[x] = s[x] * (dp[x] - rd[(x >> 1) & 1]);
+        uint32_t da[4][4];
+        acc_to_a4(da, dp);
+        keep(dq_acc);
+        wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk)            // dQ += dS K
+          wgmma_rs<DP>(dq_acc, da[kk],
+                       sw128_desc(ks + kk * 16 * kSwRow, kSlab * kSwRow));
+        wgmma_commit();
+        BWD_STAMP(6);
+        wgmma_wait<0>();
+        BWD_STAMP(7);
+        keep(dq_acc);
+        keep(da);
+      } else {
+        turn_pass(wg, NC);
+      }
+      mbar_arrive(empty0 + 8 * st);
+      BWD_STAMP(8);
+    }
+    if (wg == 0 && nt > 0) turn_wait(wg);       // the last one's last pass
+    BWD_STAMP_END(1, nt);
+    store_slab<DP>(dq + b * dqs.b + h * dqs.h, dqs.s, dq_acc, scale,
+                   r0 + 16 * wi, Sq, g, t);
+  }
+}
+
+// Before the wgmma kernels: ll = lse * log2(e) (+inf where lse = -inf, a
+// row that sees no key, and on the rows past Sq) and dl = delta (0 past
+// Sq), both (B, Hq, Sq_pad) so the producer's 256-byte copies stay inside
+// one (b, h) row and 16-byte aligned.  D / 8 threads a row, each reading
+// 16 bytes of o and of dO (the route's views are 16-byte aligned).
+template <int DP>
+__global__ void __launch_bounds__(256)
+flash_bwd_prep(const bf16* __restrict__ o, const bf16* __restrict__ dout,
+               const float* __restrict__ lse, float* __restrict__ ll,
+               float* __restrict__ dl, Strides os, Strides ds, int Hq, int Sq,
+               int Sq_pad, long long rows) {
+  constexpr int CH = DP / 8;                   // threads a row
+  const long long idx = (long long)blockIdx.x * 256 + threadIdx.x;
+  const long long row = idx / CH;
+  const int c = (int)(idx % CH) * 8;
+  const int i = (int)(row % Sq_pad);
+  const long long bh = row / Sq_pad;
+  float acc = 0.f;
+  if (row < rows && i < Sq) {
+    const int h = (int)(bh % Hq);
+    const long long b = bh / Hq;
+    const uint4 ov = *reinterpret_cast<const uint4*>(
+        o + b * os.b + h * os.h + (long long)i * os.s + c);
+    const uint4 dv = *reinterpret_cast<const uint4*>(
+        dout + b * ds.b + h * ds.h + (long long)i * ds.s + c);
+    const __nv_bfloat162* o2 = reinterpret_cast<const __nv_bfloat162*>(&ov);
+    const __nv_bfloat162* d2 = reinterpret_cast<const __nv_bfloat162*>(&dv);
+#pragma unroll
+    for (int x = 0; x < 4; ++x) {
+      const float2 a = __bfloat1622float2(o2[x]);
+      const float2 e = __bfloat1622float2(d2[x]);
+      acc += a.x * e.x + a.y * e.y;
+    }
+  }
+#pragma unroll
+  for (int off = CH / 2; off > 0; off >>= 1)
+    acc += __shfl_xor_sync(0xffffffffu, acc, off);
+  if (row < rows && c == 0) {
+    const float l = i < Sq ? lse[bh * Sq + i] : -INFINITY;
+    ll[row] = l == -INFINITY ? INFINITY : l * kLog2e;
+    dl[row] = acc;
+  }
+}
+
+// cuTensorMapEncodeTiled from the driver the runtime already loaded, so
+// the library links nothing beyond the runtime.
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType,
+                                 cuuint32_t, void*, const cuuint64_t*,
+                                 const cuuint64_t*, const cuuint32_t*,
+                                 const cuuint32_t*, CUtensorMapInterleave,
+                                 CUtensorMapSwizzle, CUtensorMapL2promotion,
+                                 CUtensorMapFloatOOBfill);
+
+EncodeTiled encode_tiled() {
+  static EncodeTiled fn = nullptr;
+  if (fn == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    cudaError_t err = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &found);
+#else
+    cudaError_t err = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p,
+                                              cudaEnableDefault, &found);
+#endif
+    if (err == cudaSuccess && found == cudaDriverEntryPointSuccess)
+      fn = reinterpret_cast<EncodeTiled>(p);
+  }
+  return fn;
+}
+
+// The tensor map of a bf16 (B, H, S, D) view with element strides st over
+// (batch, head, seq): dims (D, S, H, B), boxes of 64 x 64 rows, 128-byte
+// swizzle, rows past S read as zeros.  An extent-1 dim is never stepped,
+// so its stride is given as 16 bytes.
+bool tensor_map(CUtensorMap* map, const void* base, int B, int H, int S,
+                int D, Strides st) {
+  const EncodeTiled fn = encode_tiled();
+  if (fn == nullptr) return false;
+  const cuuint64_t dims[4] = {(cuuint64_t)D, (cuuint64_t)S, (cuuint64_t)H,
+                              (cuuint64_t)B};
+  const cuuint64_t strides[3] = {S > 1 ? (cuuint64_t)st.s * 2 : 16,
+                                 H > 1 ? (cuuint64_t)st.h * 2 : 16,
+                                 B > 1 ? (cuuint64_t)st.b * 2 : 16};
+  const cuuint32_t box[4] = {64, kSlab, 1, 1};
+  const cuuint32_t elem[4] = {1, 1, 1, 1};
+  return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(base),
+            dims, strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
+            CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// Whether a (B, H, S) view with element strides st can be a TMA source: a
+// 16-byte aligned base and strides of whole 16 bytes (an extent-1 dim's
+// stride aside).
+bool tma_view(const void* p, int B, int H, int S, const long long* st) {
+  return aligned16(p) && (B == 1 || st[0] % 8 == 0) &&
+         (H == 1 || st[1] % 8 == 0) && (S == 1 || st[2] % 8 == 0);
+}
+
+// The route of a backward call (repro_torch/kernels/flash_attention.py::
+// bwd_route is its mirror): 0 the f32 kernels; for bf16, 2 the TMA/wgmma
+// kernels when D is 64 or 128 and q, k, v, o and dO are TMA views (o for
+// the prep pass's 16-byte loads), else 1, the mma.sync kernels (D = 80,
+// D % 8 != 0, unaligned views).
+int bwd_route(const void* q, const void* k, const void* v, const void* o,
+              const void* dout, int dtype, int B, int Hq, int Hkv, int Sq,
+              int Skv, int D, const long long* st) {
+  if (dtype == 0) return 0;
+  const bool tma = (D == 64 || D == 128) && tma_view(q, B, Hq, Sq, st) &&
+                   tma_view(k, B, Hkv, Skv, st + 3) &&
+                   tma_view(v, B, Hkv, Skv, st + 6) &&
+                   tma_view(o, B, Hq, Sq, st + 9) &&
+                   tma_view(dout, B, Hq, Sq, st + 12);
+  return tma ? 2 : 1;
+}
+
+// The wgmma route: the prep pass, then the dK/dV and the dQ kernels.
+template <int DP>
+cudaError_t launch_bwd_wgmma(const void* q, const void* k, const void* v,
+                             const void* o, const void* dout,
+                             const float* lse, float* ll, float* dl, void* dq,
+                             void* dk, void* dv, int B, int Hq, int Hkv,
+                             int Sq, int Skv, int Sq_pad,
+                             const long long* st, int causal, int window,
+                             float scale, cudaStream_t stream) {
+  const Strides qs{st[0], st[1], st[2]}, ks{st[3], st[4], st[5]},
+      vs{st[6], st[7], st[8]}, os{st[9], st[10], st[11]},
+      dos{st[12], st[13], st[14]}, dqs{st[15], st[16], st[17]},
+      dks{st[18], st[19], st[20]}, dvs{st[21], st[22], st[23]};
+  CUtensorMap tq, tk, tv, tdo;
+  if (!tensor_map(&tq, q, B, Hq, Sq, DP, qs) ||
+      !tensor_map(&tk, k, B, Hkv, Skv, DP, ks) ||
+      !tensor_map(&tv, v, B, Hkv, Skv, DP, vs) ||
+      !tensor_map(&tdo, dout, B, Hq, Sq, DP, dos))
+    return cudaErrorInvalidValue;
+  const long long rows = (long long)B * Hq * Sq_pad;
+  const long long prep_blocks = (rows * (DP / 8) + 255) / 256;
+  const long long kv_blocks =
+      (long long)((Skv + kKvTile - 1) / kKvTile) * Hkv * B;
+  constexpr int NC = DP == 64 ? 3 : 2;          // dQ's consumer warpgroups
+  const long long q_blocks =
+      (long long)((Sq + NC * kSlab - 1) / (NC * kSlab)) * Hq * B;
+  if (prep_blocks > INT_MAX || kv_blocks > INT_MAX || q_blocks > INT_MAX)
+    return cudaErrorInvalidValue;
+  constexpr int kv_smem = DkdvSmem<DP>::bytes,
+                q_smem = DqSmem<DP, NC>::bytes;
+  cudaError_t err = cudaFuncSetAttribute(
+      flash_bwd_dkdv_wgmma<DP>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      kv_smem);
+  if (err == cudaSuccess)
+    err = cudaFuncSetAttribute(flash_bwd_dq_wgmma<DP, NC>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               q_smem);
+  if (err != cudaSuccess) return err;
+  flash_bwd_prep<DP><<<(unsigned)prep_blocks, 256, 0, stream>>>(
+      static_cast<const bf16*>(o), static_cast<const bf16*>(dout), lse, ll,
+      dl, os, dos, Hq, Sq, Sq_pad, rows);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  const float sl2 = log2_scale(scale);
+  flash_bwd_dkdv_wgmma<DP><<<(unsigned)kv_blocks, kWsThreads, kv_smem,
+                             stream>>>(
+      tq, tk, tv, tdo, ll, dl, static_cast<bf16*>(dk),
+      static_cast<bf16*>(dv), dks, dvs, Hq, Hkv, Hq / Hkv, Sq, Sq_pad, Skv,
+      causal, window, sl2, scale);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  flash_bwd_dq_wgmma<DP, NC><<<(unsigned)q_blocks, (NC + 1) * kWg, q_smem,
+                             stream>>>(
+      tq, tk, tv, tdo, ll, dl, static_cast<bf16*>(dq), dqs, Hq, Hq / Hkv, Sq,
+      Sq_pad, Skv, causal, window, sl2, scale);
+  return cudaGetLastError();
+}
+
 // strides: 24 values in elements, (batch, head, seq) of q, k, v, o, dO, dq,
 // dk, dv.
 template <typename T>
@@ -1516,10 +2493,24 @@ cudaError_t launch_bwd_bf16(const void* q, const void* k, const void* v,
 
 cudaError_t dispatch_bwd(const void* q, const void* k, const void* v,
                          const void* o, const void* dout, const float* lse,
-                         float* delta, void* dq, void* dk, void* dv,
-                         int dtype, int B, int Hq, int Hkv, int Sq, int Skv,
-                         int D, const long long* st, int causal, int window,
-                         float scale, cudaStream_t s) {
+                         float* delta, float* ll, void* dq, void* dk, void* dv,
+                         int dtype, int route, int B, int Hq, int Hkv, int Sq,
+                         int Skv, int D, int Sq_pad, const long long* st,
+                         int causal, int window, float scale,
+                         cudaStream_t s) {
+  if (route != bwd_route(q, k, v, o, dout, dtype, B, Hq, Hkv, Sq, Skv, D,
+                         st))
+    return cudaErrorInvalidValue;
+  if (route == 2) {
+    if (Sq_pad < Sq || Sq_pad % kBwdPad) return cudaErrorInvalidValue;
+    if (D == 64)
+      return launch_bwd_wgmma<64>(q, k, v, o, dout, lse, ll, delta, dq, dk,
+                                  dv, B, Hq, Hkv, Sq, Skv, Sq_pad, st, causal,
+                                  window, scale, s);
+    return launch_bwd_wgmma<128>(q, k, v, o, dout, lse, ll, delta, dq, dk, dv,
+                                 B, Hq, Hkv, Sq, Skv, Sq_pad, st, causal,
+                                 window, scale, s);
+  }
   cudaError_t err =
       dtype == 0 ? launch_delta<float>(o, dout, delta, B, Hq, Sq, D, st, s)
                  : launch_delta<bf16>(o, dout, delta, B, Hq, Sq, D, st, s);
@@ -1576,26 +2567,38 @@ int flash_attention_launch(const void* q, const void* k, const void* v,
 // (B, Hkv, Skv, D) from q, k, v, the forward's o and lse, and dO (the
 // gradient of o).  strides: 24 values, (batch, head, seq) of q, k, v, o,
 // dO, dq, dk, dv; head_dim strides 1; dq, dk, dv 4-byte aligned rows.
-// delta: (B, Hq, Sq) f32 workspace.  D <= 128 and even; the wrapper
-// checks.  Three launches on `stream`.
+// route: the caller's bwd_route, which must be this file's (0 f32, 1
+// mma.sync, 2 wgmma).  Routes 0 and 1: delta is a (B, Hq, Sq) f32
+// workspace, lse2 unused, three launches.  Route 2: delta and lse2 are
+// (B, Hq, sq_pad) f32 workspaces, sq_pad a multiple of 128 >= Sq, three
+// launches.  D <= 128 and even; the wrapper checks.  All on `stream`.
 int flash_attention_bwd_launch(const void* q, const void* k, const void* v,
                                const void* o, const void* dout,
-                               const void* lse, void* delta, void* dq,
-                               void* dk, void* dv, int dtype, int B, int Hq,
-                               int Hkv, int Sq, int Skv, int D,
+                               const void* lse, void* delta, void* lse2,
+                               void* dq, void* dk, void* dv, int dtype,
+                               int route, int B, int Hq, int Hkv, int Sq,
+                               int Skv, int D, int sq_pad,
                                const long long* strides, int causal,
                                int window, float scale, void* stream) {
   if (D < 1 || D > 128 || D % 2 || Hkv < 1 || Hq % Hkv || dtype < 0 ||
       dtype > 1)
     return cudaErrorInvalidValue;
   return dispatch_bwd(q, k, v, o, dout, static_cast<const float*>(lse),
-                      static_cast<float*>(delta), dq, dk, dv, dtype, B, Hq,
-                      Hkv, Sq, Skv, D, strides, causal, window, scale,
+                      static_cast<float*>(delta), static_cast<float*>(lse2),
+                      dq, dk, dv, dtype, route, B, Hq, Hkv, Sq, Skv, D,
+                      sq_pad, strides, causal, window, scale,
                       static_cast<cudaStream_t>(stream));
 }
 
 const char* flash_attention_error_string(int err) {
   return cudaGetErrorString(static_cast<cudaError_t>(err));
 }
+
+#ifdef FA_BWD_STAMPS
+int flash_attention_bwd_stamps(long long* out, long long n) {
+  return (int)cudaMemcpyFromSymbol(out, fa_bwd_stamps,
+                                   n * sizeof(long long));
+}
+#endif
 
 }  // extern "C"

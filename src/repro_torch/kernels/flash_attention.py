@@ -3,15 +3,19 @@
 The forward replaces the Pallas kernel of the JAX package's
 ``kernels/flash_attention.py``; the backward (:func:`flash_attention_bwd`)
 is the port's own, for the gradients the JAX package takes by autodiff.  The source is
-``csrc/flash_attention.cu`` (the note at its top says what bounds the
-kernel and how it is split), built by ``nvcc`` at first use
-(:mod:`._build`).  :func:`flash_attention` takes the TPU kernel's
-(B, H, S, D) layout, as views with any batch, head and sequence strides
-and a head_dim stride of 1, so the model's (B, S, H, D) activations go
-in without a copy.  It launches on the current stream and counts
-nothing: :func:`repro_torch.kernels.ops.attention` is the wrapper that
-picks the plain version on the CPU, counts launches and binds the two
-into autograd.
+``csrc/flash_attention.cu`` (the notes at the top of its forward and
+backward sections say what bounds each kernel and how it is split), built
+by ``nvcc`` at first use (:mod:`._build`).  The backward takes one of
+three routes (:func:`bwd_route`): bf16 at head dim 64 or 128 in aligned
+views runs the TMA/``wgmma`` kernels, other bf16 calls the ``mma.sync``
+ones, float32 the FP32-core ones; :data:`BWD_ROUTE_CALLS` counts them.
+:func:`flash_attention` takes the TPU kernel's (B, H, S, D) layout, as
+views with any batch, head and sequence strides and a head_dim stride of
+1, so the model's (B, S, H, D) activations go in without a copy.  It
+launches on the current stream and counts nothing:
+:func:`repro_torch.kernels.ops.attention` is the wrapper that picks the
+plain version on the CPU, counts launches and binds the two into
+autograd.
 """
 from __future__ import annotations
 
@@ -26,6 +30,12 @@ MAX_HEAD_DIM = 256
 MAX_HEAD_DIM_BWD = 128
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _GRID_LIMIT = 65535          # grid y (query heads) and z (batch)
+#: the backward's routes, by their code in ``csrc/flash_attention.cu``
+BWD_ROUTES = ("f32", "mma_sync", "wgmma")
+BWD_PAD = 384                # the wgmma route's lse/delta rows round up to
+                             # it: a multiple of a dQ block's 192 or 128 rows
+#: route → backward calls that took it (a plain count, as ``ops.LAUNCHES``)
+BWD_ROUTE_CALLS = {r: 0 for r in BWD_ROUTES}
 
 
 def _lib() -> ctypes.CDLL:
@@ -35,9 +45,8 @@ def _lib() -> ctypes.CDLL:
         lib.flash_attention_launch.argtypes = [
             p, p, p, p, p, i, i, i, i, i, i, i, p, i, i, ctypes.c_float, p]
         lib.flash_attention_launch.restype = i
-        lib.flash_attention_bwd_launch.argtypes = [
-            p, p, p, p, p, p, p, p, p, p, i, i, i, i, i, i, i, p, i, i,
-            ctypes.c_float, p]
+        lib.flash_attention_bwd_launch.argtypes = [p] * 11 + [i] * 9 + [
+            p, i, i, ctypes.c_float, p]
         lib.flash_attention_bwd_launch.restype = i
         lib.flash_attention_error_string.argtypes = [i]
         lib.flash_attention_error_string.restype = ctypes.c_char_p
@@ -112,6 +121,37 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     return (out, lse) if return_lse else out
 
 
+def _tma_view(x: torch.Tensor) -> bool:
+    """A 16-byte aligned base and (batch, head, seq) strides of whole 16
+    bytes (the stride of an extent-1 dim is never stepped)."""
+    return x.data_ptr() % 16 == 0 and all(
+        n == 1 or s % 8 == 0 for n, s in zip(x.shape[:3], x.stride()[:3]))
+
+
+def bwd_route(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+              out: torch.Tensor, dout: torch.Tensor) -> str:
+    """The kernels :func:`flash_attention_bwd` takes for these (B, H, S, D)
+    views; the CUDA source picks the same (``bwd_route`` there) and refuses
+    a call where the two differ.  ``"f32"``: float32 inputs, the FP32-core
+    kernels.  ``"wgmma"``: bfloat16 at head dim 64 or 128 with q, k, v, out
+    and dout all TMA sources (:func:`_tma_view`).  ``"mma_sync"``: any
+    other bfloat16 call (head dim 80, D % 8 != 0, an unaligned view)."""
+    if q.dtype != torch.bfloat16:
+        return "f32"
+    if q.shape[-1] in (64, 128) and all(map(_tma_view,
+                                            (q, k, v, out, dout))):
+        return "wgmma"
+    return "mma_sync"
+
+
+def bwd_rows(Sq: int, route: str) -> int:
+    """Rows a (batch, head) of the backward's lse/delta workspaces: Sq,
+    or on the wgmma route Sq rounded up to BWD_PAD (a multiple of the dQ
+    kernel's q tile at either head dim), so that every tile's rows lie
+    inside its own (batch, head)."""
+    return -(-Sq // BWD_PAD) * BWD_PAD if route == "wgmma" else Sq
+
+
 def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         out: torch.Tensor, lse: torch.Tensor,
                         dout: torch.Tensor, *, causal: bool = True,
@@ -122,7 +162,8 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     the (B, H, S, D) layout, any batch, head and sequence strides, a
     head_dim stride of 1).  Returns (dq, dk, dv) in q's dtype, views of
     (B, S, H, D) contiguous tensors.  Head dims up to 128 (even); others
-    raise."""
+    raise.  :func:`bwd_route` names the kernels the call takes;
+    BWD_ROUTE_CALLS counts the calls of each route."""
     _check("flash_attention_bwd", q, k, v, window)
     B, Hq, Sq, D = q.shape
     _, Hkv, Skv, _ = k.shape
@@ -147,15 +188,21 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     dq, dk, dv = empty(Sq, Hq), empty(Skv, Hkv), empty(Skv, Hkv)
     if Sq == 0 or Skv == 0:
         return dq.zero_(), dk.zero_(), dv.zero_()
-    delta = torch.empty((B, Hq, Sq), dtype=torch.float32, device=q.device)
+    route = bwd_route(q, k, v, out, dout)
+    rows = bwd_rows(Sq, route)
+    delta = torch.empty((B, Hq, rows), dtype=torch.float32, device=q.device)
+    lse2 = torch.empty_like(delta) if route == "wgmma" else None
     strides = (ctypes.c_longlong * 24)(*(
         s for x in (q, k, v, out, dout, dq, dk, dv) for s in x.stride()[:3]))
     lib = _lib()
     _raise_on(lib, lib.flash_attention_bwd_launch(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-        dout.data_ptr(), lse.data_ptr(), delta.data_ptr(), dq.data_ptr(),
-        dk.data_ptr(), dv.data_ptr(), _DTYPES[q.dtype], B, Hq, Hkv, Sq, Skv,
-        D, strides, int(causal), window or 0, scale,
+        dout.data_ptr(), lse.data_ptr(), delta.data_ptr(),
+        None if lse2 is None else lse2.data_ptr(), dq.data_ptr(),
+        dk.data_ptr(), dv.data_ptr(), _DTYPES[q.dtype],
+        BWD_ROUTES.index(route), B, Hq, Hkv, Sq, Skv, D, rows, strides,
+        int(causal), window or 0, scale,
         torch.cuda.current_stream(q.device).cuda_stream),
         "flash_attention_bwd")
+    BWD_ROUTE_CALLS[route] += 1
     return dq, dk, dv

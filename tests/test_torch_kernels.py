@@ -256,6 +256,218 @@ def test_attention_scale_and_layout(jx):
                            torch.zeros(1, 2, 2, 4))
 
 
+# ---------------------------------------------------------------------------
+# The flash-attention backward's host side: which kernels a call takes, the
+# workspaces, and the wgmma kernels' tile walk (mirrored from
+# csrc/flash_attention.cu)
+# ---------------------------------------------------------------------------
+
+def _bwd_view(B, S, H, D, dtype=torch.bfloat16, offset=0, pad=0):
+    """A (B, H, S, D) view of a (B, S, H, D + pad) buffer that starts
+    ``offset`` elements into its storage, as ``ops`` hands it over."""
+    buf = torch.empty(B * S * H * (D + pad) + offset, dtype=dtype)
+    x = buf[offset:].view(B, S, H, D + pad)[..., :D]
+    return x.transpose(1, 2)
+
+
+# dtype, head dim, (tensor, change) → route: what decides it is the dtype,
+# the head dim (64 or 128; 80, 96, 32 and D % 8 != 0 are not), and every
+# one of q, k, v, out, dout having a 16-byte aligned base and strides of
+# whole 16 bytes (one element in, or rows of D + 4, are not; 8 elements
+# in, or rows of D + 8, are)
+ROUTE_CASES = [
+    ("bfloat16", 64, None, "wgmma"),
+    ("bfloat16", 128, None, "wgmma"),
+    ("float32", 64, None, "f32"),
+    ("float32", 128, ("q", "offset", 1), "f32"),
+    ("bfloat16", 80, None, "mma_sync"),
+    ("bfloat16", 96, None, "mma_sync"),
+    ("bfloat16", 32, None, "mma_sync"),
+    ("bfloat16", 62, None, "mma_sync"),
+    ("bfloat16", 64, ("q", "offset", 1), "mma_sync"),
+    ("bfloat16", 64, ("k", "offset", 1), "mma_sync"),
+    ("bfloat16", 128, ("dout", "offset", 1), "mma_sync"),
+    ("bfloat16", 64, ("out", "offset", 1), "mma_sync"),
+    ("bfloat16", 64, ("v", "pad", 4), "mma_sync"),
+    ("bfloat16", 128, ("q", "pad", 2), "mma_sync"),
+    ("bfloat16", 64, ("q", "offset", 8), "wgmma"),
+    ("bfloat16", 128, ("k", "pad", 8), "wgmma"),
+]
+
+
+@pytest.mark.parametrize("dt,D,change,route", ROUTE_CASES)
+def test_bwd_route_follows_dtype_head_dim_and_alignment(dt, D, change,
+                                                        route):
+    dtype = getattr(torch, dt)
+    shapes = {"q": (2, 70, 4), "k": (2, 90, 2), "v": (2, 90, 2),
+              "out": (2, 70, 4), "dout": (2, 70, 4)}
+    views = {}
+    for name, (B, S, H) in shapes.items():
+        kw = {}
+        if change is not None and change[0] == name:
+            kw[change[1]] = change[2]
+        views[name] = _bwd_view(B, S, H, D, dtype, **kw)
+    assert tfa.bwd_route(views["q"], views["k"], views["v"], views["out"],
+                         views["dout"]) == route
+
+
+def test_bwd_route_ignores_the_stride_of_an_extent_one_dim():
+    """A dim of extent 1 is never stepped, so its stride does not decide
+    the route (its tensor map is given a stride of 16 bytes)."""
+    buf = torch.zeros(3 + 40 * 64, dtype=torch.bfloat16)
+    q = buf.as_strided((1, 1, 40, 64), (3, 5, 64, 1), storage_offset=0)
+    assert tfa.bwd_route(q, q, q, q, q) == "wgmma"
+    q = buf.as_strided((1, 2, 20, 64), (3, 5, 64, 1), storage_offset=0)
+    assert tfa.bwd_route(q, q, q, q, q) == "mma_sync"
+
+
+def test_training_shape_takes_the_wgmma_route():
+    """MiniCPM-2B's training call: q, k, v, out and dout (4, 2048, 48, 64)
+    bf16, contiguous in (B, S, H, D) (the attention block's rope output,
+    the forward's output and the gradient of the block's einsum), seen
+    (B, H, S, D) by the backward."""
+    q, k, v, out, dout = (_bwd_view(4, 2048, 48, 64) for _ in range(5))
+    assert tfa.bwd_route(q, k, v, out, dout) == "wgmma"
+    assert tfa.bwd_rows(2048, "wgmma") == 2304
+
+
+@pytest.mark.parametrize("Sq", [1, 63, 64, 127, 128, 129, 333, 2048])
+def test_bwd_workspace_rows(Sq):
+    """The wgmma route's lse/delta workspaces hold Sq rounded up to a
+    multiple of the dQ kernel's q tile at both head dims (every tile of
+    either kernel reads inside its own (batch, head) row, and its 256-byte
+    copies start 16-byte aligned); the other routes hold Sq."""
+    r = tfa.bwd_rows(Sq, "wgmma")
+    assert r % tfa.BWD_PAD == 0 and Sq <= r < Sq + tfa.BWD_PAD
+    assert r % _q_tile(64) == 0 and r % _q_tile(128) == 0
+    assert (r * 4) % 16 == 0
+    assert tfa.bwd_rows(Sq, "mma_sync") == tfa.bwd_rows(Sq, "f32") == Sq
+
+
+# the wgmma kernels' tiles: a 64-row slab (a TMA box, a warpgroup's m64,
+# a streamed step), dK/dV blocks of 128 keys, dQ blocks of a slab a
+# consumer warpgroup: 3 at head dim 64, 2 at 128
+_SLAB, _KV_TILE = 64, 128
+
+
+def _q_tile(D):
+    return _SLAB * (3 if D == 64 else 2)
+
+
+def _slab_cover(k0, k1, r0, r1, offs, causal, window, whole):
+    """slab_cover: whether some / every pair of keys [k0, k1] and rows
+    [r0, r1] is visible."""
+    p0, p1 = r0 + offs, r1 + offs
+    some = (k0 <= k1 and r0 <= r1 and (not causal or k0 <= p1)
+            and (not window or p0 - k1 < window))
+    every = (whole and (not causal or k1 <= p0)
+             and (not window or p1 - k0 < window))
+    return some, every
+
+
+def _seeing_slabs(k0, k1, Sq, Skv, causal, window):
+    """seeing_slabs: the 64-row q tiles whose rows see a key of [k0, k1]."""
+    offs = Skv - Sq
+    lo = k0 - offs if causal else 0
+    hi = k1 + window - 1 - offs if window else Sq - 1
+    lo, hi = max(lo, 0), min(hi, Sq - 1)
+    begin = lo // _SLAB
+    return begin, begin if hi < lo else hi // _SLAB + 1
+
+
+def _visible_tiles(q_lo, q_hi, Skv, causal, window):
+    """visible_tiles: the 64-key tiles the rows at positions q_lo..q_hi
+    see."""
+    nkt = -(-Skv // _SLAB)
+    end = (0 if q_hi < 0 else min(nkt, q_hi // _SLAB + 1)) if causal else nkt
+    lo = q_lo - window + 1 if window else 0
+    return (lo // _SLAB if lo > 0 else 0), end
+
+
+def _bwd_walks(Sq, Skv, causal, window, D):
+    """The tiles each wgmma kernel loads and the slabs each of its
+    warpgroups computes: dK/dV blocks (128 keys) walk q tiles of 64 rows,
+    a warpgroup 64 keys of each; dQ blocks (``_q_tile(D)`` q rows) walk kv
+    tiles of 64 keys, a warpgroup 64 rows of each.  Returns {kernel:
+    [(loaded (rows, keys), [slab (rows, keys, any, full), ...]), ...]}
+    with inclusive ranges, in the kernels' order."""
+    offs = Skv - Sq
+    step = _SLAB
+    block = _q_tile(D)
+    last = lambda a, n, lim: min(a + n, lim) - 1
+    walks = {"dkdv": [], "dq": []}
+    for k0 in range(0, Skv, _KV_TILE):
+        b, e = _seeing_slabs(k0, last(k0, _KV_TILE, Skv), Sq, Skv, causal,
+                             window)
+        for q0 in range(b * step, e * step, step):
+            r1 = last(q0, step, Sq)
+            slabs = []
+            for kw0 in (k0, k0 + _SLAB):
+                kw1 = last(kw0, _SLAB, Skv)
+                some, every = _slab_cover(
+                    kw0, kw1, q0, r1, offs, causal, window,
+                    kw0 + _SLAB <= Skv and q0 + step <= Sq)
+                slabs.append(((q0, r1), (kw0, kw1), some, every))
+            walks["dkdv"].append((((q0, r1), (k0, last(k0, _KV_TILE, Skv))),
+                                  slabs))
+    for q0 in range(0, Sq, block):
+        b, e = _visible_tiles(q0 + offs, last(q0, block, Sq) + offs, Skv,
+                              causal, window)
+        for k0 in range(b * step, e * step, step):
+            k1 = last(k0, step, Skv)
+            slabs = []
+            for r0 in range(q0, q0 + block, _SLAB):
+                r1 = last(r0, _SLAB, Sq)
+                some, every = _slab_cover(
+                    k0, k1, r0, r1, offs, causal, window,
+                    k0 + step <= Skv and r0 + _SLAB <= Sq)
+                slabs.append(((r0, r1), (k0, k1), some, every))
+            walks["dq"].append((((q0, last(q0, block, Sq)), (k0, k1)),
+                                slabs))
+    return walks
+
+
+# Sq, Skv, causal, window: the training shape; ragged tails; Sq < Skv;
+# Sq > Skv (rows that see no key); windows narrower and wider than a tile;
+# full attention; decode; a window of 1
+WALK_CASES = [
+    (2048, 2048, True, None), (1000, 1000, True, None),
+    (333, 1001, True, None), (1001, 333, True, None),
+    (700, 333, True, 100), (300, 300, True, 50), (100, 333, True, 70),
+    (129, 257, False, None), (65, 300, False, 40), (200, 130, True, None),
+    (1, 40, True, None), (64, 64, True, 1), (150, 200, True, 40),
+]
+
+
+@pytest.mark.parametrize("D", [64, 128])
+@pytest.mark.parametrize("Sq,Skv,causal,window", WALK_CASES)
+def test_bwd_tile_walk_covers_every_visible_pair_once(Sq, Skv, causal,
+                                                      window, D):
+    """Each kernel computes every visible (query, key) pair in exactly one
+    slab and no invisible one: a slab it computes (``any``) holds a
+    visible pair, a slab it skips none, a slab it takes unmasked
+    (``full``) only visible pairs; every tile it loads holds a visible
+    pair; a dQ block walks its kv tiles in one fixed, rising order."""
+    mask = tref.attention_mask(Sq, Skv, Skv - Sq, causal, window).numpy()
+    for kernel, walk in _bwd_walks(Sq, Skv, causal, window, D).items():
+        count = np.zeros(mask.shape, dtype=np.int64)
+        for ((a, b), (c, d)), slabs in walk:
+            assert mask[a:b + 1, c:d + 1].any(), (kernel, a, c)
+            for (r0, r1), (k0, k1), some, every in slabs:
+                m = mask[r0:r1 + 1, k0:k1 + 1]
+                assert some == bool(m.any()), (kernel, r0, k0)
+                assert not every or m.all(), (kernel, r0, k0)
+                if some:
+                    count[r0:r1 + 1, k0:k1 + 1] += m
+        assert np.array_equal(count, mask.astype(np.int64)), kernel
+    per_block = {}
+    for ((a, _), (c, _)), _ in _bwd_walks(Sq, Skv, causal, window,
+                                          D)["dq"]:
+        per_block.setdefault(a, []).append(c)
+    for keys in per_block.values():
+        assert keys == sorted(set(keys))
+
+
 # T, E, k: the main path's E = 16, k = 2; llama4's E = 128, k = 1; more
 GATING_CASES = [(16, 8, 2), (100, 16, 2), (4, 16, 2), (7, 128, 1),
                 (33, 128, 2), (64, 16, 4), (5, 3, 3), (1, 1, 1)]
@@ -794,20 +1006,38 @@ def test_ssm_scan_kernel_rejects_what_it_does_not_take(cuda):
 # ---------------------------------------------------------------------------
 
 # MiniCPM-2B's training shape (4, 2048, 2048, 48, 48, 64, causal) at batch
-# 1; Granite's GQA 32/8 at head dim 64 and Phi's 32/8 at 128; Zamba2's head
-# dim 80 with a window; Sq < Skv, Sq > Skv (rows that see no key), ragged
-# lengths, full attention; a view one element into a larger buffer
+# 1; Granite's GQA 32/8 at head dim 64 and Phi's 32/8 at 128, also at 1,000
+# rows (a tail of 104 keys, not a multiple of 128); Zamba2's head dim 80
+# with a window; Sq < Skv, Sq > Skv (rows that see no key), ragged lengths,
+# full attention, a window of three keys; views one element into a larger
+# buffer (the mma.sync route for bf16 at head dims 64 and 128 too)
 GPU_ATTN_BWD_CASES = [
     (1, 2048, 2048, 48, 48, 64, True, None),
     (1, 512, 512, 32, 8, 64, True, None),
     (1, 512, 512, 32, 8, 128, True, None),
+    (1, 1000, 1000, 32, 8, 64, True, None),
+    (1, 1000, 1000, 32, 8, 128, True, None),
     (2, 300, 300, 8, 8, 80, True, 50),
     (2, 100, 333, 8, 2, 64, True, 70),
     (1, 200, 130, 4, 2, 128, True, None),
+    (2, 333, 1001, 8, 2, 128, True, None),
+    (1, 700, 333, 8, 2, 64, True, 100),
     (2, 97, 97, 4, 1, 80, False, None),
     (1, 65, 300, 2, 1, 64, False, 40),
+    (2, 129, 257, 4, 1, 128, False, None),
+    (1, 64, 64, 2, 1, 64, True, 3),
     (2, 150, 200, 8, 2, 128, True, 40, 1),
+    (1, 300, 300, 4, 2, 64, True, None, 1),
 ]
+
+
+def _want_route(case, dtype):
+    """The route a GPU_ATTN_BWD_CASES case must take: bf16 at head dim 64
+    or 128 in aligned views is the wgmma route's."""
+    D, offset = case[5], case[8:]
+    if dtype == torch.float32:
+        return "f32"
+    return "wgmma" if D in (64, 128) and not offset else "mma_sync"
 
 
 def _bwd_on_card(q, k, v, kw, seed=3):
@@ -836,9 +1066,13 @@ def test_flash_attention_bwd_kernel_matches_plain_on_card(cuda, case, dtype):
     """dq, dk, dv against ``attention_bwd_ref`` on the same inputs (f32
     math for bf16, within 2e-2 of each gradient's largest magnitude; f64
     math for f32, within 1e-4), and the forward's lse against
-    ``attention_lse_ref`` (−inf on the rows that see no key)."""
+    ``attention_lse_ref`` (−inf on the rows that see no key); the call on
+    the route ``_want_route`` names."""
     q, k, v, kw = _cuda_attn(cuda, case, dtype)
+    route = _want_route(case, dtype)
+    calls = tfa.BWD_ROUTE_CALLS[route]
     out, dq, dk, dv, dout = _bwd_on_card(q, k, v, kw)
+    assert tfa.BWD_ROUTE_CALLS[route] == calls + 1
     assert (dq.shape, dk.shape, dv.shape) == (q.shape, k.shape, v.shape)
     assert dq.dtype == dk.dtype == dv.dtype == dtype
     rdt, tol = ((torch.float64, 1e-4) if dtype == torch.float32
@@ -866,6 +1100,24 @@ def test_flash_attention_bwd_two_runs_equal_to_the_bit_on_card(cuda, dtype):
                              dtype)
     a = _bwd_on_card(q, k, v, kw)
     b = _bwd_on_card(q, k, v, kw)
+    for x, y in zip(a, b):
+        assert torch.equal(x, y)
+
+
+@pytest.mark.gpu
+def test_flash_attention_bwd_training_shape_equal_to_the_bit_on_card(cuda):
+    """MiniCPM-2B's training call (4, 2048, 48, 64) bf16 causal on the
+    wgmma route: two runs of the backward give the same bits (no
+    floating-point atomics; dQ summed in one block, in a fixed order)."""
+    g = torch.Generator(device=cuda).manual_seed(11)
+    q, k, v, dout = (torch.randn((4, 2048, 48, 64), generator=g,
+                                 device=cuda).bfloat16().transpose(1, 2)
+                     for _ in range(4))
+    o, lse = tfa.flash_attention(q, k, v, return_lse=True)
+    assert tfa.bwd_route(q, k, v, o, dout) == "wgmma"
+    a = tfa.flash_attention_bwd(q, k, v, o, lse, dout)
+    b = tfa.flash_attention_bwd(q, k, v, o, lse, dout)
+    torch.cuda.synchronize()
     for x, y in zip(a, b):
         assert torch.equal(x, y)
 
