@@ -155,11 +155,16 @@
    just before and read just after (24 and 792); then the same prefill
    and first decode step with the plain versions, and with a float64
    attention as a control of how far a 24-layer bf16 model amplifies
-   rounding; then profiler windows over a prefill and 4 decode steps.
+   rounding; then the prefill with ``moe_impl="sort"`` on the same
+   weights (``sort_prefill``: every launch against its plain version,
+   24 + 24 launches a prefill, two prefills equal to the bit, prefill ms
+   in turns with the einsum dispatch); then profiler windows over a
+   prefill and 4 decode steps.
 7. The same model in float32 with two layers, at full width: the first
    token and the logits of the prefill and the first decode step with the
    kernels equal those with the plain versions, within the stated
-   tolerance.
+   tolerance, and the sort dispatch's logits and tokens those of the
+   einsum one.
 8. Model-zoo serving of Zamba2-2.7B at its published widths and full
    depth (54 mamba layers, the shared attention block applied 9 times),
    bf16, after the Phi-3.5-MoE weights are freed: batch 4, prompt 1,000
@@ -201,8 +206,36 @@
    (eager, and as device time from CUDA graphs), the wgmma kernels'
    registers and spills from ptxas (none may spill); a
    2-layer float32 step (loss and every gradient leaf) with the kernels
-   against the plain attention; and at 4 layers a checkpointed run
+   against the plain attention; and at 2 layers a checkpointed run
    resumed from step 4 equal to the uninterrupted run to the bit.
+11. The rest of the zoo at full width and depth, bf16, each model's
+   weights freed before the next.  xLSTM-125M (``xlstm_phase``; 12
+   layers, sLSTM at 3 and 9; it reaches no kernel, so every launch count
+   of its main paths must be 0): serving as Phi's (batch 4, prompt
+   1,024, 32 tokens, profiler windows); in float32 at 4 layers the
+   prefill and first decode step against the same model on the CPU;
+   training at batch 4 × 2,048 (XLSTM_STEPS plain steps, then
+   XLSTM_STEPS ``--strads --weight-decay 0`` steps, both at full depth,
+   the STRADS run's 13 blocks the 12 unrolled layers and the rest, every
+   unscheduled block keeping its bits: a full-depth step takes 12–22 s,
+   nearly all of it the sLSTM loop's eager launches); the sLSTM
+   loop's share of a full-depth step (one sLSTM layer's checkpointed
+   forward, recompute and backward, timed alone); a profiler window over
+   a step at 4 layers.  InternVL2-1B (``vlm_phase``; 256 patch embeddings ahead of
+   the prompt): serving with every prefill launch of ``flash_attention``
+   against its plain version, the kernel timed at layer 0's inputs
+   (1,280 queries, 16 query heads padded from 14 over 2 kv heads of 64)
+   with SDPA, the main path's counts (24); then training at 2,304
+   queries a sequence (ZOO_STEPS steps; 2 × 24 forward and 24 backward
+   launches a step, all on the wgmma route, none of
+   ``_chunked_attention``), a training step with every forward launch
+   checked, the backward at layer 0's inputs against its plain version
+   and timed with SDPA's, a profiler window over a step.  HuBERT-XLarge
+   (``audio_phase``; 48 layers, 16 heads of 80, bidirectional):
+   ``encode_step`` of 4 × 1,500 frames with every launch checked, the
+   kernel timed at layer 0's non-causal inputs with SDPA, 3 timed
+   encodes (48 launches each), a profiler window; then training as
+   InternVL2's on the mma.sync backward route.
 
 Kernel times: ``ms`` is the eager loop (CUDA events around 50–200 calls
 enqueued back to back), which for a kernel of a few microseconds times
@@ -3309,7 +3342,10 @@ def checked_ops(torch, ops, ref):
 
     def attention(q, k, v, **kw):
         out = real_attn(q, k, v, **kw)
-        err, rel = rel_err(torch, out, ref.attention_ref(q, k, v, **kw))
+        q, k, v = q.detach(), k.detach(), v.detach()
+        with torch.no_grad():               # under a training step too
+            err, rel = rel_err(torch, out.detach(),
+                               ref.attention_ref(q, k, v, **kw))
         st = stats["flash_attention"]
         st["calls"] += 1
         st["max_abs_err"] = max(st["max_abs_err"], err)
@@ -3379,11 +3415,10 @@ def attention_timing(torch, ops, ref, q, k, v, kw) -> dict:
     err, rel = rel_err(torch, got, want)
     check(rel <= ATTN_TOL, f"flash_attention: error {rel} of the largest "
                            f"value > {ATTN_TOL} at shapes {tuple(q.shape)}")
-    check(kw["causal"] and kw["window"] is None,
-          f"flash_attention: SDPA's yardstick here is causal, no window; "
-          f"the call has {kw}")
+    check(kw["window"] is None, f"flash_attention: SDPA's yardstick here "
+                                f"has no window; the call has {kw}")
     library = lambda: F.scaled_dot_product_attention(
-        tq(q), tq(k), tq(v), is_causal=True, enable_gqa=True)
+        tq(q), tq(k), tq(v), is_causal=kw["causal"], enable_gqa=True)
     lib_err, _ = rel_err(torch, tq(library()), want)
     kernel = lambda: ops.attention(q, k, v, **kw)
     ms = time_ms(torch, kernel, iters=50)
@@ -3610,13 +3645,19 @@ def profile_window(torch, fn, kernels=None, counts: bool = False) -> dict:
     return out
 
 
+def prompt_len(M, cfg, batch) -> int:
+    """Positions a prompt fills: its tokens, after a vision arch's
+    frontend tokens."""
+    return batch["tokens"].shape[1] + M.num_frontend_tokens(cfg)
+
+
 def first_step(torch, M, cfg, params, batch, cache_len, tok=None):
     """Prefill logits and the first decode step's logits (fed ``tok``, or
     the prefill's greedy pick)."""
     lg, cache = M.prefill(cfg, params, batch, cache_len=cache_len)
     pick = lg[:, :cfg.vocab_size].argmax(-1)
     d, _ = M.decode_step(cfg, params, cache, pick if tok is None else tok,
-                         batch["tokens"].shape[1])
+                         prompt_len(M, cfg, batch))
     return lg.float(), pick, d.float()
 
 
@@ -3657,7 +3698,7 @@ def profile_serving(torch, ops, M, srv) -> dict:
     cfg, prm, batch = srv.cfg, srv.params, srv.batch
     lg, cache = M.prefill(cfg, prm, batch, cache_len=srv.cache_len)
     tok = lg[:, :cfg.vocab_size].argmax(-1)
-    start = batch["tokens"].shape[1]
+    start = prompt_len(M, cfg, batch)
 
     def decode4():
         for i in range(4):
@@ -3751,9 +3792,68 @@ def serve_phase(torch, ops, ref, M, serve_lm, layers: int, seed: int):
         top2 = lp[:, :cfg.vocab_size].topk(2, -1).values
         res["plain_top2_margins"] = (top2[:, 0] - top2[:, 1]).tolist()
 
+        res["sort"] = sort_prefill(torch, ops, ref, M, srv)
+        kern["topk_gating"]["launches_sort_prefill"] = \
+            res["sort"]["launches"]["topk_gating"]
+        kern["flash_attention"]["launches_sort_prefill"] = \
+            res["sort"]["launches"]["flash_attention"]
+        print("serve moe_impl='sort': " + json.dumps(res["sort"]))
         res.update(profile_serving(torch, ops, M, srv))
     del srv, prm, cfg
     return kern, res
+
+
+def sort_prefill(torch, ops, ref, M, srv) -> dict:
+    """The same model's prefill with ``moe_impl="sort"`` on the same
+    weights and prompts: every kernel launch against its plain version;
+    the launch counts of two prefills (L attention, L gating each); the
+    two equal to the bit (each token's row of the ``index_add_`` sums at
+    most k = 2 values into zeros, an order-free sum); prefill ms in
+    turns with the einsum dispatch (einsum, sort, sort, einsum, twice);
+    the logits beside the einsum path's (bf16 at depth: printed, the
+    2-layer f32 run holds them)."""
+    import dataclasses
+    cfg = srv.cfg
+    scfg = dataclasses.replace(cfg, moe_impl="sort")
+    L = cfg.num_layers
+
+    def prefill(c):
+        return M.prefill(c, srv.params, srv.batch,
+                         cache_len=srv.cache_len)[0].float()
+    attn, gate, stats, _ = checked_ops(torch, ops, ref)
+    with patched(ops, attention=attn, topk_gating=gate):
+        prefill(scfg)
+    st_a, st_g = stats["flash_attention"], stats["topk_gating"]
+    check(st_a["calls"] == L and st_g["calls"] == L,
+          f"sort prefill: {st_a['calls']} attention and {st_g['calls']} "
+          f"gating calls for {L} layers")
+    check(st_a["max_rel_err"] <= ATTN_TOL and st_g["idx_equal"]
+          and st_g["max_abs_err"] <= GATE_TOL, f"sort prefill: {stats}")
+    ops.reset_launch_counts()
+    a, b = prefill(scfg), prefill(scfg)
+    torch.cuda.synchronize()
+    launches = dict(ops.LAUNCHES)
+    check(launches == attn_launches(2 * L, 0, 2 * L),
+          f"sort prefill: two prefills launched {launches}")
+    check(torch.equal(a, b), "sort prefill: two runs differ")
+    e = prefill(cfg)
+    check(bool(torch.isfinite(a).all()), "sort prefill: logits not finite")
+    ms = {"einsum": [], "sort": []}
+    for name in ("einsum", "sort", "sort", "einsum") * 2:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        prefill(cfg if name == "einsum" else scfg)
+        torch.cuda.synchronize()
+        ms[name].append((time.perf_counter() - t0) * 1e3)
+    return {"every_launch_vs_plain": stats, "launches": {
+                k: v // 2 for k, v in launches.items()},
+            "two_runs_equal": True, "prefill_ms": ms,
+            "prefill_ms_median": {k: median(v) for k, v in ms.items()},
+            "first_tokens_equal_einsum": int((
+                a[:, :cfg.vocab_size].argmax(-1)
+                == e[:, :cfg.vocab_size].argmax(-1)).sum()),
+            "logits_max_abs_diff_vs_einsum": (a - e).abs().max().item(),
+            "max_abs_logit": e.abs().max().item()}
 
 
 def parity_phase(torch, ops, ref, M, get_config, data, seed: int):
@@ -3790,6 +3890,18 @@ def parity_phase(torch, ops, ref, M, get_config, data, seed: int):
                                         f"{err} > {LOGIT_TOL}·{scale}")
     check(torch.equal(tk, tp), f"f32 run: first tokens {tk.tolist()} with "
                                f"the kernels, {tp.tolist()} plain")
+    # the sort dispatch (the same capacity and drop order at T = 4,096)
+    with torch.inference_mode():
+        ls, ts, ds = first_step(torch, M, dataclasses.replace(
+            cfg, moe_impl="sort"), prm, batch, cache_len, tk)
+    for name, a, b in (("prefill", ls, lk), ("decode", ds, dk)):
+        err, scale = (a - b).abs().max().item(), b.abs().max().item()
+        out[f"sort_{name}_logits_max_abs_diff"] = err
+        check(err <= LOGIT_TOL * scale, f"f32 run: the sort dispatch's "
+                                        f"{name} logits differ from "
+                                        f"einsum's by {err}")
+    check(torch.equal(ts, tk), f"f32 run: first tokens {ts.tolist()} with "
+                               f"the sort dispatch, {tk.tolist()} einsum")
     del prm
     return out
 
@@ -4093,8 +4205,10 @@ def zamba_parity_phase(torch, ops, ref, M, get_config, data, seed: int):
 
 TRAIN_ARCH = "minicpm-2b"
 TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 4, 2048, 8
-TRAIN_RESUME_LAYERS = 4        # the resume check's depth (checkpoints of the
-                               # full-depth state take ~36 GB each)
+TRAIN_RESUME_LAYERS = 2        # the resume check's depth (checkpoints of the
+                               # full-depth state take ~36 GB each; 2 layers
+                               # hold every kind of leaf, and cost ~10 s less
+                               # than 4 in files, for xLSTM's STRADS run)
 ATTN_BWD_TOL = 2e-2            # bf16 dq, dk, dv vs the f32 plain version:
                                # |Δ| ≤ ATTN_BWD_TOL·max|plain| (P and dS are
                                # rounded to bf16 as operands)
@@ -4112,11 +4226,29 @@ def train_argv(seed: int, *extra) -> list:
             "--device", DEVICE, *extra]
 
 
-def train_run(torch, ops, tfa, tlaunch, argv, on_step, layers: int) -> tuple:
-    """One ``launch.train.main`` run with the launch counts set to 0 just
-    before and read just after: 2 forward launches a layer a step (the
-    forward and the group checkpoint's recompute) and 1 backward, every
-    backward on the wgmma route."""
+def attn_launches(fwd: int = 0, bwd: int = 0, gating: int = 0) -> dict:
+    """A full ``ops.LAUNCHES`` dict."""
+    return {"flash_attention": fwd, "flash_attention_bwd": bwd,
+            "topk_gating": gating, "ssm_scan": 0}
+
+
+def bwd_routes(route=None, n: int = 0) -> dict:
+    """A full ``BWD_ROUTE_CALLS`` dict: ``n`` calls on ``route``."""
+    out = {"f32": 0, "mma_sync": 0, "wgmma": 0}
+    if route:
+        out[route] = n
+    return out
+
+
+def train_run(torch, ops, tfa, tlaunch, argv, on_step, layers: int,
+              steps: int = TRAIN_STEPS, tokens: int = TRAIN_BATCH * TRAIN_SEQ,
+              route: str = "wgmma", attention: bool = True) -> tuple:
+    """One ``launch.train.main`` run of ``steps`` steps with the launch
+    counts set to 0 just before and read just after: 2 forward launches
+    a layer a step (the forward and the group checkpoint's recompute) and
+    1 backward, every backward on ``route``; no launch at all for a model
+    without attention (``attention=False``).  The loss must fall; step ms
+    is the median of steps 2 on."""
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     ops.reset_launch_counts()
@@ -4127,18 +4259,18 @@ def train_run(torch, ops, tfa, tlaunch, argv, on_step, layers: int) -> tuple:
     secs = time.perf_counter() - t0
     launches = dict(ops.LAUNCHES)
     routes = {r: n - routes0[r] for r, n in tfa.BWD_ROUTE_CALLS.items()}
-    want = {"flash_attention": 2 * layers * TRAIN_STEPS,
-            "flash_attention_bwd": layers * TRAIN_STEPS, "topk_gating": 0,
-            "ssm_scan": 0}
-    check(launches == want, f"training run {argv[-4:]}: launches "
-                            f"{launches}, expected {want}")
-    check(routes == {"f32": 0, "mma_sync": 0, "wgmma": layers * TRAIN_STEPS},
-          f"training run {argv[-4:]}: backward routes {routes}")
+    n = layers * steps if attention else 0
+    want = attn_launches(2 * n, n)
+    check(launches == want, f"training run {argv[:2]} {argv[-4:]}: "
+                            f"launches {launches}, expected {want}")
+    check(routes == bwd_routes(route, n),
+          f"training run {argv[:2]} {argv[-4:]}: backward routes {routes}, "
+          f"expected {n} on {route}")
     losses = [h["loss"] for h in hist]
-    check(len(hist) == TRAIN_STEPS and all(map(math.isfinite, losses)),
+    check(len(hist) == steps and all(map(math.isfinite, losses)),
           f"training run: losses {losses}")
-    check(losses[-1] < losses[0], f"training run: the loss did not fall: "
-                                  f"{losses}")
+    check(losses[-1] < losses[0], f"training run {argv[:2]}: the loss did "
+                                  f"not fall: {losses}")
     step_ms = median([h["step_ms"] for h in hist[1:]])
     return hist, {
         "seconds": secs, "launches": launches, "bwd_routes": routes,
@@ -4146,8 +4278,8 @@ def train_run(torch, ops, tfa, tlaunch, argv, on_step, layers: int) -> tuple:
         "grad_norms": [h["grad_norm"] for h in hist],
         "lrs": [h["lr"] for h in hist],
         "step_ms": [h["step_ms"] for h in hist],
-        "step_ms_median_2_8": step_ms,
-        "tokens_per_s": TRAIN_BATCH * TRAIN_SEQ / (step_ms / 1e3),
+        "step_ms_median_from_2": step_ms,
+        "tokens_per_s": tokens / (step_ms / 1e3),
         "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9}
 
 
@@ -4282,7 +4414,6 @@ def train_kernel_phase(torch, ops, ref, tfa, first, seed: int) -> tuple:
     the plain version, and SDPA's forward and backward beside them.
     Returns (the bwd kernel's entry, the forward's training-shape
     entry)."""
-    import torch.nn.functional as F
     q, k, v, kw = first
     checks = {"layer0": bwd_check(torch, ref, tfa, q, k, v, kw, seed)}
     gen = torch.Generator().manual_seed(seed + 5)
@@ -4304,6 +4435,23 @@ def train_kernel_phase(torch, ops, ref, tfa, first, seed: int) -> tuple:
                                        {"causal": causal, "window": window},
                                        seed + i, case_route(D, dt, off))
         del a, b, c
+    entry, fwd_entry = bwd_timing(torch, ref, tfa, q, k, v, kw, seed)
+    entry.update(
+        max_abs_err=max(checks["layer0"][f"d{x}_max_abs_err"]
+                        for x in "qkv"),
+        tolerance=f"{ATTN_BWD_TOL} of each gradient's max|plain| (bf16, "
+                  f"f32 plain), {ATTN_BWD_TOL_F32} (f32, f64 plain)",
+        checks=checks)
+    fwd_entry["max_rel_err"] = checks["layer0"]["forward_max_abs_err"]
+    return entry, fwd_entry
+
+
+def bwd_timing(torch, ref, tfa, q, k, v, kw, seed: int) -> tuple:
+    """The backward kernel at (q, k, v) (B, S, H, D): the raw launchers
+    eager and in a CUDA graph, the plain version, and SDPA's forward and
+    backward beside them (the call's causal flag; GQA expanded by SDPA).
+    Returns (the backward's entry, the forward's with its lse)."""
+    import torch.nn.functional as F
     t = lambda x: x.transpose(1, 2)
     gen = torch.Generator(device=DEVICE).manual_seed(seed)
     dout = torch.randn(q.shape, generator=gen, device=DEVICE).to(q.dtype)
@@ -4317,17 +4465,18 @@ def train_kernel_phase(torch, ops, ref, tfa, first, seed: int) -> tuple:
     plain = lambda: ref.attention_bwd_ref(q, k, v, t(o), dout, lse_ref,
                                           **kw)
     qs, ks, vs = (t(x).detach().requires_grad_() for x in (q, k, v))
+    gqa = q.shape[2] != k.shape[2]
+    sdpa = lambda: F.scaled_dot_product_attention(
+        qs, ks, vs, is_causal=kw["causal"], enable_gqa=gqa)
 
     def sdpa_fwd_bwd():
-        out = F.scaled_dot_product_attention(qs, ks, vs, is_causal=True)
-        torch.autograd.grad(out, (qs, ks, vs), t(dout))
+        torch.autograd.grad(sdpa(), (qs, ks, vs), t(dout))
 
     def sdpa_fwd():
         with torch.no_grad():
-            F.scaled_dot_product_attention(qs, ks, vs, is_causal=True)
-    check(kw["causal"] and kw["window"] is None,
-          f"flash_attention_bwd: SDPA's yardstick here is causal, no "
-          f"window; the call has {kw}")
+            sdpa()
+    check(kw["window"] is None, f"flash_attention_bwd: SDPA's yardstick "
+                                f"here has no window; the call has {kw}")
     timing = {
         "ms": time_ms(torch, bwd, iters=20),
         "device_ms": graph_ms(torch, bwd),
@@ -4346,21 +4495,18 @@ def train_kernel_phase(torch, ops, ref, tfa, first, seed: int) -> tuple:
                                    - timing["library_fwd_device_ms"])
     bms, by = bwd_bound(torch, ref, q, k, kw["causal"], kw["window"])
     fbms, fby = attention_bound(torch, ref, q, k, kw["causal"], kw["window"])
+    shape = {"q": list(q.shape), "k": list(k.shape), "dtype": str(q.dtype),
+             "causal": kw["causal"]}
     entry = {
         **timing, "bound_ms": bms, "bound_by": by,
         "bound_share": bms / timing["ms"],
         "device_bound_share": bms / timing["device_ms"],
-        "max_abs_err": max(checks["layer0"][f"d{x}_max_abs_err"]
-                           for x in "qkv"),
-        "tolerance": f"{ATTN_BWD_TOL} of each gradient's max|plain| (bf16, "
-                     f"f32 plain), {ATTN_BWD_TOL_F32} (f32, f64 plain)",
-        "library": "F.scaled_dot_product_attention(is_causal=True) forward "
-                   "and backward, less its forward (SDPA has no backward "
-                   "call of its own); device ms: each a CUDA graph",
-        "checks": checks,
-        "shape": {"q": list(q.shape), "k": list(k.shape),
-                  "dtype": str(q.dtype)}}
-    fwd_entry = {"shape": entry["shape"],
+        "library": f"F.scaled_dot_product_attention(is_causal="
+                   f"{kw['causal']}, enable_gqa={gqa}) forward and backward, "
+                   f"less its forward (SDPA has no backward call of its "
+                   f"own); device ms: each a CUDA graph",
+        "shape": shape}
+    fwd_entry = {"shape": shape,
                  "ms": timing["forward_lse_ms"],
                  "device_ms": timing["forward_lse_device_ms"],
                  "device_ms_without_lse": timing["forward_device_ms"],
@@ -4368,8 +4514,7 @@ def train_kernel_phase(torch, ops, ref, tfa, first, seed: int) -> tuple:
                  "library_device_ms": timing["library_fwd_device_ms"],
                  "bound_ms": fbms,
                  "bound_by": fby,
-                 "device_bound_share": fbms / timing["forward_lse_device_ms"],
-                 "max_rel_err": checks["layer0"]["forward_max_abs_err"]}
+                 "device_bound_share": fbms / timing["forward_lse_device_ms"]}
     del o, lse, dout, qs, ks, vs, lse_ref
     return entry, fwd_entry
 
@@ -4491,7 +4636,8 @@ def train_resume(torch, tlaunch, tree_flatten, seed: int) -> dict:
            "losses_uninterrupted": [h["loss"] for h in full],
            "losses_resumed": [h["loss"] for h in resumed],
            "leaves": len(a), "leaves_differing": differ}
-    print("training resume (full width, 4 layers): " + json.dumps(out))
+    print(f"training resume (full width, {TRAIN_RESUME_LAYERS} layers): "
+          + json.dumps(out))
     check(not differ and resumed[-1]["loss"] == full[-1]["loss"],
           f"resumed run differs from the uninterrupted one: {differ}")
     del finals, a, b
@@ -4654,6 +4800,466 @@ def train_phase(torch, ops, ref, tfa, M, tlaunch, tstep, get_config, data,
     return kentry, fentry, res
 
 
+# ---------------------------------------------------------------------------
+# The rest of the zoo: xLSTM-125M, InternVL2-1B, HuBERT-XLarge
+# ---------------------------------------------------------------------------
+
+XLSTM, VLM, AUDIO = "xlstm-125m", "internvl2-1b", "hubert-xlarge"
+XLSTM_STEPS = 2                # xLSTM training steps a run: its sLSTM loop
+                               # (two layers of 2,048 eager steps, checkpointed)
+                               # makes a full-depth step 12-22 s
+XLSTM_CUT_LAYERS = 4           # the profiled step's depth (mLSTM 0-2, sLSTM
+                               # 3; a full-depth step makes ~5 × 10⁵
+                               # launches, ~34 s under a profiler), and the
+                               # f32 parity run's
+XLSTM_PARITY_PROMPT = 512      # two mLSTM chunks; the CPU side takes ~3 s
+ZOO_STEPS = 6                  # InternVL2 and HuBERT training steps
+AUDIO_FRAMES = 1500            # 30 s of audio at HuBERT's 50 Hz frames
+
+
+def zoo_argv(arch: str, seed: int, steps: int, seq: int, *extra) -> list:
+    return ["--arch", arch, "--preset", "full", "--batch", str(TRAIN_BATCH),
+            "--seq", str(seq), "--steps", str(steps), "--log-every", "1",
+            "--seed", str(seed), "--device", DEVICE, *extra]
+
+
+def counted(fn, box: dict):
+    """``fn`` that adds one to ``box["calls"]`` a call."""
+    def wrapped(*args, **kw):
+        box["calls"] += 1
+        return fn(*args, **kw)
+    return wrapped
+
+
+def serve_build(torch, serve_lm, arch: str, seed: int):
+    """``serve_lm.build`` at full width: batch 4, prompt 1,024, 32 tokens."""
+    sargs = serve_lm.parse_args([
+        "--arch", arch, "--preset", "full", "--batch", str(BATCH),
+        "--prompt-len", str(PROMPT), "--gen", str(GEN), "--seed", str(seed),
+        "--device", DEVICE])
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    srv = serve_lm.build(sargs)
+    torch.cuda.synchronize()
+    return srv, {"arch": srv.cfg.name, "layers": srv.cfg.num_layers,
+                 "batch": BATCH, "prompt": PROMPT, "gen": GEN,
+                 "cache_len": srv.cache_len,
+                 "weights_gb": torch.cuda.memory_allocated() / 1e9,
+                 "init_s": time.perf_counter() - t0}
+
+
+def checked_train_step(torch, ops, ref, tstep, cfg, params, batch,
+                       layers: int) -> tuple:
+    """One ``value_and_grad`` of a training step with every forward launch
+    (the forward and the layer checkpoint's recompute) held against its
+    plain version: 2 forward and 1 backward launch a layer, finite
+    gradients.  Returns (the checks, layer 0's (q, k, v, kw))."""
+    ops.reset_launch_counts()
+    attn, _, stats, first = checked_ops(torch, ops, ref)
+    with patched(ops, attention=attn):
+        (loss, _), grads = tstep.value_and_grad(cfg, params, batch)
+    torch.cuda.synchronize()
+    check(ops.LAUNCHES == attn_launches(2 * layers, layers),
+          f"{cfg.name} checked training step: launches {ops.LAUNCHES}")
+    st = stats["flash_attention"]
+    check(st["calls"] == 2 * layers and st["max_rel_err"] <= ATTN_TOL,
+          f"{cfg.name} training step: flash_attention vs plain {st}")
+    from repro_torch.optim import tree_flatten
+    bad = [n for n, g in tree_flatten(grads)
+           if not bool(torch.isfinite(g).all())]
+    check(not bad, f"{cfg.name} training step: gradients not finite: {bad}")
+    del grads
+    return {"every_launch_vs_plain": st, "loss": float(loss)}, \
+        first["attention"]
+
+
+def train_profile(torch, ops, tstep, cfg, state, batch, kernels) -> dict:
+    """A profiler window over one plain training step (warmed first)."""
+    step = tstep.make_train_step(cfg, tstep.TrainConfig(), donate=True)
+    step(state, batch)
+    return profile_window(torch, lambda: step(state, batch), kernels)
+
+
+def xlstm_parity(torch, M, get_config, data, seed: int) -> dict:
+    """xLSTM-125M at full width in float32 with XLSTM_CUT_LAYERS layers
+    (mLSTM 0-2, sLSTM 3) and a prompt of XLSTM_PARITY_PROMPT tokens: the
+    prefill and first decode step on the card against the same model,
+    weights and prompts on the CPU (the port's plain result).  Logits within LOGIT_TOL of the largest; a first
+    token is decidable where the CPU's top-2 margin exceeds twice the two
+    runs' prefill distance, and there the tokens must be equal, elsewhere
+    the card's one of the CPU's top two."""
+    import dataclasses
+    from repro_torch.models import params as P
+    cfg = dataclasses.replace(get_config(XLSTM),
+                              num_layers=XLSTM_CUT_LAYERS, dtype="float32")
+    prm_cpu = M.init_params(cfg, torch.Generator().manual_seed(seed))
+    prm = P.tree_map(lambda _, t: t.to(DEVICE), prm_cpu)
+    batch_cpu = data.make_batch(data.SyntheticLMConfig(
+        vocab_size=cfg.vocab_size, seq_len=XLSTM_PARITY_PROMPT,
+        batch_size=BATCH, seed=seed), 0)
+    batch_cpu.pop("labels")
+    batch = {k: v.to(DEVICE) for k, v in batch_cpu.items()}
+    cache_len = XLSTM_PARITY_PROMPT + GEN
+    with torch.inference_mode():
+        lk, tk, dk = first_step(torch, M, cfg, prm, batch, cache_len)
+        t0 = time.perf_counter()
+        lc, tc, dc = first_step(torch, M, cfg, prm_cpu, batch_cpu,
+                                cache_len, tk.cpu())
+        cpu_s = time.perf_counter() - t0
+    lk, tk, dk = lk.cpu(), tk.cpu(), dk.cpu()
+    top2 = lc[:, :cfg.vocab_size].topk(2, -1)
+    margins = (top2.values[:, 0] - top2.values[:, 1]).tolist()
+    out = {"layers": XLSTM_CUT_LAYERS, "prompt": XLSTM_PARITY_PROMPT,
+           "dtype": "float32",
+           "slstm_layers": [i for i in cfg.slstm_layers
+                            if i < cfg.num_layers],
+           "cpu_seconds": cpu_s, "tolerance": f"{LOGIT_TOL} of max|logits|",
+           "tokens": {"card": tk.tolist(), "cpu": tc.tolist()},
+           "cpu_top2_margins": margins}
+    for name, a, b in (("prefill", lk, lc), ("decode", dk, dc)):
+        err, scale = (a - b).abs().max().item(), b.abs().max().item()
+        out[f"{name}_logits_max_abs_diff"] = err
+        out[f"{name}_max_abs_logit"] = scale
+        check(err <= LOGIT_TOL * scale, f"xLSTM f32 run: {name} logits "
+                                        f"differ from the CPU's by {err}")
+    decidable = [m > 2 * out["prefill_logits_max_abs_diff"]
+                 for m in margins]
+    out["decidable_rows"] = decidable
+    print("xLSTM f32 parity (card vs CPU): " + json.dumps(out))
+    check(all(bool(tk[i] == tc[i]) for i, d in enumerate(decidable) if d)
+          and all(bool((top2.indices[i] == tk[i]).any())
+                  for i, d in enumerate(decidable) if not d),
+          f"xLSTM f32 run: first tokens {tk.tolist()} on the card, "
+          f"{tc.tolist()} on the CPU, decidable rows {decidable}")
+    check(sum(decidable) >= len(decidable) - 1,
+          f"xLSTM f32 run: only {sum(decidable)} of {len(decidable)} first "
+          f"tokens decidable in f32")
+    del prm, prm_cpu
+    return out
+
+
+def slstm_share(torch, cfg, params, seed: int, step_ms: float) -> dict:
+    """The sLSTM loop's share of a training step: one sLSTM layer's work
+    in a step (its checkpointed forward, the recompute of each chunk of
+    the loop and the backward, as the step runs it) at the step's shapes
+    and weights, timed once on the host clock to a sync (the training
+    run before it warmed the same code and shapes), times the number of
+    sLSTM layers, over the step's ms."""
+    from torch.utils.checkpoint import checkpoint
+    from repro_torch.models import params as P
+    from repro_torch.models import transformer as T
+    i = cfg.slstm_layers[0]
+    p = P.tree_map(lambda _, t: t.detach().requires_grad_(),
+                   params["layers"][f"layer_{i:02d}"])
+    leaves = list(P.leaves(p))
+    gen = torch.Generator(device=DEVICE).manual_seed(seed)
+    x, g = (torch.randn((TRAIN_BATCH, TRAIN_SEQ, cfg.d_model), generator=gen,
+                        device=DEVICE).to(torch.bfloat16) for _ in range(2))
+    x.requires_grad_()
+    ctx = {"positions": None, "kpos": None, "slot": None, "window": None,
+           "cache": None}
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    y, _ = checkpoint(T._apply_sub, "slstm", p, x, cfg, ctx,
+                      use_reentrant=False)
+    torch.autograd.grad(y, [x] + leaves, g)
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3
+    n = len(cfg.slstm_layers)
+    return {"slstm_layers": n, "layer_fwd_bwd_ms": ms,
+            "loop_ms_a_step": n * ms, "step_ms": step_ms,
+            "share": n * ms / step_ms}
+
+
+def xlstm_phase(torch, ops, tfa, M, serve_lm, tlaunch, tstep, get_config,
+                data, seed: int) -> dict:
+    """xLSTM-125M at full width (12 layers, sLSTM at 3 and 9), bf16:
+    serving (batch 4, prompt 1,024, 32 tokens) and training (batch 4 ×
+    2,048: XLSTM_STEPS plain steps and XLSTM_STEPS ``--strads
+    --weight-decay 0`` steps, both at full depth) through the entry
+    points.  The model reaches no kernel of the port:
+    the main paths' launch counts must all be 0.  Also the f32 parity
+    run, the sLSTM loop's share of a full-depth step and a profiler
+    window over one step of a fresh XLSTM_CUT_LAYERS-layer state."""
+    import dataclasses
+    from repro_torch.optim import tree_flatten
+    srv, res = serve_build(torch, serve_lm, XLSTM, seed)
+    cfg = srv.cfg
+    res["params"] = M.num_params(cfg)
+    with torch.inference_mode():
+        first_step(torch, M, cfg, srv.params, srv.batch, srv.cache_len)
+        toks, numbers = main_path(torch, ops, M, srv, attn_launches())
+        res.update(numbers)
+        window = profile_serving(torch, ops, M, srv)
+    res.update(window)
+    print("xLSTM serving: " + json.dumps(
+        {k: v for k, v in res.items() if not k.startswith("profile")}))
+    del srv, window
+    torch.cuda.empty_cache()
+    out = {"serve": res}
+    out["f32_parity"] = xlstm_parity(torch, M, get_config, data, seed)
+    torch.cuda.empty_cache()
+
+    L = cfg.num_layers
+    box = {}
+    _, out["plain"] = train_run(
+        torch, ops, tfa, tlaunch, zoo_argv(XLSTM, seed, XLSTM_STEPS,
+                                           TRAIN_SEQ),
+        lambda i, state, metrics: box.update(state=state), L,
+        steps=XLSTM_STEPS, attention=False)
+    print("xLSTM training plain: " + json.dumps(out["plain"]))
+    state = box.pop("state")
+    out["slstm_share"] = slstm_share(torch, cfg, state["params"], seed,
+                                     out["plain"]["step_ms_median_from_2"])
+    print("xLSTM sLSTM loop share of a step: " + json.dumps(
+        out["slstm_share"]))
+    del state
+    torch.cuda.empty_cache()
+
+    # STRADS at full depth, weight decay 0: a block the mask left out
+    # keeps its bits
+    prev, sstats = {}, {"blocks_active": [], "unscheduled_checked": 0}
+
+    def strads_check(i, state, metrics):
+        params = tree_flatten(state["params"])
+        mapping, nb = tstep.layer_blocks(cfg, state["params"])
+        if metrics is not None:
+            mask = metrics["mask"] > 0
+            moved = torch.zeros(nb, dtype=torch.bool, device=DEVICE)
+            for n, x in params:
+                if not torch.equal(x, prev[n]):
+                    moved[mapping[n]] = True
+            check(not bool((moved & ~mask).any()),
+                  f"xLSTM STRADS step {i}: unscheduled blocks "
+                  f"{(moved & ~mask).nonzero().flatten().tolist()} moved")
+            sstats["blocks_active"].append(int(mask.sum()))
+            sstats["unscheduled_checked"] += int((~mask).sum())
+        prev.clear()
+        prev.update({n: x.clone() for n, x in params})
+    _, out["strads"] = train_run(
+        torch, ops, tfa, tlaunch, zoo_argv(
+            XLSTM, seed, XLSTM_STEPS, TRAIN_SEQ, "--strads",
+            "--weight-decay", "0"),
+        strads_check, L, steps=XLSTM_STEPS, attention=False)
+    check(len(sstats["blocks_active"]) == XLSTM_STEPS,
+          f"xLSTM STRADS: {len(sstats['blocks_active'])} steps checked")
+    out["strads"].update(sstats, layers=L, blocks=L + 1)
+    print("xLSTM training STRADS: " + json.dumps(out["strads"]))
+    prev.clear()
+    torch.cuda.empty_cache()
+    cut = dataclasses.replace(cfg, num_layers=XLSTM_CUT_LAYERS)
+    state = tstep.init_train_state(
+        cut, tstep.TrainConfig(),
+        torch.Generator(device=DEVICE).manual_seed(seed))
+    batch = data.make_batch(data.SyntheticLMConfig(
+        vocab_size=cfg.vocab_size, seq_len=TRAIN_SEQ,
+        batch_size=TRAIN_BATCH, seed=seed), XLSTM_STEPS, device=DEVICE)
+    out["profile_train_step"] = train_profile(torch, ops, tstep, cut, state,
+                                              batch, {})
+    out["profile_train_step"]["layers"] = XLSTM_CUT_LAYERS
+    print("xLSTM training profile_train_step: " + json.dumps(
+        {k: v for k, v in out["profile_train_step"].items() if k != "top"}))
+    for row in out["profile_train_step"]["top"][:8]:
+        print(f"    {row['device_ms']:9.3f} ms  x{row['count']:<6d} "
+              f"{row['name'][:90]}")
+    del state, box, batch
+    torch.cuda.empty_cache()
+    return out
+
+
+def attn_kernels(ops):
+    return {"flash_attention": (ops.LAUNCHES, ("flash_fwd_bf16",
+                                               "flash_fwd_f32")),
+            "flash_attention_bwd": (ops.LAUNCHES, ("flash_bwd_dq",))}
+
+
+def zoo_train_phase(torch, ops, ref, tfa, M, tlaunch, tstep, layers_mod,
+                    cfg, seed: int, seq: int, route: str) -> dict:
+    """InternVL2-1B or HuBERT-XLarge at full width and depth, bf16, batch
+    4 × ``seq`` (InternVL2: 2,048 tokens after 256 patch embeddings, 2,304
+    queries; HuBERT: 1,500 frames) through ``launch.train.main``
+    (ZOO_STEPS plain steps), with ``_chunked_attention`` counted (none
+    may run on the card); then a checked training step, the backward
+    kernel at layer 0's inputs on ``route`` and timed, and a profiler
+    window over one step.  Returns (the numbers, the backward's entry,
+    the forward's training-shape entry)."""
+    L = cfg.num_layers
+    chunked = {"calls": 0}
+    box = {}
+    with patched(layers_mod, _chunked_attention=counted(
+            layers_mod._chunked_attention, chunked)):
+        _, res = train_run(
+            torch, ops, tfa, tlaunch, zoo_argv(cfg.name, seed, ZOO_STEPS,
+                                               seq),
+            lambda i, state, metrics: box.update(state=state), L,
+            steps=ZOO_STEPS, tokens=TRAIN_BATCH * seq, route=route)
+        print(f"{cfg.name} training: " + json.dumps(res))
+        state = box.pop("state")
+        batch = data_batch(cfg, seq, ZOO_STEPS, seed)
+        res["checked_step"], first = checked_train_step(
+            torch, ops, ref, tstep, cfg, state["params"], batch, L)
+    check(chunked["calls"] == 0, f"{cfg.name}: _chunked_attention ran "
+                                 f"{chunked['calls']} times on the card")
+    res["chunked_attention_calls"] = 0
+    q, k, v, kw = first
+    res["queries"] = q.shape[1]
+    res["bwd_layer0"] = bwd_check(torch, ref, tfa, q, k, v, kw, seed, route)
+    bentry, fentry = bwd_timing(torch, ref, tfa, q, k, v, kw, seed)
+    bentry["max_abs_err"] = max(res["bwd_layer0"][f"d{x}_max_abs_err"]
+                                for x in "qkv")
+    bentry["bwd_route"] = route
+    fentry["max_rel_err"] = res["bwd_layer0"]["forward_max_abs_err"]
+    del first, q, k, v
+    res["profile_train_step"] = train_profile(torch, ops, tstep, cfg, state,
+                                              batch, attn_kernels(ops))
+    print(f"{cfg.name} training profile: " + json.dumps(
+        {k: v for k, v in res["profile_train_step"].items() if k != "top"}))
+    for row in res["profile_train_step"]["top"][:8]:
+        print(f"    {row['device_ms']:9.3f} ms  x{row['count']:<5d} "
+              f"{row['name'][:90]}")
+    del state, box, batch
+    torch.cuda.empty_cache()
+    return res, bentry, fentry
+
+
+def data_batch(cfg, seq: int, step: int, seed: int) -> dict:
+    """The trainer's batch of ``step`` for ``cfg``, its frontend's inputs
+    included."""
+    from repro_torch import data
+    return data.make_batch(data.SyntheticLMConfig(
+        vocab_size=cfg.vocab_size, seq_len=seq, batch_size=TRAIN_BATCH,
+        seed=seed), step, device=DEVICE, **data.frontend_batch_kwargs(cfg))
+
+
+def vlm_phase(torch, ops, ref, tfa, M, serve_lm, tlaunch, tstep, layers_mod,
+              seed: int) -> tuple:
+    """InternVL2-1B at full width and depth (24 layers, 16 padded query
+    heads over 2 kv heads of 64), bf16: serving 256 patch embeddings + a
+    1,024-token prompt (1,280 queries) with every prefill launch checked,
+    the kernel timed at layer 0's inputs with SDPA, the main path's
+    counts (24 flash_attention), profiler windows; then training (2,304
+    queries a sequence: above the CPU's chunked threshold, on the flash
+    kernel on the card).  Returns (the numbers, the flash_attention
+    entries by shape, the backward's entry)."""
+    srv, res = serve_build(torch, serve_lm, VLM, seed)
+    cfg = srv.cfg
+    L = cfg.num_layers
+    res["params"] = M.num_params(cfg)
+    res["frontend_tokens"] = cfg.frontend_tokens
+    with torch.inference_mode():
+        attn, _, stats, first = checked_ops(torch, ops, ref)
+        with patched(ops, attention=attn):
+            first_step(torch, M, cfg, srv.params, srv.batch, srv.cache_len)
+        torch.cuda.synchronize()
+        st = stats["flash_attention"]
+        check(st["calls"] == L and st["max_rel_err"] <= ATTN_TOL,
+              f"{cfg.name} prefill: flash_attention vs plain {st}")
+        res["every_launch_vs_plain"] = st
+        q, k, v, kw = first["attention"]
+        check(q.shape[1] == PROMPT + cfg.frontend_tokens,
+              f"{cfg.name}: attention over {q.shape[1]} queries")
+        serve_attn = attention_timing(torch, ops, ref, q, k, v, kw)
+        del first, q, k, v
+        toks, numbers = main_path(torch, ops, M, srv, attn_launches(L))
+        res.update(numbers)
+        window = profile_serving(torch, ops, M, srv)
+    res.update(window)
+    print(f"{cfg.name} serving: " + json.dumps(
+        {k: v for k, v in res.items() if not k.startswith("profile")}))
+    for w in ("profile_prefill", "profile_decode4"):
+        print(f"{cfg.name} {w}: " + json.dumps(
+            {k: v for k, v in res[w].items() if k != "top"}))
+    del srv, window
+    torch.cuda.empty_cache()
+    train, bentry, fentry = zoo_train_phase(
+        torch, ops, ref, tfa, M, tlaunch, tstep, layers_mod, cfg, seed,
+        TRAIN_SEQ, "wgmma")
+    check(train["queries"] == TRAIN_SEQ + cfg.frontend_tokens,
+          f"{cfg.name} training: attention over {train['queries']} queries")
+    return ({"serve": res, "train": train},
+            {f"{VLM} serving": serve_attn, f"{VLM} training": fentry},
+            bentry)
+
+
+def audio_phase(torch, ops, ref, tfa, M, tlaunch, tstep, get_config, data,
+                layers_mod, seed: int) -> tuple:
+    """HuBERT-XLarge at full width and depth (48 layers, 16 heads of 80,
+    bidirectional), bf16: ``encode_step`` of 4 × 1,500 frames with every
+    launch checked, the kernel timed at layer 0's inputs (non-causal,
+    with SDPA), 3 timed encodes (48 launches each), the plain attention's
+    logits beside the kernels' (printed), a profiler window; then
+    training on the mma.sync backward route.  Returns (the numbers, the
+    flash_attention entries by shape, the backward's entry)."""
+    cfg = get_config(AUDIO)
+    L = cfg.num_layers
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    prm = M.init_params(cfg, torch.Generator(device=DEVICE).manual_seed(seed))
+    batch = data_batch(cfg, AUDIO_FRAMES, 0, seed)
+    batch.pop("labels")
+    torch.cuda.synchronize()
+    res = {"arch": cfg.name, "layers": L, "batch": BATCH,
+           "frames": AUDIO_FRAMES, "params": M.num_params(cfg),
+           "init_s": time.perf_counter() - t0,
+           "weights_gb": torch.cuda.memory_allocated() / 1e9}
+    encode = lambda: M.encode_step(cfg, prm, batch)[0]
+    with torch.inference_mode():
+        attn, _, stats, first = checked_ops(torch, ops, ref)
+        with patched(ops, attention=attn):
+            encode()
+        torch.cuda.synchronize()
+        st = stats["flash_attention"]
+        check(st["calls"] == L and st["max_rel_err"] <= ATTN_TOL,
+              f"{cfg.name} encode: flash_attention vs plain {st}")
+        res["every_launch_vs_plain"] = st
+        q, k, v, kw = first["attention"]
+        check(not kw["causal"] and q.shape[1:] == (AUDIO_FRAMES, 16, 80),
+              f"{cfg.name}: attention {tuple(q.shape)} {kw}")
+        encode_attn = attention_timing(torch, ops, ref, q, k, v, kw)
+        del first, q, k, v
+        encode()
+        ops.reset_launch_counts()
+        ms = []
+        for _ in range(3):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            lk = encode()
+            torch.cuda.synchronize()
+            ms.append((time.perf_counter() - t0) * 1e3)
+        check(ops.LAUNCHES == attn_launches(3 * L),
+              f"{cfg.name} encode: launches {ops.LAUNCHES}")
+        check(lk.shape == (BATCH, AUDIO_FRAMES, 2048)
+              and bool(torch.isfinite(lk).all()),
+              f"{cfg.name} encode: logits {tuple(lk.shape)} not finite")
+        res.update(encode_ms=ms, encode_ms_median=median(ms),
+                   frames_per_s=BATCH * AUDIO_FRAMES / (median(ms) / 1e3),
+                   launches=attn_launches(L),
+                   peak_memory_gb=torch.cuda.max_memory_allocated() / 1e9)
+        with patched(ops, attention=ref.attention_ref):
+            lp = encode()
+        res["kernels_vs_plain_bf16"] = {
+            "logits_max_abs_diff": (lk.float() - lp.float()).abs().max()
+            .item(), "max_abs_logit": lp.float().abs().max().item(),
+            "argmax_equal_share": (lk.argmax(-1) == lp.argmax(-1)).float()
+            .mean().item()}
+        del lk, lp
+        res["profile_encode"] = profile_window(torch, encode,
+                                               attn_kernels(ops))
+    print(f"{cfg.name} encode: " + json.dumps(
+        {k: v for k, v in res.items() if not k.startswith("profile")}))
+    print(f"{cfg.name} profile_encode: " + json.dumps(
+        {k: v for k, v in res["profile_encode"].items() if k != "top"}))
+    del prm, batch
+    torch.cuda.empty_cache()
+    train, bentry, fentry = zoo_train_phase(
+        torch, ops, ref, tfa, M, tlaunch, tstep, layers_mod, cfg, seed,
+        AUDIO_FRAMES, "mma_sync")
+    return ({"encode": res, "train": train},
+            {f"{AUDIO} encode": encode_attn, f"{AUDIO} training": fentry},
+            bentry)
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -4688,6 +5294,7 @@ def main() -> int:
     from repro_torch.kernels import lda_gibbs as lg
     from repro_torch.launch import serve_lm
     from repro_torch.launch import train as tlaunch
+    from repro_torch.models import layers as tlayers
     from repro_torch.models import model as M
     from repro_torch.train import step as tstep
 
@@ -5019,7 +5626,40 @@ def main() -> int:
         train["plain"]["launches"]["flash_attention"]
     phase("minicpm-2b training")
 
-    # 11. lasso_loadbal.json traced, inside a profiler session: last, since
+    # 11. the rest of the zoo: xLSTM-125M, InternVL2-1B, HuBERT-XLarge
+    zoo = {"xlstm": xlstm_phase(torch, ops, tfa, M, serve_lm, tlaunch, tstep,
+                                get_config, tdata, args.seed)}
+    phase("xlstm-125m serving and training")
+    fa, fb = skern["flash_attention"], skern["flash_attention_bwd"]
+    fb["by_shape"] = {}
+    zoo["internvl2"], shapes, fb["by_shape"][f"{VLM} training"] = vlm_phase(
+        torch, ops, ref, tfa, M, serve_lm, tlaunch, tstep, tlayers, args.seed)
+    fa["by_shape"].update(shapes)
+    fa["launches_internvl2"] = {
+        "serving": zoo["internvl2"]["serve"]["launches"]["flash_attention"],
+        "training": zoo["internvl2"]["train"]["launches"]["flash_attention"]}
+    fb["launches_internvl2_training"] = \
+        zoo["internvl2"]["train"]["launches"]["flash_attention_bwd"]
+    phase("internvl2-1b serving and training")
+    zoo["hubert"], shapes, fb["by_shape"][f"{AUDIO} training"] = audio_phase(
+        torch, ops, ref, tfa, M, tlaunch, tstep, get_config, tdata, tlayers,
+        args.seed)
+    fa["by_shape"].update(shapes)
+    fa["launches_hubert"] = {
+        "encode": zoo["hubert"]["encode"]["launches"]["flash_attention"],
+        "training": zoo["hubert"]["train"]["launches"]["flash_attention"]}
+    fb["launches_hubert_training"] = \
+        zoo["hubert"]["train"]["launches"]["flash_attention_bwd"]
+    phase("hubert-xlarge encoding and training")
+    for name in ("flash_attention", "flash_attention_bwd"):
+        print(f"{name} by shape: " + json.dumps(
+            {shape: {k: e.get(k) for k in (
+                "shape", "device_ms", "library_device_ms", "bound_ms",
+                "bound_by", "device_bound_share", "max_rel_err",
+                "max_abs_err")}
+             for shape, e in skern[name]["by_shape"].items()}))
+
+    # 12. lasso_loadbal.json traced, inside a profiler session: last, since
     # a session slows the host's later launches (decode is host-bound)
     torch.cuda.empty_cache()
     X, y, _ = lasso.synthetic_correlated_device(args.seed, n, J, k_true=16,
@@ -5062,7 +5702,7 @@ def main() -> int:
                   small={"objective": got, "reference_cd": want},
                   mf=mfres, lda=ldares,
                   serve=serve, f32_parity=parity, zamba2=zamba,
-                  zamba2_f32_parity=zparity, train=train)
+                  zamba2_f32_parity=zparity, train=train, zoo=zoo)
     os.makedirs(os.path.join(ROOT, "chiprun_out"), exist_ok=True)
     with open(os.path.join(ROOT, "chiprun_out", "chip_smoke.json"),
               "w") as f:

@@ -1,4 +1,6 @@
 """Synthetic token data for the model zoo."""
-from .pipeline import SyntheticLMConfig, make_batch, synthetic_batches
+from .pipeline import (SyntheticLMConfig, frontend_batch_kwargs, make_batch,
+                       synthetic_batches)
 
-__all__ = ["SyntheticLMConfig", "make_batch", "synthetic_batches"]
+__all__ = ["SyntheticLMConfig", "frontend_batch_kwargs", "make_batch",
+           "synthetic_batches"]

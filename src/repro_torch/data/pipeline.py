@@ -11,7 +11,7 @@ same tokens.
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, Iterator
+from typing import Dict, Iterator, Optional
 
 import numpy as np
 import torch
@@ -33,10 +33,16 @@ def _zipf_probs(v: int, a: float) -> torch.Tensor:
     return torch.from_numpy(p / p.sum())
 
 
-def make_batch(cfg: SyntheticLMConfig, step: int,
-               device="cpu") -> Dict[str, torch.Tensor]:
+def make_batch(cfg: SyntheticLMConfig, step: int, device="cpu",
+               d_model: Optional[int] = None, frontend_tokens: int = 0,
+               frames: bool = False) -> Dict[str, torch.Tensor]:
     """``{"tokens": (B, S), "labels": (B, S)}`` int64 for one step,
-    labels the tokens shifted by one."""
+    labels the tokens shifted by one.  ``frames=True``: audio-style
+    frame embeddings ``"frames"`` (B, S, d_model) in place of the tokens;
+    ``frontend_tokens=P``: vision patch embeddings ``"frontend"``
+    (B, P, d_model) beside them.  Both are N(0, 0.02²) float32 draws made
+    after the tokens', so the tokens and labels of a step do not depend
+    on them."""
     gen = torch.Generator().manual_seed(cfg.seed * 1_000_003 + step)
     B, S, V = cfg.batch_size, cfg.seq_len + 1, cfg.vocab_size
     draws = torch.multinomial(_zipf_probs(V, cfg.zipf_a), B * S,
@@ -52,7 +58,30 @@ def make_batch(cfg: SyntheticLMConfig, step: int,
                        draws[:, :1])
     seq = (base + torch.where(last >= 0, t - last, t + 1)) % V
     seq = seq.to(device)
-    return {"tokens": seq[:, :-1], "labels": seq[:, 1:]}
+    out = {"labels": seq[:, 1:]}
+    if (frames or frontend_tokens) and d_model is None:
+        raise ValueError("frames and frontend embeddings need d_model")
+    if frames:
+        out["frames"] = (torch.randn((B, cfg.seq_len, d_model),
+                                     generator=gen) * 0.02).to(device)
+    else:
+        out["tokens"] = seq[:, :-1]
+    if frontend_tokens:
+        out["frontend"] = (torch.randn((B, frontend_tokens, d_model),
+                                       generator=gen) * 0.02).to(device)
+    return out
+
+
+def frontend_batch_kwargs(cfg) -> Dict[str, object]:
+    """:func:`make_batch`'s keyword arguments for a model config's
+    frontend: frame embeddings for an audio arch, patch embeddings for a
+    vision arch, none for a text-only one."""
+    if cfg.frontend == "audio":
+        return {"frames": True, "d_model": cfg.d_model}
+    if cfg.frontend == "vision":
+        return {"frontend_tokens": cfg.frontend_tokens,
+                "d_model": cfg.d_model}
+    return {}
 
 
 def synthetic_batches(cfg: SyntheticLMConfig, **kw
@@ -61,7 +90,8 @@ def synthetic_batches(cfg: SyntheticLMConfig, **kw
     :class:`repro_torch.stream.source.SyntheticLMSource`, so the streaming
     subsystem's DataSource and this generator share one batch-derivation
     path (same ``(seed, step)`` schedule, same deltas).  ``kw`` goes to
-    :func:`make_batch` (``device=``)."""
+    :func:`make_batch` (``device=``, and the frontend's ``d_model=``,
+    ``frontend_tokens=``, ``frames=``)."""
     from ..stream.source import SyntheticLMSource
     src = SyntheticLMSource(cfg, kwargs=kw or None)
     step = 0

@@ -5,13 +5,17 @@
         --batch 4 --prompt-len 1024 --gen 32
     PYTHONPATH=src python -m repro_torch.launch.serve_lm \
         --arch zamba2-2.7b --preset full --batch 4 --prompt-len 1000 --gen 32
+    PYTHONPATH=src python -m repro_torch.launch.serve_lm \
+        --arch internvl2-1b --preset reduced --device cpu
 
 The port of the JAX package's ``launch/serve_lm.py``, with the same
 options plus ``--layers`` (cut the depth; default the config's own) and
 ``--device`` (default ``cuda``; ``cpu`` runs the plain versions of the
 kernels).  For the hybrid family ``--layers`` must be a multiple of
 ``attn_every``.  Weights are random, drawn from ``--seed``; the prompts are
-:func:`repro_torch.data.make_batch`'s synthetic tokens.  After a warm-up
+:func:`repro_torch.data.make_batch`'s synthetic tokens (a vision arch's
+with its ``frontend_tokens`` patch embeddings ahead, which the cache
+counts).  An encoder-only arch (HuBERT) is refused.  After a warm-up
 it prints the prefill time, the generate rate (tokens over the whole
 prefill + decode run) and the first sample tokens.
 """
@@ -26,7 +30,7 @@ import torch
 
 from ..configs import ARCHS, get_config
 from ..core import resolve_device
-from ..data import SyntheticLMConfig, make_batch
+from ..data import SyntheticLMConfig, frontend_batch_kwargs, make_batch
 from ..models import model as M
 from ..train.serve import greedy_generate
 
@@ -89,10 +93,10 @@ def build(args: argparse.Namespace) -> Server:
     dcfg = SyntheticLMConfig(vocab_size=cfg.vocab_size,
                              seq_len=args.prompt_len,
                              batch_size=args.batch, seed=args.seed)
-    batch = make_batch(dcfg, 0, device=device)
+    batch = make_batch(dcfg, 0, device=device, **frontend_batch_kwargs(cfg))
     batch.pop("labels")
     window = args.window or None
-    total = args.prompt_len + args.gen
+    total = args.prompt_len + args.gen + M.num_frontend_tokens(cfg)
     cache_len = min(window, total) if window else total
     return Server(cfg, params, batch, cache_len, window, device)
 

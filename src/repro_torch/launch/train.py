@@ -4,10 +4,14 @@
         --preset reduced --steps 200 --batch 8 --seq 256 --device cpu
     python -m repro_torch.launch.train --arch minicpm-2b --preset full \
         --batch 4 --seq 2048 --steps 8 [--strads]
+    PYTHONPATH=src python -m repro_torch.launch.train --arch hubert-xlarge \
+        --preset reduced --steps 4 --batch 2 --seq 32 --device cpu
 
 The port of the JAX package's ``launch/train.py``, with its flags, its
 errors, its log lines and its last JSON line: synthetic batches
-(:func:`repro_torch.data.make_batch`) → train step (AdamW and the
+(:func:`repro_torch.data.make_batch`; frame embeddings for an audio arch,
+patch embeddings ahead of the tokens for a vision one) → train step
+(AdamW and the
 schedule: WSD for MiniCPM, its paper's, else cosine) → checkpoints.
 ``--strads`` trains block-coordinate scheduled (:mod:`repro_torch.sched.
 block`); the block policy is a ``block_structural`` ``SchedulerSpec``
@@ -41,13 +45,13 @@ import torch
 from ..checkpoint import latest_step, restore_checkpoint, save_checkpoint
 from ..configs import ARCHS, get_config
 from ..core import resolve_device
-from ..data import SyntheticLMConfig, make_batch
-from ..models.transformer import group_layout
+from ..data import SyntheticLMConfig, frontend_batch_kwargs, make_batch
 from ..optim import AdamWConfig, cosine_schedule, wsd_schedule
 from ..sched import SchedulerSpec
 from ..sched.block import config_from_spec
 from ..train import TrainConfig, init_train_state, make_train_step
-from ..train.step import init_strads_state, make_strads_train_step
+from ..train.step import (init_strads_state, make_strads_train_step,
+                          num_layer_blocks)
 
 
 def parse_args(argv=None):
@@ -176,7 +180,7 @@ def main(argv=None, on_step=None):
 
     gen = torch.Generator(device=device).manual_seed(args.seed)
     if args.strads:
-        nblocks = group_layout(cfg)[0] + 1
+        nblocks = num_layer_blocks(cfg) + 1
         u = args.blocks_per_step or max(1, nblocks // 2)
         sched_spec = args.sched_spec
         if sched_spec is None:
@@ -200,12 +204,9 @@ def main(argv=None, on_step=None):
     else:
         state = init_train_state(cfg, tc, gen)
         step_fn = make_train_step(cfg, tc, donate=True)
-    if cfg.frontend is not None:
-        raise NotImplementedError(f"{cfg.name}: the {cfg.frontend} "
-                                  f"frontend's batches are not ported yet "
-                                  f"(ROADMAP.md queue 1 item 11)")
     dcfg = SyntheticLMConfig(vocab_size=cfg.vocab_size, seq_len=args.seq,
                              batch_size=args.batch, seed=args.seed)
+    dkw = {"device": device, **frontend_batch_kwargs(cfg)}
 
     def log_step(i, metrics, t0, history):
         m = {k: float(v) for k, v in metrics.items() if v.numel() == 1}
@@ -244,8 +245,7 @@ def main(argv=None, on_step=None):
     for start in range(start0, args.steps, K):
         steps = range(start, min(start + K, args.steps))
         for j in steps:
-            state, metrics = step_fn(state, make_batch(dcfg, j,
-                                                       device=device))
+            state, metrics = step_fn(state, make_batch(dcfg, j, **dkw))
         last = steps[-1]
         if on_step is not None:
             on_step(last, state, metrics)

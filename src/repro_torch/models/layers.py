@@ -1,12 +1,15 @@
 """Shared transformer layers: norms, RoPE, GQA attention (full / sliding-
 window / decode with a ring-buffer cache), SwiGLU MLP.
 
-The port of the JAX package's ``models/layers.py``.  Attention keeps its
-three paths and its dispatch:
-  * above :data:`CHUNKED_ATTN_THRESHOLD` query tokens, the online softmax
-    over query chunks (memory O(chunk·S) instead of O(S²));
-  * otherwise, on the card, the flash-attention kernel
-    (:func:`repro_torch.kernels.ops.attention`);
+The port of the JAX package's ``models/layers.py``.  Attention has three
+paths (:func:`attention_route` picks one from the device and the query
+length):
+  * on the card, at every query length, the flash-attention kernel
+    (:func:`repro_torch.kernels.ops.attention`; under grad its backward
+    kernel too), which keeps the S×S scores out of memory in tiles;
+  * on the CPU above :data:`CHUNKED_ATTN_THRESHOLD` query tokens, the
+    softmax over query chunks (memory O(chunk·S) instead of O(S²)), the
+    plain version of the JAX package's own chunked path;
   * otherwise, on the CPU, the plain grouped einsum :func:`_sdpa`.
 
 All functions are pure except that a decode step writes its key and value
@@ -26,8 +29,8 @@ from ..kernels.ref import NEG_INF, attention_mask
 from ..sharding import rules
 from .params import ParamMeta
 
-# Chunked attention kicks in above this query length (keeps the S×S score
-# matrix out of the memory footprint).
+# On the CPU, chunked attention kicks in above this query length (keeps
+# the S×S score matrix out of the memory footprint).
 CHUNKED_ATTN_THRESHOLD = 2048
 ATTN_CHUNK = 512
 
@@ -141,11 +144,21 @@ def _chunked_attention(q, k, v, *, causal: bool, window: Optional[int],
     return torch.cat(outs, dim=1)
 
 
+def attention_route(device_type: str, num_queries: int) -> str:
+    """The path :func:`attend` takes: ``"flash"`` (the kernel) on the
+    card whatever the query length, else ``"chunked"`` above
+    :data:`CHUNKED_ATTN_THRESHOLD` queries and ``"plain"`` up to it."""
+    if device_type == "cuda":
+        return "flash"
+    return "chunked" if num_queries > CHUNKED_ATTN_THRESHOLD else "plain"
+
+
 def attend(q, k, v, *, causal: bool, window: Optional[int]) -> torch.Tensor:
-    if q.shape[1] > CHUNKED_ATTN_THRESHOLD:
-        return _chunked_attention(q, k, v, causal=causal, window=window)
-    if q.device.type == "cuda":
+    route = attention_route(q.device.type, q.shape[1])
+    if route == "flash":
         return ops.attention(q, k, v, causal=causal, window=window)
+    if route == "chunked":
+        return _chunked_attention(q, k, v, causal=causal, window=window)
     return _sdpa(q, k, v, causal=causal, window=window,
                  q_offset=k.shape[1] - q.shape[1])
 

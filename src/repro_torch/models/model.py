@@ -1,12 +1,14 @@
-"""Public model API: ``init_params`` / ``forward`` / ``init_cache`` /
-``prefill`` / ``decode_step``.
+"""Public model API: ``init_params`` / ``forward`` / ``encode_step`` /
+``init_cache`` / ``prefill`` / ``decode_step``.
 
-The port of the JAX package's ``models/model.py`` for the text path of
-the dense, MoE and hybrid families.  Every function takes the
-:class:`repro_torch.configs.base.ModelConfig` explicitly; parameters are
-nested dicts built from :func:`transformer.stack_template`, on the device
-:func:`init_params` put them on.  The vision and audio frontends are not
-ported yet.
+The port of the JAX package's ``models/model.py``, for every family and
+both frontend stubs: an audio arch (HuBERT) takes ``batch["frames"]``
+(B, S, d) frame embeddings in place of tokens; a vision arch (InternVL2)
+takes ``batch["frontend"]`` (B, P, d) patch embeddings, put ahead of the
+token embeddings, and its logits drop those P positions.  Every function
+takes the :class:`repro_torch.configs.base.ModelConfig` explicitly;
+parameters are nested dicts built from :func:`transformer.stack_template`,
+on the device :func:`init_params` put them on.
 """
 from __future__ import annotations
 
@@ -21,13 +23,6 @@ from .transformer import apply_stack, cache_template, stack_template
 
 def _dtype(cfg) -> torch.dtype:
     return getattr(torch, cfg.dtype)
-
-
-def _check_frontend(cfg) -> None:
-    if cfg.frontend is not None:
-        raise NotImplementedError(
-            f"{cfg.name}: the {cfg.frontend} frontend is not ported yet "
-            f"(ROADMAP.md queue 1 step 13c)")
 
 
 # ---------------------------------------------------------------------------
@@ -47,6 +42,13 @@ def num_params(cfg) -> int:
     return P.param_count(stack_template(cfg))
 
 
+def num_frontend_tokens(cfg) -> int:
+    """Positions a vision arch's patch embeddings take ahead of the text
+    (0 for every other arch): a prompt's decode positions start after
+    them, and a cache holds them."""
+    return cfg.frontend_tokens if cfg.frontend == "vision" else 0
+
+
 # ---------------------------------------------------------------------------
 # Embedding / head
 # ---------------------------------------------------------------------------
@@ -64,9 +66,14 @@ def _logits(cfg, prm, x: torch.Tensor) -> torch.Tensor:
 
 
 def _inputs(cfg, prm, batch: Dict[str, torch.Tensor]):
-    """Token embeddings: (x (B, S, d), n_frontend = 0)."""
-    _check_frontend(cfg)
-    return _embed(cfg, prm, batch["tokens"]), 0
+    """Token or frontend embeddings: (x (B, S_total, d), n_frontend)."""
+    if cfg.frontend == "audio":
+        return batch["frames"].to(_dtype(cfg)), 0
+    x = _embed(cfg, prm, batch["tokens"])
+    if cfg.frontend == "vision":
+        fe = batch["frontend"].to(_dtype(cfg))
+        return torch.cat([fe, x], dim=1), fe.shape[1]
+    return x, 0
 
 
 # ---------------------------------------------------------------------------
@@ -76,14 +83,22 @@ def _inputs(cfg, prm, batch: Dict[str, torch.Tensor]):
 def forward(cfg, prm, batch: Dict[str, torch.Tensor], *, train: bool = False,
             window: Optional[int] = None
             ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Full-sequence forward.  Returns (logits (B, S, Vp), aux_loss).
-    ``train=True`` checkpoints each layer group (the same values)."""
-    x, _ = _inputs(cfg, prm, batch)
+    """Full-sequence forward.  Returns (logits (B, S_text, Vp), aux_loss):
+    a vision arch's frontend positions have no logits (the JAX package
+    computes and drops them).  ``train=True`` checkpoints each layer
+    group (the same values)."""
+    x, n_front = _inputs(cfg, prm, batch)
     positions = torch.arange(x.shape[1], device=x.device)
     x, _, aux = apply_stack(cfg, prm, x, positions=positions,
                             window=window if window is not None
                             else cfg.window, train=train)
-    return _logits(cfg, prm, x), aux
+    return _logits(cfg, prm, x[:, n_front:]), aux
+
+
+def encode_step(cfg, prm, batch: Dict[str, torch.Tensor]
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Encoder-only forward (HuBERT): bidirectional, no cache."""
+    return forward(cfg, prm, batch, train=False)
 
 
 # ---------------------------------------------------------------------------
@@ -93,12 +108,17 @@ def forward(cfg, prm, batch: Dict[str, torch.Tensor], *, train: bool = False,
 def init_cache(cfg, batch: int, cache_len: int, device) -> Dict[str, Any]:
     """Each leaf in the JAX package's type: keys and values zeroed in the
     config's dtype; ``kpos`` (int32) −1 for every slot (empty); the
-    recurrent states (the SSM's ``h`` and ``conv``) zeroed in f32."""
+    recurrent states (the SSM's ``h`` and ``conv``, the xLSTM's) in f32,
+    zeroed except the xLSTM stabiliser ``m``, −1e30 (the exp-gating
+    floor)."""
     t = cache_template(cfg, batch, cache_len)
 
     def leaf(path, m):
         if path[-1] == "kpos":
             return torch.full(m.shape, -1, dtype=torch.int32, device=device)
+        if path[-1] == "m":
+            return torch.full(m.shape, -1e30, dtype=torch.float32,
+                              device=device)
         dtype = _dtype(cfg) if path[-1] in ("k", "v") else torch.float32
         return torch.zeros(m.shape, dtype=dtype, device=device)
     return P.tree_map(leaf, t)
@@ -121,12 +141,12 @@ def prefill(cfg, prm, batch: Dict[str, torch.Tensor], *, cache_len: int,
     x, cache, _ = apply_stack(cfg, prm, x, positions=positions, cache=cache,
                               window=window if window is not None
                               else cfg.window)
+    kpos = cache.get("kpos")                 # None: no attention
     sc = cache_len
-    if sc >= S:
-        cache["kpos"][:S] = torch.arange(S, dtype=torch.int32,
-                                         device=x.device)
-    else:                                    # ring holds the tail, rolled
-        cache["kpos"][:] = torch.roll(
+    if kpos is not None and sc >= S:
+        kpos[:S] = torch.arange(S, dtype=torch.int32, device=x.device)
+    elif kpos is not None:                   # ring holds the tail, rolled
+        kpos[:] = torch.roll(
             torch.arange(S - sc, S, dtype=torch.int32, device=x.device),
             (S - sc) % sc)
     logits = _logits(cfg, prm, x[:, -1:])[:, 0]
@@ -140,12 +160,14 @@ def decode_step(cfg, prm, cache, token: torch.Tensor, pos: int, *,
     (logits (B, Vp), cache)."""
     if cfg.encoder_only:
         raise ValueError(f"{cfg.name} is encoder-only: no decode path")
-    _check_frontend(cfg)
+    if cfg.frontend == "audio":
+        raise ValueError(f"{cfg.name}: an audio arch is encoder-only")
     x = _embed(cfg, prm, token[:, None])
     pos = int(pos)
-    kpos = cache["kpos"]
-    slot = pos % kpos.shape[0]
-    kpos[slot] = pos
+    kpos, slot = cache.get("kpos"), None
+    if kpos is not None:
+        slot = pos % kpos.shape[0]
+        kpos[slot] = pos
     positions = torch.full((1,), pos, dtype=torch.int32, device=x.device)
     x, cache, _ = apply_stack(cfg, prm, x, positions=positions, cache=cache,
                               kpos=kpos, slot=slot,

@@ -2,12 +2,18 @@
 
 The port of the JAX package's ``models/moe.py``.  The router goes through
 the top-k gating kernel (:func:`repro_torch.kernels.ops.topk_gating`);
-the dispatch is the GShard one-hot form (``moe_impl="einsum"``): tokens
-are ranked within each expert's queue per group of :data:`GROUP` tokens,
-those past the capacity C are dropped, and the expert FFN runs on
-(E, C)-shaped batches.  The one-hot dispatch and combine tensors are
-built by a scatter-add rather than by summing one-hots, which gives the
-same values without the (g, k, E·C) intermediate.
+two dispatches, as ``cfg.moe_impl`` picks:
+  * ``"einsum"``, the GShard one-hot form: tokens are ranked within each
+    expert's queue per group of :data:`GROUP` tokens, those past the
+    capacity C are dropped, and the expert FFN runs on (E, C)-shaped
+    batches.  The one-hot dispatch and combine tensors are built by a
+    scatter-add rather than by summing one-hots, which gives the same
+    values without the (g, k, E·C) intermediate;
+  * ``"sort"``: the (token, slot) pairs stably sorted by expert, ranked
+    within each expert's run over all T tokens, gathered into dense
+    (E, C, d) batches and added back by ``index_add_``.  No one-hot
+    product.  With T ≤ :data:`GROUP` both forms have the same capacity
+    and drop order.
 """
 from __future__ import annotations
 
@@ -99,18 +105,51 @@ def _dispatch_einsum(p, h, cfg, probs, idx):
     return y.reshape(T, d)
 
 
+def _dispatch_sort(p, h, cfg, probs, idx):
+    """Sort-based dispatch.  h (T, d) → y (T, d).
+
+    Entries past an expert's capacity go to an overflow row E·C that is
+    dropped, and add 0 on the way back.  A token's row of ``y`` sums its
+    k ≤ 2 kept contributions into a zero row, and a + b = b + a, so the
+    atomics of ``index_add_`` on the card cannot change the bits."""
+    T, d = h.shape
+    E, k = cfg.num_experts, cfg.experts_per_token
+    C = _capacity(T, k, E, cfg.capacity_factor)
+
+    flat_e = idx.reshape(-1)                                  # (T·k,)
+    flat_t = torch.arange(T, device=h.device).repeat_interleave(k)
+    order = torch.argsort(flat_e, stable=True)
+    e_sorted, t_sorted = flat_e[order], flat_t[order]
+    p_sorted = probs.reshape(-1)[order]
+    # rank of each entry within its expert's run: its position less the
+    # run's start (a running max of the starts)
+    pos = torch.arange(e_sorted.numel(), device=h.device)
+    starts = torch.ones_like(e_sorted, dtype=torch.bool)
+    starts[1:] = e_sorted[1:] != e_sorted[:-1]
+    rank = pos - torch.where(starts, pos, 0).cummax(0).values
+    keep = rank < C
+    dest = torch.where(keep, e_sorted * C + rank, E * C)      # overflow row
+
+    xin = h.new_zeros((E * C + 1, d))
+    xin[dest] = h[t_sorted]
+    xin = xin[:-1].view(E, C, d)
+    gate = torch.bmm(xin, p["wg"].to(h.dtype))
+    up = torch.bmm(xin, p["wu"].to(h.dtype))
+    out = torch.bmm(F.silu(gate) * up, p["wd"].to(h.dtype))
+
+    contrib = torch.where(keep, p_sorted, 0.0)[:, None].to(h.dtype)
+    picked = out.view(E * C, d)[dest.clamp_max(E * C - 1)]
+    return h.new_zeros((T, d)).index_add_(0, t_sorted, picked * contrib)
+
+
 def moe_apply(p: Dict[str, Any], x: torch.Tensor, cfg,
               ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Pre-norm MoE block (residual included).  Returns (y, aux_loss)."""
-    if cfg.moe_impl == "sort":
-        raise NotImplementedError(
-            "moe_impl='sort' is not ported yet (ROADMAP.md queue 1, step "
-            "13c: the sort-based dispatch is queued with the rest of "
-            "the zoo); use moe_impl='einsum'")
     B, S, d = x.shape
     h = apply_norm(p["norm"], x, cfg).reshape(B * S, d)
     probs, idx, aux = _router(p, h, cfg)
-    y = _dispatch_einsum(p, h, cfg, probs, idx).reshape(B, S, d)
+    dispatch = _dispatch_sort if cfg.moe_impl == "sort" else _dispatch_einsum
+    y = dispatch(p, h, cfg, probs, idx).reshape(B, S, d)
     if cfg.moe_shared_expert:
         # shared expert runs densely on every token (Llama-4 style);
         # mlp_apply adds its own residual, so feed x and take the delta.

@@ -1,4 +1,4 @@
-"""The decoder stack of the dense, MoE and hybrid families.
+"""The decoder/encoder stack of all six families.
 
 The port of the JAX package's ``models/transformer.py``.  Layers are
 organised into groups that repeat down the stack, and each parameter of a
@@ -11,13 +11,16 @@ layout, so weights carry across one for one).  Group contents:
                          — one set of attention and MLP parameters,
                          applied after every group (Zamba2 style), with a
                          KV cache of its own for each application
+  ssm (xLSTM)          : unrolled, one ``layers/layer_XX`` entry a layer
+                         (sLSTM at ``slstm_layers``, mLSTM elsewhere),
+                         with its recurrent state as its cache
 
 Where the JAX package scans over the stacked groups, the port loops in
 Python over layer slices of the stacked tensors (``torch.unbind``, once a
 leaf).  With ``train=True`` each group runs under
 ``torch.utils.checkpoint`` (the JAX package's ``jax.checkpoint`` with
 ``nothing_saveable``): its activations are made again in the backward.
-The ssm (xLSTM) family is not ported yet.
+The unrolled xLSTM stack checkpoints each layer the same way.
 """
 from __future__ import annotations
 
@@ -33,18 +36,10 @@ from .layers import (FSDP, VOCAB, attention_apply, attention_cache_template,
                      norm_template)
 from .moe import moe_apply, moe_template
 from .ssm import ssm_apply, ssm_state_template, ssm_template
+from .xlstm import (mlstm_apply, mlstm_state_template, mlstm_template,
+                    slstm_apply, slstm_state_template, slstm_template)
 
 ParamMeta = P.ParamMeta
-
-_NOT_PORTED = {
-    "ssm": "the xLSTM family (models/xlstm.py, scan_utils.py) is "
-           "ROADMAP.md queue 1 step 13c",
-}
-
-
-def _check_family(cfg) -> None:
-    if cfg.family in _NOT_PORTED:
-        raise NotImplementedError(f"{cfg.name}: {_NOT_PORTED[cfg.family]}")
 
 
 # ---------------------------------------------------------------------------
@@ -52,8 +47,8 @@ def _check_family(cfg) -> None:
 # ---------------------------------------------------------------------------
 
 def group_layout(cfg) -> Tuple[int, List[Tuple[str, str]]]:
-    """Returns (number of groups, [(sub_name, kind), ...])."""
-    _check_family(cfg)
+    """Returns (number of groups, [(sub_name, kind), ...]) for the
+    grouped families; the xLSTM stack is unrolled and has none."""
     if cfg.family in ("dense", "vlm", "audio"):
         return cfg.num_layers, [("attn0", "attn"), ("ffn0", "mlp")]
     if cfg.family == "moe":
@@ -74,7 +69,14 @@ _SUB_TEMPLATE = {
     "mlp": mlp_template,
     "moe": moe_template,
     "mamba": ssm_template,
+    "mlstm": mlstm_template,
+    "slstm": slstm_template,
 }
+
+
+def _xlstm_kinds(cfg) -> List[str]:
+    return ["slstm" if i in cfg.slstm_layers else "mlstm"
+            for i in range(cfg.num_layers)]
 
 
 def stack_template(cfg) -> Dict[str, Any]:
@@ -84,9 +86,13 @@ def stack_template(cfg) -> Dict[str, Any]:
     t: Dict[str, Any] = {}
     if cfg.frontend != "audio":
         t["tok_embed"] = ParamMeta((vp, d), (VOCAB, FSDP), scale=0.02)
-    steps, subs = group_layout(cfg)
-    group = {name: _SUB_TEMPLATE[kind](cfg) for name, kind in subs}
-    t["layers"] = P.stack(group, steps)
+    if cfg.family == "ssm":                              # xlstm: unrolled
+        t["layers"] = {f"layer_{i:02d}": _SUB_TEMPLATE[kind](cfg)
+                       for i, kind in enumerate(_xlstm_kinds(cfg))}
+    else:
+        steps, subs = group_layout(cfg)
+        group = {name: _SUB_TEMPLATE[kind](cfg) for name, kind in subs}
+        t["layers"] = P.stack(group, steps)
     if cfg.family == "hybrid":                           # shared block
         t["shared_attn"] = attention_template(cfg)
         t["shared_mlp"] = mlp_template(cfg)
@@ -104,7 +110,15 @@ def cache_template(cfg, batch: int, cache_len: int) -> Dict[str, Any]:
     """Layout of the decode cache (mirrors the layer groups): keys and
     values of each attention sub-layer, the recurrent state {"h", "conv"}
     of each mamba sub-layer and, for the hybrid family, one KV cache for
-    each application of the shared attention block."""
+    each application of the shared attention block; for the xLSTM stack,
+    each layer's recurrent state (mLSTM {"C", "n", "m"}, sLSTM {"c", "n",
+    "m", "h"}) and no ``kpos``, since it has no attention."""
+    if cfg.family == "ssm":
+        return {"layers": {
+            f"layer_{i:02d}": (mlstm_state_template(cfg, batch)
+                               if kind == "mlstm"
+                               else slstm_state_template(cfg, batch))
+            for i, kind in enumerate(_xlstm_kinds(cfg))}}
     steps, subs = group_layout(cfg)
     group: Dict[str, Any] = {}
     for name, kind in subs:
@@ -144,6 +158,16 @@ def _apply_sub(kind: str, p, x, cfg, ctx):
             state["h"].copy_(new["h"])
             state["conv"].copy_(new["conv"])
         return x, None
+    if kind in ("mlstm", "slstm"):
+        state = ctx["cache"]
+        keys = "Cnm" if kind == "mlstm" else "cnmh"
+        apply = mlstm_apply if kind == "mlstm" else slstm_apply
+        x, new = apply(p, x, cfg, state=None if state is None
+                       else tuple(state[k] for k in keys))
+        if state is not None:
+            for k, t in zip(keys, new):
+                state[k].copy_(t)
+        return x, None
     raise ValueError(kind)
 
 
@@ -170,9 +194,21 @@ def apply_stack(cfg, prm, x, *, positions, cache=None, kpos=None, slot=None,
     ``cache`` ({"layers": …}, and "shared_attn" for the hybrid family)
     is filled or updated in place.  ``train=True`` checkpoints each group
     (same values; its activations are made again in the backward)."""
-    steps, subs = group_layout(cfg)
     base_ctx = {"positions": positions, "kpos": kpos, "slot": slot,
                 "window": window}
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    if cfg.family == "ssm":                              # unrolled xlstm
+        for i, kind in enumerate(_xlstm_kinds(cfg)):
+            name = f"layer_{i:02d}"
+            ctx = dict(base_ctx, cache=None if cache is None
+                       else cache["layers"][name])
+            if train:
+                x, _ = checkpoint(_apply_sub, kind, prm["layers"][name], x,
+                                  cfg, ctx, use_reentrant=False)
+            else:
+                x, _ = _apply_sub(kind, prm["layers"][name], x, cfg, ctx)
+        return x, cache, aux
+    steps, subs = group_layout(cfg)
 
     def group(i, layer_p, x):
         layer_cache = None if cache is None else _layer(cache["layers"], i)
@@ -192,7 +228,6 @@ def apply_stack(cfg, prm, x, *, positions, cache=None, kpos=None, slot=None,
             x = mlp_apply(prm["shared_mlp"], x, cfg)
         return x, aux
 
-    aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for i, layer_p in enumerate(_unbind(prm["layers"], steps)):
         if train:
             x, a = checkpoint(group, i, layer_p, x, use_reentrant=False)

@@ -33,14 +33,15 @@ def greedy_generate(cfg, params, batch: Dict[str, torch.Tensor], *,
                     temperature: float = 0.0) -> torch.Tensor:
     """Prefill, then ``steps`` decode steps; returns the (B, steps) int32
     tokens: the prefill's pick, then each decode step's but the last (the
-    JAX package's schedule, so the last step's pick is dropped).
+    JAX package's schedule, so the last step's pick is dropped).  A vision
+    arch's decode positions start after its frontend tokens.
 
     ``temperature > 0`` samples from ``generator`` (which lives on the
     logits' device); its draws differ from JAX's, so the two packages
     agree only for greedy decoding."""
     logits, cache = M.prefill(cfg, params, batch, cache_len=cache_len,
                               window=window)
-    start = batch["tokens"].shape[1]
+    start = batch["tokens"].shape[1] + M.num_frontend_tokens(cfg)
 
     def pick(lg):
         lg = lg[:, :cfg.vocab_size].float()

@@ -133,16 +133,27 @@ def make_train_step(cfg, tc: TrainConfig, donate: bool = False):
 # STRADS block-coordinate training
 # ---------------------------------------------------------------------------
 
+def num_layer_blocks(cfg) -> int:
+    """One block a layer group, or a layer of the unrolled xLSTM stack."""
+    return cfg.num_layers if cfg.family == "ssm" else group_layout(cfg)[0]
+
+
+def _block_of(name: str, rest: int) -> int:
+    """A leaf's block: XX for an unrolled layer's ``layers/layer_XX/…``,
+    ``-1`` for a stacked layer leaf (its mask is per layer group, along
+    the leading axis), else the block after the layers (embeddings, head
+    and shared leaves)."""
+    if name.startswith("layers/layer_"):
+        return int(name.split("/")[1][len("layer_"):])
+    return -1 if name.startswith("layers/") else rest
+
+
 def layer_blocks(cfg, params) -> Tuple[Dict[str, int], int]:
-    """Every parameter's block: ``-1`` for a stacked layer leaf (its mask
-    is per layer group, along the leading axis), one block after the
-    layer groups for the embeddings, head and shared leaves.  Returns
-    (mapping, number of blocks).  (The JAX package also maps the
-    unrolled xLSTM layers, which the port does not have yet.)"""
-    num_layer_blocks, _ = group_layout(cfg)
-    mapping = {name: -1 if name.startswith("layers/") else num_layer_blocks
-               for name, _ in tree_flatten(params)}
-    return mapping, num_layer_blocks + 1
+    """Every parameter's block (:func:`_block_of`).  Returns (mapping,
+    number of blocks)."""
+    nl = num_layer_blocks(cfg)
+    return ({name: _block_of(name, nl) for name, _ in tree_flatten(params)},
+            nl + 1)
 
 
 def _gumbel(rng_state: torch.Tensor, n: int, device):
@@ -167,7 +178,8 @@ def make_strads_train_step(cfg, tc: TrainConfig, sched: BlockScheduleConfig,
     the generator state is then left as it was).  ``staleness > 0`` adopts
     a fresh schedule only every ``staleness + 1`` steps and serves the
     cached ``mask`` in between.  ``metrics["mask"]`` is the applied
-    (num_blocks,) mask; ``blocks_active`` its sum."""
+    (num_blocks,) mask; ``blocks_active`` its sum.  The unrolled xLSTM
+    stack's layers are blocks of their own (:func:`_block_of`)."""
     refresh = staleness + 1
     nb = sched.num_blocks
 
@@ -175,21 +187,23 @@ def make_strads_train_step(cfg, tc: TrainConfig, sched: BlockScheduleConfig,
         # the updates are adamw_update's own float32 tensors: scaled in
         # place, the same values as u · mask
         for name, u in tree_flatten(updates):
-            if name.startswith("layers/"):
+            b = _block_of(name, nb - 1)
+            if b < 0:
                 u.mul_(mask[:u.shape[0]].reshape(
                     (u.shape[0],) + (1,) * (u.dim() - 1)).to(u.dtype))
             else:
-                u.mul_(mask[-1])
+                u.mul_(mask[b])
         return updates
 
     def norms(updates, device):
         sq = torch.zeros((nb,), dtype=torch.float32, device=device)
         for name, u in tree_flatten(updates):
             uf = torch.square(u.float())
-            if name.startswith("layers/"):
+            b = _block_of(name, nb - 1)
+            if b < 0:
                 sq[:u.shape[0]] += uf.sum(dim=tuple(range(1, u.dim())))
             else:
-                sq[-1] += uf.sum()
+                sq[b] += uf.sum()
         return torch.sqrt(sq)
 
     def train_step(state, batch, gumbel=None):

@@ -10,6 +10,17 @@ numpy.  Tolerances, all in f32 (``reduced()`` configs are float32):
   * logits of a whole prefill / decode / generate: atol = 2e-4,
     rtol = 1e-4 (two layers of such sums, logits up to ~5);
   * greedy tokens are equal.
+ChatGLM3, MiniCPM, StableLM and Llama-4 (``CONTROL_ARCHS``) exceed that
+logits atol at the reference's init through f32 noise alone (up to
+~4.7e-4 from the JAX package's; the JAX package's own f32 logits sit up
+to ~2.5e-4 from a float64 run, and which of the two packages lands
+nearer changes with the seed).  For them each step's float64 control
+of the port (the same weights, every upcast kept at float64) is held to
+the JAX package's logits at ``LOGITS``, so a fault of the port's shows
+there; and the port's f32 logits are held to the control within
+``LOGITS`` plus twice the JAX package's largest distance from it over
+the test's forward, prefill and decode steps (a distance that first
+check bounds).
 Zamba2 at a prompt that is a multiple of 128 runs the SSD (chunked
 matmul) form, which at the reference's init loses digits in the JAX
 package (``tests/test_torch_ssm.py`` says why); there the port is held
@@ -17,6 +28,7 @@ to the JAX model's scan form at the logits tolerance, and to its default
 SSD form within that form's own distance from the scan form plus it.
 """
 import dataclasses
+from unittest import mock
 
 import jax
 import jax.numpy as jnp
@@ -51,9 +63,11 @@ from repro_torch.train import serve as TS
 STEP = dict(rtol=1e-4, atol=1e-4)        # values of order 1
 LOGITS = dict(rtol=1e-4, atol=2e-4)
 SLICE_ARCHS = ["phi3.5-moe-42b-a6.6b", "granite-3-2b"]
-PORTED = [a for a in ARCHS
-          if get_config(a).family in ("dense", "moe", "hybrid")
-          and get_config(a).frontend is None]
+CONTROL_ARCHS = ["chatglm3-6b", "minicpm-2b", "stablelm-3b",
+                 "llama4-maverick-400b-a17b"]
+PORTED = list(ARCHS)
+#: the archs whose family or frontend the port refused until it had them
+ONCE_REFUSED = ["xlstm-125m", "internvl2-1b", "hubert-xlarge"]
 
 
 def assert_step(got, want):
@@ -80,6 +94,43 @@ def _port_cfg(jcfg):
 
 def _tokens(cfg, B, S, seed=0):
     return np.random.default_rng(seed).integers(0, cfg.vocab_size, (B, S))
+
+
+_to_f32 = torch.Tensor.float
+
+
+def _f64_run(fn, cfg, params, *args, **kw):
+    """``fn(cfg, params, *args)`` as the float64 control: the config and
+    weights in float64, and the port's upcasts (``.float()`` before its
+    norms, softmax and attention) keeping float64 tensors float64."""
+    keep = lambda t, *a, **k: t if t.dtype == torch.float64 \
+        else _to_f32(t, *a, **k)
+    with mock.patch.object(torch.Tensor, "float", keep):
+        return fn(dataclasses.replace(cfg, dtype="float64"),
+                  TP.tree_map(lambda _, t: t.double(), params), *args,
+                  **kw)
+
+
+def _assert_logits(arch, steps):
+    """``steps``: (port, JAX, control) logits of each step of a test.
+    ``LOGITS`` of the JAX package's, or for CONTROL_ARCHS the control at
+    ``LOGITS`` of the JAX package's and the port within ``LOGITS`` plus
+    twice the JAX package's largest distance from the control (see the
+    module's docstring)."""
+    steps = [tuple(None if a is None else np.asarray(a, np.float64)
+                   for a in s) for s in steps]
+    if arch not in CONTROL_ARCHS:
+        for got, want, _ in steps:
+            np.testing.assert_allclose(got, want, **LOGITS)
+        return
+    for i, (_, want, control) in enumerate(steps):
+        np.testing.assert_allclose(control, want, **LOGITS,
+                                   err_msg=f"step {i}: control vs JAX")
+    band = max(np.abs(want - control).max() for _, want, control in steps)
+    for i, (got, _, control) in enumerate(steps):
+        np.testing.assert_allclose(got, control, rtol=LOGITS["rtol"],
+                                   atol=LOGITS["atol"] + 2 * band,
+                                   err_msg=f"step {i}, band {band}")
 
 
 # ---------------------------------------------------------------------------
@@ -125,16 +176,25 @@ def test_templates_match_the_jax_package(arch, preset):
         shapes(JT.cache_template(j, 2, 16, jnp.float32), JP.is_meta)
 
 
-@pytest.mark.parametrize("arch", [a for a in ARCHS if a not in PORTED])
+@pytest.mark.parametrize("arch", ONCE_REFUSED)
 def test_families_not_ported_yet_raise(arch):
+    """The xLSTM family and the vision and audio frontends raised
+    NotImplementedError until the port had them.  Now nothing of the
+    JAX package's zoo raises it: these build and run a forward, and only
+    a family the JAX package lacks raises (ValueError, as there)."""
     cfg = get_config(arch).reduced()
-    if cfg.family in ("hybrid", "ssm"):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            TT.stack_template(cfg)
-    else:                               # a frontend on a dense trunk
-        prm = TM.init_params(cfg, torch.Generator().manual_seed(0))
-        with pytest.raises(NotImplementedError, match="frontend"):
-            TM.forward(cfg, prm, {"tokens": torch.zeros((1, 4), dtype=int)})
+    prm = TM.init_params(cfg, torch.Generator().manual_seed(0))
+    batch = ({"frames": torch.zeros((1, 4, cfg.d_model))}
+             if cfg.frontend == "audio"
+             else {"tokens": torch.zeros((1, 4), dtype=int)})
+    if cfg.frontend == "vision":
+        batch["frontend"] = torch.zeros((1, cfg.frontend_tokens,
+                                         cfg.d_model))
+    logits, _ = TM.forward(cfg, prm, batch)
+    assert logits.shape[:2] == (1, 4)
+    assert bool(torch.isfinite(logits).all())
+    with pytest.raises(ValueError):
+        TT.stack_template(dataclasses.replace(cfg, family="rnn"))
 
 
 def test_init_keeps_the_jax_std_rule_and_dtype():
@@ -336,32 +396,40 @@ def test_moe_apply_matches_jax(capacity_factor, tokens):
     assert float(at) == pytest.approx(float(aj), rel=1e-5)
     assert TMOE._capacity(4096, 2, 16, 1.25) == \
         JMOE._capacity(4096, 2, 16, 1.25) == 640
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        TMOE.moe_apply(pt, torch.from_numpy(x),
-                       dataclasses.replace(c, moe_impl="sort"))
+    # the sort dispatch (no longer refused) gives the einsum path's values
+    ys, as_ = TMOE.moe_apply(pt, torch.from_numpy(x),
+                             dataclasses.replace(c, moe_impl="sort"))
+    assert_step(ys.numpy(), yt.numpy())
+    assert float(as_) == float(at)
 
 
 # ---------------------------------------------------------------------------
 # the whole slice: forward, prefill, decode, greedy generation
 # ---------------------------------------------------------------------------
 
-@pytest.mark.parametrize("arch", SLICE_ARCHS)
+@pytest.mark.parametrize("arch", SLICE_ARCHS + CONTROL_ARCHS)
 def test_forward_prefill_decode_match_jax(arch):
     j = jget(arch).reduced()
     jp, tp = _carry(j)
     c = _port_cfg(j)
+    control = arch in CONTROL_ARCHS
+    run64 = lambda fn, *a, **kw: (_f64_run(fn, c, tp, *a, **kw)
+                                  if control else (None, None))
     B, S, T = 2, 20, 3
     toks = _tokens(c, B, S + T)
     lj, aj = JM.forward(j, jp, {"tokens": jnp.asarray(toks, jnp.int32)})
     lt, at = TM.forward(c, tp, {"tokens": torch.from_numpy(toks)})
-    np.testing.assert_allclose(lt.numpy(), np.asarray(lj), **LOGITS)
+    l64, _ = run64(TM.forward, {"tokens": torch.from_numpy(toks)})
+    steps = [(lt, lj, l64)]
     assert float(at) == pytest.approx(float(aj), rel=1e-4, abs=1e-7)
     lj, cj = JM.prefill(j, jp, {"tokens": jnp.asarray(toks[:, :S],
                                                       jnp.int32)},
                         cache_len=S + T)
     lt, ct = TM.prefill(c, tp, {"tokens": torch.from_numpy(toks[:, :S])},
                         cache_len=S + T)
-    np.testing.assert_allclose(lt.numpy(), np.asarray(lj), **LOGITS)
+    l64, c64 = run64(TM.prefill, {"tokens": torch.from_numpy(toks[:, :S])},
+                     cache_len=S + T)
+    steps.append((lt, lj, l64))
     np.testing.assert_array_equal(ct["kpos"].numpy(), np.asarray(cj["kpos"]))
     for t in range(T):
         lj, cj = JM.decode_step(j, jp, cj, jnp.asarray(toks[:, S + t],
@@ -369,11 +437,14 @@ def test_forward_prefill_decode_match_jax(arch):
                                 jnp.int32(S + t))
         lt, ct = TM.decode_step(c, tp, ct, torch.from_numpy(toks[:, S + t]),
                                 S + t)
-        np.testing.assert_allclose(lt.numpy(), np.asarray(lj), **LOGITS)
+        l64, c64 = run64(lambda cfg, p: TM.decode_step(
+            cfg, p, c64, torch.from_numpy(toks[:, S + t]), S + t))
+        steps.append((lt, lj, l64))
+    _assert_logits(arch, steps)
     np.testing.assert_array_equal(ct["kpos"].numpy(), np.asarray(cj["kpos"]))
 
 
-@pytest.mark.parametrize("arch", SLICE_ARCHS)
+@pytest.mark.parametrize("arch", SLICE_ARCHS + CONTROL_ARCHS)
 def test_greedy_generate_matches_jax(arch):
     j = jget(arch).reduced()
     jp, tp = _carry(j, seed=1)
