@@ -214,11 +214,11 @@
    of its main paths must be 0): serving as Phi's (batch 4, prompt
    1,024, 32 tokens, profiler windows); in float32 at 4 layers the
    prefill and first decode step against the same model on the CPU;
-   training at batch 4 × 2,048 (XLSTM_STEPS plain steps, then
-   XLSTM_STEPS ``--strads --weight-decay 0`` steps, both at full depth,
-   the STRADS run's 13 blocks the 12 unrolled layers and the rest, every
-   unscheduled block keeping its bits: a full-depth step takes 12–22 s,
-   nearly all of it the sLSTM loop's eager launches); the sLSTM
+   training at batch 4 × 2,048 (XLSTM_STEPS plain steps at full depth:
+   a step takes 12–22 s, nearly all of it the sLSTM loop's eager
+   launches; then XLSTM_STEPS ``--strads --weight-decay 0`` steps at
+   XLSTM_CUT_LAYERS layers, the STRADS run's 5 blocks the 4 unrolled
+   layers and the rest, every unscheduled block keeping its bits); the sLSTM
    loop's share of a full-depth step (one sLSTM layer's checkpointed
    forward, recompute and backward, timed alone); a profiler window over
    a step at 4 layers.  InternVL2-1B (``vlm_phase``; 256 patch embeddings ahead of
@@ -236,6 +236,28 @@
    kernel timed at layer 0's non-causal inputs with SDPA, 3 timed
    encodes (48 launches each), a profiler window; then training as
    InternVL2's on the mma.sync backward route.
+12. Training the moe and hybrid families, with the backward kernels of
+   ``ssm_scan`` and ``topk_gating``.  Zamba2-2.7B (``zamba_train_phase``)
+   at full width and depth, bf16, batch 4 × 2,000 (not a multiple of
+   128: every Mamba2 layer's scan through ``ssm_scan``, its states saved
+   every 16 steps, and ``ssm_scan_bwd``) through ``launch.train.main``:
+   ZTRAIN_STEPS plain steps, then as many ``--strads --weight-decay 0``
+   steps (5 of 10 blocks; every unscheduled block keeps its bits), each
+   step 108 ``ssm_scan``, 54 ``ssm_scan_bwd``, 18 ``flash_attention``
+   and 9 backward launches on the mma.sync route (head dim 80);
+   ``ssm_scan_bwd`` at layer 0's inputs against its plain version (two
+   calls to the bit), timed beside the forward with and without its
+   saved states; a profiler window over a plain step; ZTRAIN_SSD_STEPS
+   steps at 4 × 2,048 (the SSD form: no SSM kernel); an f32 step of one
+   group (6 layers) with the kernels against the plain versions.
+   Phi-3.5-MoE (``phi_train_phase``) at full width, depth cut to
+   PHI_TRAIN_LAYERS, bf16, batch 4 × 2,048, the einsum dispatch:
+   PHI_TRAIN_STEPS plain and as many ``--strads`` steps, each 4
+   ``topk_gating``, 2 ``topk_gating_bwd``, 4 ``flash_attention`` and 2
+   backward launches on the wgmma route; ``topk_gating_bwd`` at layer
+   0's logits against its plain version; a profiler window; an f32 step
+   against the plain versions.  Both new kernels' ptxas reports: none
+   may spill.
 
 Kernel times: ``ms`` is the eager loop (CUDA events around 50–200 calls
 enqueued back to back), which for a kernel of a few microseconds times
@@ -313,7 +335,9 @@ SOURCES = {"lasso_partial": SOURCE, "gram_block": SOURCE,
            "ssm_scan": "src/repro_torch/kernels/csrc/ssm_scan.cu",
            "lda_gibbs": "src/repro_torch/kernels/csrc/lda_gibbs.cu",
            "flash_attention_bwd":
-               "src/repro_torch/kernels/csrc/flash_attention.cu"}
+               "src/repro_torch/kernels/csrc/flash_attention.cu",
+           "topk_gating_bwd": "src/repro_torch/kernels/csrc/moe_gating.cu",
+           "ssm_scan_bwd": "src/repro_torch/kernels/csrc/ssm_scan.cu"}
 REPLACES = {"lasso_partial": "src/repro/kernels/lasso_cd.py:50",
             "gram_block": "src/repro/kernels/lasso_cd.py:94",
             "flash_attention": "src/repro/kernels/flash_attention.py:100",
@@ -323,7 +347,11 @@ REPLACES = {"lasso_partial": "src/repro/kernels/lasso_cd.py:50",
             "lda_gibbs": "src/repro/apps/lda.py:73",
             # no Pallas kernel: the JAX package differentiates the forward
             # (its _sdpa, models/layers.py:186) by autodiff
-            "flash_attention_bwd": "src/repro/kernels/flash_attention.py:100"}
+            "flash_attention_bwd": "src/repro/kernels/flash_attention.py:100",
+            # no Pallas kernel: the JAX package differentiates its oracles
+            # (ref.topk_gating_ref, ref.ssm_scan_ref) behind the forwards
+            "topk_gating_bwd": "src/repro/kernels/moe_gating.py:56",
+            "ssm_scan_bwd": "src/repro/kernels/ssm_scan.py:67"}
 ARCH = "phi3.5-moe-42b-a6.6b"
 BATCH, PROMPT, GEN = 4, 1024, 32
 ZAMBA = "zamba2-2.7b"
@@ -594,11 +622,14 @@ def ptxas_kernels(log: str) -> dict:
                         j += 1
                     parts.append(name[j:j + int(name[i:j])])
                     i = j + int(name[i:j])
-                targs = re.match(r"I((?:Li-?\d+E)+)E", name[i:])
+                targs = re.match(r"I((?:Li-?\d+E|f|13__nv_bfloat16)+)E",
+                                 name[i:])
                 name = parts[-1] if parts else name
                 if targs:                    # a template's arguments
-                    name += "<" + ",".join(re.findall(
-                        r"Li(-?\d+)E", targs.group(1))) + ">"
+                    name += "<" + ",".join(
+                        n or ("f32" if f else "bf16") for n, f in
+                        re.findall(r"Li(-?\d+)E|(f)|13__nv_bfloat16",
+                                   targs.group(1))) + ">"
             out[name] = {}
         elif name and "spill stores" in ln:
             st, ld = re.findall(r"(\d+) bytes spill", ln)
@@ -1186,9 +1217,12 @@ def lasso_trace_phase(torch, lasso, lc, ExecutionPlan, cfg, X, y,
     launches = dict(lc.LAUNCHES)
     check(launches == {"lasso_partial": R, "gram_block": R},
           f"lasso trace: launches {launches}")
-    check(torch.equal(rep.state["beta"], scan_state["beta"])
-          and torch.equal(rep.state["r"], scan_state["r"]),
-          "lasso trace: the traced run differs from lasso_pallas.json's")
+    same = {k: torch.equal(rep.state[k], scan_state[k])
+            for k in ("beta", "r")}
+    check(all(same.values()),
+          f"lasso trace: the traced run differs from lasso_pallas.json's: "
+          f"{same}, shapes {tuple(rep.state['r'].shape)} and "
+          f"{tuple(scan_state['r'].shape)}")
     events = rep.telemetry.events
     err = validate_spans(events)
     check(err is None, f"lasso trace: {err}")
@@ -3759,10 +3793,9 @@ def serve_phase(torch, ops, ref, M, serve_lm, layers: int, seed: int):
         kern = serve_kernel_phase(torch, ops, ref, first, seed)
         del first
 
-        toks, numbers = main_path(torch, ops, M, srv, {
-            "flash_attention": cfg.num_layers,
-            "flash_attention_bwd": 0,
-            "topk_gating": cfg.num_layers * (GEN + 1), "ssm_scan": 0})
+        toks, numbers = main_path(torch, ops, M, srv, launch_counts(
+            flash_attention=cfg.num_layers,
+            topk_gating=cfg.num_layers * (GEN + 1)))
         for name in kern:
             kern[name]["launches"] = numbers["launches"][name]
         res.update(numbers)
@@ -3871,9 +3904,7 @@ def parity_phase(torch, ops, ref, M, get_config, data, seed: int):
     with torch.inference_mode():
         ops.reset_launch_counts()
         lk, tk, dk = first_step(torch, M, cfg, prm, batch, cache_len)
-        check(ops.LAUNCHES == {"flash_attention": 2,
-                               "flash_attention_bwd": 0, "topk_gating": 4,
-                               "ssm_scan": 0},
+        check(ops.LAUNCHES == launch_counts(flash_attention=2, topk_gating=4),
               f"f32 run launches {ops.LAUNCHES}")
         with patched(ops, attention=ref.attention_ref,
                      topk_gating=ref.topk_gating_ref):
@@ -4076,9 +4107,8 @@ def zamba_phase(torch, ops, ref, M, serve_lm, layers: int, seed: int):
         kern = ssm_kernel_phase(torch, ops, ref, sfirst, seed)
         del sfirst
 
-        toks, numbers = main_path(torch, ops, M, srv, {
-            "flash_attention": groups, "flash_attention_bwd": 0,
-            "topk_gating": 0, "ssm_scan": cfg.num_layers})
+        toks, numbers = main_path(torch, ops, M, srv, launch_counts(
+            flash_attention=groups, ssm_scan=cfg.num_layers))
         res.update(numbers)
 
         # the same first step with the plain versions (printed only)
@@ -4139,9 +4169,7 @@ def zamba_parity_phase(torch, ops, ref, M, get_config, data, seed: int):
     with torch.inference_mode():
         ops.reset_launch_counts()
         lk, tk, dk = first_step(torch, M, cfg, prm, batch, cache_len)
-        check(ops.LAUNCHES == {"flash_attention": 2,
-                               "flash_attention_bwd": 0, "topk_gating": 0,
-                               "ssm_scan": 12},
+        check(ops.LAUNCHES == launch_counts(flash_attention=2, ssm_scan=12),
               f"Zamba2 f32 run launches {ops.LAUNCHES}")
         with patched(ops, attention=ref.attention_ref,
                      ssm_scan=ref.ssm_scan_ref):
@@ -4226,10 +4254,20 @@ def train_argv(seed: int, *extra) -> list:
             "--device", DEVICE, *extra]
 
 
+def launch_counts(**counts) -> dict:
+    """A full ``ops.LAUNCHES`` dict: the given counts, 0 elsewhere."""
+    out = dict.fromkeys(("flash_attention", "flash_attention_bwd",
+                         "topk_gating", "topk_gating_bwd", "ssm_scan",
+                         "ssm_scan_bwd"), 0)
+    check(set(counts) <= set(out), f"unknown kernels {set(counts) - set(out)}")
+    out.update(counts)
+    return out
+
+
 def attn_launches(fwd: int = 0, bwd: int = 0, gating: int = 0) -> dict:
-    """A full ``ops.LAUNCHES`` dict."""
-    return {"flash_attention": fwd, "flash_attention_bwd": bwd,
-            "topk_gating": gating, "ssm_scan": 0}
+    """A full ``ops.LAUNCHES`` dict of attention's and gating's counts."""
+    return launch_counts(flash_attention=fwd, flash_attention_bwd=bwd,
+                    topk_gating=gating)
 
 
 def bwd_routes(route=None, n: int = 0) -> dict:
@@ -4242,13 +4280,15 @@ def bwd_routes(route=None, n: int = 0) -> dict:
 
 def train_run(torch, ops, tfa, tlaunch, argv, on_step, layers: int,
               steps: int = TRAIN_STEPS, tokens: int = TRAIN_BATCH * TRAIN_SEQ,
-              route: str = "wgmma", attention: bool = True) -> tuple:
+              route: str = "wgmma", attention: bool = True,
+              per_step: dict = None) -> tuple:
     """One ``launch.train.main`` run of ``steps`` steps with the launch
     counts set to 0 just before and read just after: 2 forward launches
     a layer a step (the forward and the group checkpoint's recompute) and
     1 backward, every backward on ``route``; no launch at all for a model
-    without attention (``attention=False``).  The loss must fall; step ms
-    is the median of steps 2 on."""
+    without attention (``attention=False``); or ``per_step``'s counts a
+    step, when given.  The loss must fall; step ms is the median of steps
+    2 on."""
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     ops.reset_launch_counts()
@@ -4259,8 +4299,12 @@ def train_run(torch, ops, tfa, tlaunch, argv, on_step, layers: int,
     secs = time.perf_counter() - t0
     launches = dict(ops.LAUNCHES)
     routes = {r: n - routes0[r] for r, n in tfa.BWD_ROUTE_CALLS.items()}
-    n = layers * steps if attention else 0
-    want = attn_launches(2 * n, n)
+    if per_step is None:
+        n = layers * steps if attention else 0
+        want = attn_launches(2 * n, n)
+    else:
+        want = launch_counts(**{k: c * steps for k, c in per_step.items()})
+        n = want["flash_attention_bwd"]
     check(launches == want, f"training run {argv[:2]} {argv[-4:]}: "
                             f"launches {launches}, expected {want}")
     check(routes == bwd_routes(route, n),
@@ -4281,6 +4325,45 @@ def train_run(torch, ops, tfa, tlaunch, argv, on_step, layers: int,
         "step_ms_median_from_2": step_ms,
         "tokens_per_s": tokens / (step_ms / 1e3),
         "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9}
+
+
+def strads_checker(torch, tree_flatten, L: int, U: int, box: dict) -> tuple:
+    """An ``on_step`` for a STRADS run (``--weight-decay 0``) of a model
+    whose layer leaves are stacked over L layer groups (``layers/…``,
+    masked along their leading axis; every other leaf in block L): after
+    every step no block outside the mask moved (each leaf compared as its
+    bytes, a group's slice at a time) and at most U blocks were active.
+    Returns (the callback, its stats, the copy of the last parameters);
+    the last state goes to ``box["state"]``."""
+    prev, sstats = {}, {"blocks_active": [], "scheduled_moved": [],
+                        "unscheduled_layers_checked": 0}
+
+    def strads_check(i, state, metrics):
+        params = tree_flatten(state["params"])
+        if metrics is not None:
+            mask = metrics["mask"] > 0
+            active = int(mask.sum())
+            sstats["blocks_active"].append(active)
+            check(active == float(metrics["blocks_active"]) and active <= U,
+                  f"STRADS step {i}: {active} blocks active, U = {U}")
+            moved = torch.zeros(L + 1, dtype=torch.bool, device=DEVICE)
+            for n, x in params:
+                b = prev[n]
+                if n.startswith("layers/"):
+                    same = (x.view(torch.uint8) == b.view(torch.uint8)) \
+                        .reshape(x.shape[0], -1).all(1)
+                    moved[:L] |= ~same
+                else:
+                    moved[L] |= not torch.equal(x, b)
+            check(not bool((moved & ~mask).any()),
+                  f"STRADS step {i}: unscheduled blocks "
+                  f"{(moved & ~mask).nonzero().flatten().tolist()} moved")
+            sstats["unscheduled_layers_checked"] += int((~mask).sum())
+            sstats["scheduled_moved"].append(int((moved & mask).sum()))
+        prev.clear()
+        prev.update({n: x.clone() for n, x in params})
+        box["state"] = state
+    return strads_check, sstats, prev
 
 
 def bwd_bound(torch, ref, q, k, causal, window) -> tuple[float, str]:
@@ -4701,34 +4784,8 @@ def train_phase(torch, ops, ref, tfa, M, tlaunch, tstep, get_config, data,
     # 2. STRADS training (wd 0: an unscheduled layer keeps its bits)
     nblocks = L + 1
     U = nblocks // 2
-    prev, sstats = {}, {"blocks_active": [], "scheduled_moved": [],
-                        "unscheduled_layers_checked": 0}
-
-    def strads_check(i, state, metrics):
-        params = tree_flatten(state["params"])
-        if metrics is not None:
-            mask = metrics["mask"] > 0
-            active = int(mask.sum())
-            sstats["blocks_active"].append(active)
-            check(active == float(metrics["blocks_active"]) and active <= U,
-                  f"STRADS step {i}: {active} blocks active, U = {U}")
-            moved = torch.zeros(L + 1, dtype=torch.bool, device=DEVICE)
-            for n, x in params:
-                b = prev[n]
-                if n.startswith("layers/"):
-                    same = (x.view(torch.int16) == b.view(torch.int16)) \
-                        .flatten(1).all(1)
-                    moved[:L] |= ~same
-                else:
-                    moved[L] |= not torch.equal(x, b)
-            check(not bool((moved & ~mask).any()),
-                  f"STRADS step {i}: unscheduled blocks "
-                  f"{(moved & ~mask).nonzero().flatten().tolist()} moved")
-            sstats["unscheduled_layers_checked"] += int((~mask).sum())
-            sstats["scheduled_moved"].append(int((moved & mask).sum()))
-        prev.clear()
-        prev.update({n: x.clone() for n, x in params})
-        box["state"] = state
+    strads_check, sstats, prev = strads_checker(torch, tree_flatten, L, U,
+                                                box)
     hist, res["strads"] = train_run(
         torch, ops, tfa, tlaunch, train_argv(seed, "--strads",
                                              "--weight-decay", "0"),
@@ -4810,8 +4867,10 @@ XLSTM_STEPS = 2                # xLSTM training steps a run: its sLSTM loop
                                # makes a full-depth step 12-22 s
 XLSTM_CUT_LAYERS = 4           # the profiled step's depth (mLSTM 0-2, sLSTM
                                # 3; a full-depth step makes ~5 × 10⁵
-                               # launches, ~34 s under a profiler), and the
-                               # f32 parity run's
+                               # launches, ~34 s under a profiler), the f32
+                               # parity run's and the STRADS run's (full
+                               # depth cost ~31 s, the time the moe and
+                               # hybrid training phases take)
 XLSTM_PARITY_PROMPT = 512      # two mLSTM chunks; the CPU side takes ~3 s
 ZOO_STEPS = 6                  # InternVL2 and HuBERT training steps
 AUDIO_FRAMES = 1500            # 30 s of audio at HuBERT's 50 Hz frames
@@ -5017,13 +5076,14 @@ def xlstm_phase(torch, ops, tfa, M, serve_lm, tlaunch, tstep, get_config,
     del state
     torch.cuda.empty_cache()
 
-    # STRADS at full depth, weight decay 0: a block the mask left out
-    # keeps its bits
+    # STRADS at XLSTM_CUT_LAYERS layers, weight decay 0: a block the mask
+    # left out keeps its bits
+    cut = dataclasses.replace(cfg, num_layers=XLSTM_CUT_LAYERS)
     prev, sstats = {}, {"blocks_active": [], "unscheduled_checked": 0}
 
     def strads_check(i, state, metrics):
         params = tree_flatten(state["params"])
-        mapping, nb = tstep.layer_blocks(cfg, state["params"])
+        mapping, nb = tstep.layer_blocks(cut, state["params"])
         if metrics is not None:
             mask = metrics["mask"] > 0
             moved = torch.zeros(nb, dtype=torch.bool, device=DEVICE)
@@ -5040,15 +5100,15 @@ def xlstm_phase(torch, ops, tfa, M, serve_lm, tlaunch, tstep, get_config,
     _, out["strads"] = train_run(
         torch, ops, tfa, tlaunch, zoo_argv(
             XLSTM, seed, XLSTM_STEPS, TRAIN_SEQ, "--strads",
-            "--weight-decay", "0"),
-        strads_check, L, steps=XLSTM_STEPS, attention=False)
+            "--weight-decay", "0", "--layers", str(XLSTM_CUT_LAYERS)),
+        strads_check, XLSTM_CUT_LAYERS, steps=XLSTM_STEPS, attention=False)
     check(len(sstats["blocks_active"]) == XLSTM_STEPS,
           f"xLSTM STRADS: {len(sstats['blocks_active'])} steps checked")
-    out["strads"].update(sstats, layers=L, blocks=L + 1)
+    out["strads"].update(sstats, layers=XLSTM_CUT_LAYERS,
+                         blocks=XLSTM_CUT_LAYERS + 1)
     print("xLSTM training STRADS: " + json.dumps(out["strads"]))
     prev.clear()
     torch.cuda.empty_cache()
-    cut = dataclasses.replace(cfg, num_layers=XLSTM_CUT_LAYERS)
     state = tstep.init_train_state(
         cut, tstep.TrainConfig(),
         torch.Generator(device=DEVICE).manual_seed(seed))
@@ -5258,6 +5318,462 @@ def audio_phase(torch, ops, ref, tfa, M, tlaunch, tstep, get_config, data,
     return ({"encode": res, "train": train},
             {f"{AUDIO} encode": encode_attn, f"{AUDIO} training": fentry},
             bentry)
+
+
+# ---------------------------------------------------------------------------
+# Training the moe and hybrid families: Zamba2-2.7B, Phi-3.5-MoE
+# ---------------------------------------------------------------------------
+
+ZTRAIN_SEQ = 2000              # > 128 and not a multiple of 128: every Mamba2
+                               # layer's scan through ssm_scan, ssm_scan_bwd
+ZTRAIN_SSD_SEQ = 2048          # a multiple of 128: the SSD form, no SSM kernel
+ZTRAIN_STEPS = 4
+ZTRAIN_SSD_STEPS = 2
+ZTRAIN_F32_LAYERS = 6          # the f32 step's depth: one group (six Mamba2
+                               # layers and the shared block)
+PHI_TRAIN_LAYERS = 2           # 2.87 × 10⁹ parameters; 3 layers (4.17 × 10⁹)
+                               # do not fit 80 GB with f32 moments
+PHI_TRAIN_STEPS = 4
+GATE_BWD_TOL = 1e-6            # topk_gating_bwd vs plain: |Δ dlogits|
+SSM_BWD_TOL = 1e-3             # ssm_scan_bwd vs the plain version in f32:
+                               # |Δ| ≤ SSM_BWD_TOL·max|plain| + the output's
+                               # own rounding (bf16: 2⁻⁸ of the element); the
+                               # sums run over 2,000 steps and 5,120 channels
+                               # in another order
+SSM_BWD_FLOPS = 14             # a (b, t, c, n): the state again (mul, FMA),
+                               # g, dC, dB, du, da (an FMA each), the decay
+
+
+def family_per_step(cfg, layers: int, scan: bool) -> dict:
+    """Kernel launches of one training step of a moe or hybrid model at
+    ``layers`` layers: each forward kernel twice (the step's forward and
+    the group checkpoint's recompute), each backward once; the SSM
+    kernels only on the scan path (``scan``)."""
+    if cfg.family == "hybrid":
+        g = layers // cfg.attn_every
+        n = layers if scan else 0
+        return launch_counts(flash_attention=2 * g, flash_attention_bwd=g,
+                        ssm_scan=2 * n, ssm_scan_bwd=n)
+    m = layers // max(1, cfg.moe_every)
+    return launch_counts(flash_attention=2 * layers, flash_attention_bwd=layers,
+                    topk_gating=2 * m, topk_gating_bwd=m)
+
+
+def layer0_inputs(torch, ops, tstep, tree_flatten, cfg, params,
+                  batch) -> tuple:
+    """One ``value_and_grad`` of a training step keeping layer 0's inputs
+    of ``ops.ssm_scan``, ``ops.topk_gating`` and ``ops.attention``
+    (detached copies); every gradient finite.  Returns (the inputs, the
+    loss)."""
+    first: dict = {}
+    real_s, real_g, real_a = ops.ssm_scan, ops.topk_gating, ops.attention
+
+    def attention(q, k, v, **kw):
+        first.setdefault("attention", (q.detach().clone(),
+                                       k.detach().clone(),
+                                       v.detach().clone(), kw))
+        return real_a(q, k, v, **kw)
+
+    def ssm_scan(x, dt, A, Bm, Cm, h0=None):
+        first.setdefault("ssm", tuple(
+            None if t is None else t.detach().clone()
+            for t in (x, dt, A, Bm, Cm, h0)))
+        return real_s(x, dt, A, Bm, Cm, h0)
+
+    def topk_gating(logits, k):
+        first.setdefault("gating", (logits.detach().clone(), k))
+        return real_g(logits, k)
+    with patched(ops, ssm_scan=ssm_scan, topk_gating=topk_gating,
+                 attention=attention):
+        (loss, _), grads = tstep.value_and_grad(cfg, params, batch)
+    bad = [n for n, g in tree_flatten(grads)
+           if not bool(torch.isfinite(g).all())]
+    check(not bad, f"{cfg.name} training: gradients not finite for {bad}")
+    del grads
+    return first, float(loss)
+
+
+def attn_bwd_layer0(torch, ref, tfa, first: dict, route: str,
+                    seed: int) -> tuple:
+    """The attention backward at layer 0's inputs of a training step on
+    ``route``, against its plain version and timed with SDPA's (as the
+    zoo's training phases do).  Returns (the check, the backward's entry,
+    the forward's)."""
+    q, k, v, kw = first.pop("attention")
+    checked = bwd_check(torch, ref, tfa, q, k, v, kw, seed, route)
+    bentry, fentry = bwd_timing(torch, ref, tfa, q, k, v, kw, seed)
+    bentry.update(max_abs_err=max(checked[f"d{x}_max_abs_err"]
+                                  for x in "qkv"), bwd_route=route)
+    fentry["max_rel_err"] = checked["forward_max_abs_err"]
+    return checked, bentry, fentry
+
+
+def plain_ssm_scan(torch, ref):
+    """``ops.ssm_scan``'s plain version under autograd: the plain forward,
+    and the plain backward (autograd through the step loop would keep
+    every step's state)."""
+    class PlainScan(torch.autograd.Function):
+        @staticmethod
+        def forward(ctx, x, dt, A, Bm, Cm, h0):
+            ctx.save_for_backward(x, dt, A, Bm, Cm, h0)
+            return ref.ssm_scan_ref(x, dt, A, Bm, Cm, h0)
+
+        @staticmethod
+        def backward(ctx, dy, dh):
+            return ref.ssm_scan_bwd_ref(*ctx.saved_tensors, dy, dh)
+    return lambda x, dt, A, Bm, Cm, h0=None: PlainScan.apply(x, dt, A, Bm,
+                                                             Cm, h0)
+
+
+def ssm_bwd_phase(torch, ref, tss, args, seed: int) -> dict:
+    """``ssm_scan_bwd`` at layer 0's inputs of a training step (dy drawn
+    from a seed, the final state's gradient None as in training) against
+    its plain version in f32, two calls to the bit; timed eager and in a
+    CUDA graph, beside the forward with and without its saved states."""
+    x, dt, A, Bm, Cm, h0 = args
+    gen = torch.Generator(device=DEVICE).manual_seed(seed + 11)
+    dy = torch.randn(x.shape, generator=gen, device=DEVICE).to(x.dtype)
+    y, h, states = tss.ssm_scan(*args, save_states=True)
+    got = tss.ssm_scan_bwd(*args, states, dy)
+    again = tss.ssm_scan_bwd(*args, states, dy)
+    torch.cuda.synchronize()
+    check(all((a is None and b is None) or torch.equal(a, b)
+              for a, b in zip(got, again)), "ssm_scan_bwd: two calls differ")
+    f32 = [None if t is None else t.float() for t in args]
+    want = ref.ssm_scan_bwd_ref(*f32, dy.float())
+
+    def held(got) -> tuple:
+        errs, worst = {}, 0.0
+        for name, a, b in zip(("dx", "ddt", "dA", "dB", "dC", "dh0"), got,
+                              want):
+            check((a is None) == (b is None), f"ssm_scan_bwd: {name} missing")
+            if a is None:
+                continue
+            b = b.float()
+            top = b.abs().max().item()
+            lim = SSM_BWD_TOL * top + (2.0 ** -8 * b.abs()
+                                       if a.dtype == torch.bfloat16 else 0.0)
+            diff = (a.float() - b).abs()
+            over = (diff / lim).max().item()
+            errs[name] = {"max_abs_err": diff.max().item(), "max_abs": top,
+                          "err_over_limit": over}
+            worst = max(worst, over)
+        check(worst <= 1.0, f"ssm_scan_bwd vs plain: {errs}")
+        return errs
+    errs = held(got)
+    # the same inputs in f32 (the kernel's f32 instantiation): the
+    # distance without the bf16 outputs' rounding
+    _, _, st32 = tss.ssm_scan(*f32, save_states=True)
+    errs_f32 = held(tss.ssm_scan_bwd(*f32, st32, dy.float()))
+    del want, got, again, st32, f32
+    B, S, C = x.shape
+    N = Bm.shape[-1]
+    e = x.element_size()
+    nbytes = (5 * B * S * C * e + 4 * B * S * N * e + 8 * C
+              + 4 * states.numel() + (8 * B * C * N if h0 is not None else 0))
+    bms, by = bound(nbytes, SSM_BWD_FLOPS * B * S * C * N)
+    run = lambda: tss.ssm_scan_bwd(*args, states, dy)
+    ms = time_ms(torch, run, iters=20, warmup=2)
+    device_ms = graph_ms(torch, run, calls=5, replays=4)
+    fwd = lambda: tss.ssm_scan(*args)
+    fwd_save = lambda: tss.ssm_scan(*args, save_states=True)
+    out = {
+        "max_abs_err": max(v["max_abs_err"] for v in errs.values()),
+        "errors": errs, "errors_f32_inputs": errs_f32, "ms": ms,
+        "device_ms": device_ms,
+        "plain_ms": time_ms(torch, lambda: ref.ssm_scan_bwd_ref(
+            *args, dy), iters=1, warmup=0),
+        "bound_ms": bms, "bound_by": by, "bound_share": bms / ms,
+        "device_bound_share": bms / device_ms, "library_ms": None,
+        "library": "none: no one PyTorch call does it",
+        "tolerance": f"{SSM_BWD_TOL} of each gradient's max|plain| (f32 "
+                     f"plain) plus the output's rounding (bf16: 2^-8 of the "
+                     f"element)",
+        "same_bits_twice": True,
+        "states_gb": states.numel() * 4 / 1e9,
+        "forward_device_ms": graph_ms(torch, fwd, calls=10, replays=5),
+        "forward_saving_states_device_ms": graph_ms(torch, fwd_save,
+                                                    calls=10, replays=5),
+        "ms_repeat": time_ms(torch, run, iters=20, warmup=2),
+        "shape": {"x": list(x.shape), "B": list(Bm.shape),
+                  "dtype": str(x.dtype), "h0": h0 is not None}}
+    del states, dy
+    return out
+
+
+def gating_bwd_phase(torch, ref, tmg, logits, k: int, seed: int) -> dict:
+    """``topk_gating_bwd`` at layer 0's logits of a training step (dprobs
+    drawn from a seed) against its plain version, two calls to the bit;
+    timed eager and in a CUDA graph."""
+    gen = torch.Generator(device=DEVICE).manual_seed(seed + 12)
+    probs, idx = tmg.topk_gating(logits, k)
+    dprobs = torch.randn(probs.shape, generator=gen, device=DEVICE)
+    run = lambda: tmg.topk_gating_bwd(logits, idx, probs, dprobs)
+    got, again = run(), run()
+    torch.cuda.synchronize()
+    check(torch.equal(got, again), "topk_gating_bwd: two calls differ")
+    err = (got - ref.topk_gating_bwd_ref(logits, idx, probs, dprobs)) \
+        .abs().max().item()
+    check(err <= GATE_BWD_TOL, f"topk_gating_bwd: error {err} > "
+                               f"{GATE_BWD_TOL}")
+    T, E = logits.shape
+    bms, by = bound(T * (8 * E + 12 * k), T * (7 * E + 4 * k))
+    ms = time_ms(torch, run)
+    device_ms = graph_ms(torch, run)
+    return {"max_abs_err": err, "ms": ms, "device_ms": device_ms,
+            "plain_ms": time_ms(torch, lambda: ref.topk_gating_bwd_ref(
+                logits, idx, probs, dprobs), iters=50),
+            "bound_ms": bms, "bound_by": by, "bound_share": bms / ms,
+            "device_bound_share": bms / device_ms, "library_ms": None,
+            "library": "none: no one PyTorch call does it",
+            "tolerance": f"{GATE_BWD_TOL} absolute",
+            "same_bits_twice": True, "ms_repeat": time_ms(torch, run),
+            "shape": {"logits": [T, E], "k": k}}
+
+
+def family_f32_step(torch, ops, ref, M, tstep, tree_flatten, get_config,
+                    data, arch: str, layers: int, seq: int,
+                    plain: dict) -> dict:
+    """``arch`` at full width in float32 with ``layers`` layers, the layer
+    weights scaled by 0.1 (``train_f32_parity`` says why): one step's loss
+    and gradients through the kernels against the same step through the
+    plain versions (``plain``: ops' names to them) on the card."""
+    import dataclasses
+    cfg = dataclasses.replace(get_config(arch), num_layers=layers,
+                              dtype="float32")
+    prm = M.init_params(cfg, torch.Generator(device=DEVICE).manual_seed(7))
+    prm["layers"] = {sub: {n: (x if n == "norm" else x * 0.1)
+                           for n, x in leaves.items()}
+                     for sub, leaves in prm["layers"].items()}
+    batch = data.make_batch(data.SyntheticLMConfig(
+        vocab_size=cfg.vocab_size, seq_len=seq, batch_size=TRAIN_BATCH,
+        seed=7), 0, device=DEVICE)
+    ops.reset_launch_counts()
+    (lk, _), gk = tstep.value_and_grad(cfg, prm, batch)
+    torch.cuda.synchronize()
+    got = dict(ops.LAUNCHES)
+    want = family_per_step(cfg, layers, scan=seq % 128 != 0)
+    check(got == want, f"{arch} f32 step: launches {got}, expected {want}")
+    with patched(ops, **plain):
+        (lp, _), gp = tstep.value_and_grad(cfg, prm, batch)
+    rel = {n: (a - b).abs().max().item() / max(b.abs().max().item(), 1e-30)
+           for (n, a), (_, b) in zip(tree_flatten(gk), tree_flatten(gp))}
+    out = {"layers": layers, "seq": seq, "dtype": "float32",
+           "launches": got, "loss_kernels": float(lk),
+           "loss_plain": float(lp), "grad_worst_rel": max(rel.values()),
+           "grad_rel": rel,
+           "tolerance": f"loss {TRAIN_LOSS_TOL} relative; each gradient "
+                        f"leaf {TRAIN_GRAD_TOL} of its max|g| (weights "
+                        f"scaled by 0.1)"}
+    check(abs(float(lk) - float(lp)) <= TRAIN_LOSS_TOL * abs(float(lp)),
+          f"{arch} f32 step: loss {float(lk)} vs plain {float(lp)}")
+    check(out["grad_worst_rel"] <= TRAIN_GRAD_TOL,
+          f"{arch} f32 step: a gradient leaf differs by "
+          f"{out['grad_worst_rel']} of its largest")
+    del gk, gp, prm
+    return out
+
+
+def family_ptxas(source: str, prefixes: tuple, path: tuple) -> dict:
+    """Registers and spills of a source's kernels whose names start with
+    one of ``prefixes``; the instantiations the training path runs
+    (``path``) may not spill."""
+    from repro_torch.kernels import _build
+    regs = {n: r for n, r in ptxas_kernels(
+        _build.build_log[source]["ptxas"]).items() if n.startswith(prefixes)}
+    check(all(regs.get(n) and regs[n].get("spill_store_bytes") == 0
+              and regs[n].get("spill_load_bytes") == 0 for n in path),
+          f"{source}.cu: {path} spill or are missing: {regs}")
+    return regs
+
+
+def print_profile(tag: str, window: dict) -> None:
+    print(f"{tag}: " + json.dumps({k: v for k, v in window.items()
+                                   if k != "top"}))
+    for row in window["top"][:8]:
+        print(f"    {row['device_ms']:9.3f} ms  x{row['count']:<5d} "
+              f"{row['name'][:90]}")
+
+
+def zamba_train_phase(torch, ops, ref, tfa, M, tlaunch, tstep, get_config,
+                      data, seed: int) -> tuple:
+    """Zamba2-2.7B at full width and depth (54 Mamba2 layers, the shared
+    block after every 6), bf16, batch 4 × ZTRAIN_SEQ through
+    ``launch.train.main``: plain steps, then ``--strads --weight-decay 0``
+    steps (an unscheduled block keeps its bits), every scan through
+    ``ssm_scan`` and ``ssm_scan_bwd``, attention on the mma.sync route
+    (head dim 80); then plain steps at 4 × ZTRAIN_SSD_SEQ (the SSD form,
+    no SSM kernel); ``ssm_scan_bwd`` at layer 0's inputs; an f32 step of
+    one group against the plain versions; a profiler window over a plain
+    step.  Returns (the ``ssm_scan_bwd`` entry, the numbers)."""
+    from repro_torch.kernels import ssm_scan as tss
+    from repro_torch.optim import tree_flatten
+    cfg = get_config(ZAMBA)
+    L, G = cfg.num_layers, cfg.num_layers // cfg.attn_every
+    res = {"arch": cfg.name, "layers": L, "groups": G, "batch": TRAIN_BATCH,
+           "seq": ZTRAIN_SEQ, "steps": ZTRAIN_STEPS,
+           "params": M.num_params(cfg)}
+    per_step = family_per_step(cfg, L, scan=True)
+    box = {}
+    _, res["plain"] = train_run(
+        torch, ops, tfa, tlaunch, zoo_argv(ZAMBA, seed, ZTRAIN_STEPS,
+                                           ZTRAIN_SEQ),
+        lambda i, state, metrics: box.update(state=state), L,
+        steps=ZTRAIN_STEPS, tokens=TRAIN_BATCH * ZTRAIN_SEQ,
+        route="mma_sync", per_step=per_step)
+    res["launches_a_step"] = per_step
+    print("zamba2 training plain: " + json.dumps(res["plain"]))
+    box.clear()
+    torch.cuda.empty_cache()
+
+    U = (G + 1) // 2
+    strads_check, sstats, prev = strads_checker(torch, tree_flatten, G, U,
+                                                box)
+    _, res["strads"] = train_run(
+        torch, ops, tfa, tlaunch, zoo_argv(
+            ZAMBA, seed, ZTRAIN_STEPS, ZTRAIN_SEQ, "--strads",
+            "--weight-decay", "0"),
+        strads_check, L, steps=ZTRAIN_STEPS,
+        tokens=TRAIN_BATCH * ZTRAIN_SEQ, route="mma_sync",
+        per_step=per_step)
+    check(len(sstats["blocks_active"]) == ZTRAIN_STEPS,
+          f"zamba2 STRADS: {len(sstats['blocks_active'])} steps checked")
+    res["strads"].update(sstats, U=U, blocks=G + 1,
+                         peak_memory_note="includes the check's copy of "
+                                          "the parameters (bf16)")
+    print("zamba2 training STRADS: " + json.dumps(res["strads"]))
+    prev.clear()
+    state = box.pop("state")
+    batch = data_batch(cfg, ZTRAIN_SEQ, ZTRAIN_STEPS, seed)
+    first, res["layer0_loss"] = layer0_inputs(
+        torch, ops, tstep, tree_flatten, cfg, state["params"], batch)
+    kentry = ssm_bwd_phase(torch, ref, tss, first.pop("ssm"), seed)
+    print("ssm_scan_bwd at layer 0's inputs: " + json.dumps(kentry))
+    res["attn_bwd_layer0"], res["attn_bwd"], res["attn_fwd"] = \
+        attn_bwd_layer0(torch, ref, tfa, first, "mma_sync", seed)
+    print("zamba2 training: flash_attention_bwd at layer 0's inputs: "
+          + json.dumps(res["attn_bwd"]))
+    torch.cuda.empty_cache()
+
+    # a profiler window over one plain step of the STRADS run's state
+    res["profile_plain_step"] = train_profile(
+        torch, ops, tstep, cfg, state, batch,
+        {"ssm_scan": (ops.LAUNCHES, ("ssm_scan_fwd<", "ssm_scan_fwdI")),
+         "ssm_scan_bwd": (ops.LAUNCHES, ("ssm_scan_bwd<", "ssm_scan_bwdI")),
+         "flash_attention_bwd": (ops.LAUNCHES, ("flash_bwd_dq",))})
+    print_profile("zamba2 training profile_plain_step",
+                  res["profile_plain_step"])
+    del state, batch, first
+    box.clear()
+    torch.cuda.empty_cache()
+
+    _, res["ssd"] = train_run(
+        torch, ops, tfa, tlaunch, zoo_argv(ZAMBA, seed, ZTRAIN_SSD_STEPS,
+                                           ZTRAIN_SSD_SEQ),
+        lambda i, state, metrics: None, L, steps=ZTRAIN_SSD_STEPS,
+        tokens=TRAIN_BATCH * ZTRAIN_SSD_SEQ, route="mma_sync",
+        per_step=family_per_step(cfg, L, scan=False))
+    res["ssd"]["seq"] = ZTRAIN_SSD_SEQ
+    print("zamba2 training SSD form (4 x 2048): " + json.dumps(res["ssd"]))
+    torch.cuda.empty_cache()
+
+    res["f32_step"] = family_f32_step(
+        torch, ops, ref, M, tstep, tree_flatten, get_config, data, ZAMBA,
+        ZTRAIN_F32_LAYERS, ZTRAIN_SEQ,
+        {"attention": ref.attention_ref,
+         "ssm_scan": plain_ssm_scan(torch, ref)})
+    print("zamba2 f32 step (one group, full width): " + json.dumps(
+        {k: v for k, v in res["f32_step"].items() if k != "grad_rel"}))
+    torch.cuda.empty_cache()
+    kentry["launches"] = res["plain"]["launches"]["ssm_scan_bwd"]
+    kentry["launches_strads"] = res["strads"]["launches"]["ssm_scan_bwd"]
+    kentry["ptxas"] = family_ptxas(
+        "ssm_scan", ("ssm_scan_bwd", "ssm_scan_fwd"),
+        ("ssm_scan_fwd<bf16,64>", "ssm_scan_bwd<bf16,64>",
+         "ssm_scan_bwd_sum<bf16>"))
+    return kentry, res
+
+
+def phi_train_phase(torch, ops, ref, tfa, M, tlaunch, tstep, get_config,
+                    data, seed: int) -> tuple:
+    """Phi-3.5-MoE at full width, depth cut to PHI_TRAIN_LAYERS, bf16,
+    batch 4 × 2,048, ``moe_impl="einsum"``, through ``launch.train.main``:
+    plain steps, then ``--strads --weight-decay 0`` steps; the router
+    through ``topk_gating`` and ``topk_gating_bwd``, attention's backward
+    on the wgmma route (head dim 128, 32 query heads over 8); then
+    ``topk_gating_bwd`` at layer 0's logits, an f32 step against the
+    plain versions and a profiler window over a plain step.  Returns (the
+    ``topk_gating_bwd`` entry, the numbers)."""
+    import dataclasses
+    from repro_torch.kernels import moe_gating as tmg
+    from repro_torch.optim import tree_flatten
+    L = PHI_TRAIN_LAYERS
+    cfg = dataclasses.replace(get_config(ARCH), num_layers=L)
+    check(cfg.moe_impl == "einsum", f"{ARCH}: moe_impl {cfg.moe_impl}")
+    res = {"arch": cfg.name, "layers": L, "batch": TRAIN_BATCH,
+           "seq": TRAIN_SEQ, "steps": PHI_TRAIN_STEPS,
+           "params": M.num_params(cfg)}
+    per_step = family_per_step(cfg, L, scan=False)
+    res["launches_a_step"] = per_step
+    argv = lambda *extra: zoo_argv(ARCH, seed, PHI_TRAIN_STEPS, TRAIN_SEQ,
+                                   "--layers", str(L), *extra)
+    _, res["plain"] = train_run(
+        torch, ops, tfa, tlaunch, argv(), lambda i, state, metrics: None, L,
+        steps=PHI_TRAIN_STEPS, route="wgmma", per_step=per_step)
+    print("phi3.5-moe training plain: " + json.dumps(res["plain"]))
+    torch.cuda.empty_cache()
+
+    box = {}
+    U = max(1, (L + 1) // 2)
+    strads_check, sstats, prev = strads_checker(torch, tree_flatten, L, U,
+                                                box)
+    _, res["strads"] = train_run(
+        torch, ops, tfa, tlaunch, argv("--strads", "--weight-decay", "0"),
+        strads_check, L, steps=PHI_TRAIN_STEPS, route="wgmma",
+        per_step=per_step)
+    check(len(sstats["blocks_active"]) == PHI_TRAIN_STEPS,
+          f"phi STRADS: {len(sstats['blocks_active'])} steps checked")
+    res["strads"].update(sstats, U=U, blocks=L + 1,
+                         peak_memory_note="includes the check's copy of "
+                                          "the parameters (bf16)")
+    print("phi3.5-moe training STRADS: " + json.dumps(res["strads"]))
+    prev.clear()
+    state = box.pop("state")
+    batch = data_batch(cfg, TRAIN_SEQ, PHI_TRAIN_STEPS, seed)
+    first, res["layer0_loss"] = layer0_inputs(
+        torch, ops, tstep, tree_flatten, cfg, state["params"], batch)
+    logits, k = first.pop("gating")
+    check(tuple(logits.shape) == (TRAIN_BATCH * TRAIN_SEQ,
+                                  cfg.num_experts) and k == 2,
+          f"phi training: router logits {tuple(logits.shape)}, k {k}")
+    kentry = gating_bwd_phase(torch, ref, tmg, logits, k, seed)
+    print("topk_gating_bwd at layer 0's logits: " + json.dumps(kentry))
+    res["attn_bwd_layer0"], res["attn_bwd"], res["attn_fwd"] = \
+        attn_bwd_layer0(torch, ref, tfa, first, "wgmma", seed)
+    print("phi3.5-moe training: flash_attention_bwd at layer 0's inputs: "
+          + json.dumps(res["attn_bwd"]))
+    res["profile_plain_step"] = train_profile(
+        torch, ops, tstep, cfg, state, batch,
+        {"topk_gating_bwd": (ops.LAUNCHES, ("topk_gating_bwd_rows",)),
+         "flash_attention_bwd": (ops.LAUNCHES, ("flash_bwd_dq_wgmma",))})
+    print_profile("phi3.5-moe training profile_plain_step",
+                  res["profile_plain_step"])
+    del state, batch, first, logits
+    torch.cuda.empty_cache()
+
+    res["f32_step"] = family_f32_step(
+        torch, ops, ref, M, tstep, tree_flatten, get_config, data, ARCH, L,
+        TRAIN_SEQ, {"attention": ref.attention_ref,
+                    "topk_gating": ref.topk_gating_ref})
+    print("phi3.5-moe f32 step (2 layers, full width): " + json.dumps(
+        {k: v for k, v in res["f32_step"].items() if k != "grad_rel"}))
+    torch.cuda.empty_cache()
+    kentry["launches"] = res["plain"]["launches"]["topk_gating_bwd"]
+    kentry["launches_strads"] = res["strads"]["launches"]["topk_gating_bwd"]
+    kentry["ptxas"] = family_ptxas("moe_gating", ("topk_gating",),
+                                   ("topk_gating_rows<1>",
+                                    "topk_gating_bwd_rows<1>"))
+    return kentry, res
 
 
 def main() -> int:
@@ -5651,6 +6167,25 @@ def main() -> int:
     fb["launches_hubert_training"] = \
         zoo["hubert"]["train"]["launches"]["flash_attention_bwd"]
     phase("hubert-xlarge encoding and training")
+
+    # 12. training the moe and hybrid families: the backward kernels of
+    # ssm_scan and topk_gating
+    skern["ssm_scan_bwd"], ztrain = zamba_train_phase(
+        torch, ops, ref, tfa, M, tlaunch, tstep, get_config, tdata,
+        args.seed)
+    phase("zamba2-2.7b training")
+    skern["topk_gating_bwd"], ptrain = phi_train_phase(
+        torch, ops, ref, tfa, M, tlaunch, tstep, get_config, tdata,
+        args.seed)
+    phase("phi3.5-moe training")
+    for arch, run in ((ZAMBA, ztrain), (ARCH, ptrain)):
+        for name in ("flash_attention", "flash_attention_bwd", "ssm_scan",
+                     "topk_gating"):
+            count = run["plain"]["launches"][name]
+            if count:
+                skern[name][f"launches_{arch}_training"] = count
+        fa["by_shape"][f"{arch} training"] = run.pop("attn_fwd")
+        fb["by_shape"][f"{arch} training"] = run.pop("attn_bwd")
     for name in ("flash_attention", "flash_attention_bwd"):
         print(f"{name} by shape: " + json.dumps(
             {shape: {k: e.get(k) for k in (
@@ -5659,7 +6194,7 @@ def main() -> int:
                 "max_abs_err")}
              for shape, e in skern[name]["by_shape"].items()}))
 
-    # 12. lasso_loadbal.json traced, inside a profiler session: last, since
+    # 13. lasso_loadbal.json traced, inside a profiler session: last, since
     # a session slows the host's later launches (decode is host-bound)
     torch.cuda.empty_cache()
     X, y, _ = lasso.synthetic_correlated_device(args.seed, n, J, k_true=16,
@@ -5702,7 +6237,8 @@ def main() -> int:
                   small={"objective": got, "reference_cd": want},
                   mf=mfres, lda=ldares,
                   serve=serve, f32_parity=parity, zamba2=zamba,
-                  zamba2_f32_parity=zparity, train=train, zoo=zoo)
+                  zamba2_f32_parity=zparity, train=train, zoo=zoo,
+                  train_families={ZAMBA: ztrain, ARCH: ptrain})
     os.makedirs(os.path.join(ROOT, "chiprun_out"), exist_ok=True)
     with open(os.path.join(ROOT, "chiprun_out", "chip_smoke.json"),
               "w") as f:

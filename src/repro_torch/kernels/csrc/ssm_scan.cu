@@ -48,6 +48,46 @@
 // expf, not __expf, as the plain version.  No atomics: two launches give
 // the same bits.
 //
+// The backward (ssm_scan_bwd, then ssm_scan_bwd_sum) has no Pallas
+// counterpart: the JAX package differentiates its oracle, under
+// jax.checkpoint pieces that keep a piece's boundary state and take its
+// steps again.  With a_t = exp(dt_t A), u_t = dt_t x_t and g_t the
+// gradient of h_t (seeded by the final state's), in reverse:
+//   g_t = dy_t C_t + a_{t+1} g_{t+1};  dC_t = sum_c dy_t[c] h_t[c, :];
+//   dB_t = sum_c g_t[c, :] u_t[c];  du_t = <g_t, B_t>;
+//   da_t = <g_t, h_{t-1}>;  dx = du dt;  ddt = du x + da a A;
+//   dA = sum_{b,t} da a dt;  dh0 = a_0 g_0.
+// h_{t-1} cannot be had from h_t by dividing by a_t: dt A reaches -300 a
+// step at the reference's init, and a underflows to 0.  So the forward,
+// when a gradient is wanted (hsave not null), writes the state before
+// every tile of kT = 16 steps: ceil(S / 16) - 1 states of B x C x N f32,
+// 655 MB at Zamba2-2.7B's training call (B 4, S 2,000, C 5,120, N 64),
+// where the JAX package's pieces keep one a piece; the model's group
+// checkpoint keeps six layers' worth live (3.9 GB) while it takes a
+// group's backward.  16 is the forward's own tile, so saving costs it
+// one float4 store a thread a tile and no change of design; a wider
+// spacing would need a second recompute level or shared memory the
+// block does not have (a tile's states are kT x kCB x NB x 4 = 128 KB).
+// Bound: operations.  14 a (b, t, c, n): the state again (a multiply and
+// an FMA, 3), then an FMA each for dC, g, dB, du and da (10) and the
+// decay's multiply (1); at Zamba2's call 36.7 GFLOP, 0.55 ms at 67
+// TFLOP/s, against 1.08 GB of compulsory bytes (x, dt, dy, dx, ddt in
+// bf16, B, C, dB, dC, and the saved states read once), 0.32 ms.
+// Design: a block takes the forward's 32 channels of one batch row with
+// its thread layout and walks the tiles from the last.  Per tile it
+// loads x, dt, dy, B and C by cp.async (the next tile's copies in flight
+// while this one runs), reads its boundary state, takes the 16 states
+// again into shared memory (each thread its own, 128 KB at N = 64, so
+// one block a SM), summing dC over the warp's channels on the way
+// (shuffles by recursive halving across the warp's four channel slots);
+// then walks the 16 steps in reverse with g in registers, du and da each
+// lane's share (summed over a channel's lanes after the tile, as the
+// forward's y) and dB summed over the warp as dC.  The tile's dB and dC
+// go out as this block's partial rows (the four warps added in order),
+// dA's sum over the block's steps as a partial of its batch row; the
+// second kernel adds the C / 32 partials of dB and dC and the B of dA
+// in order.  No atomics: two launches give the same bits.
+//
 // Built by nvcc for sm_90a into a shared library with a plain C interface
 // (repro_torch/kernels/_build.py); the entry point returns
 // cudaGetLastError() so the Python wrapper raises on a refused launch.
@@ -161,15 +201,40 @@ __host__ __device__ constexpr size_t smem_bytes() {
          + kT * kCB * sizeof(float);            // y
 }
 
+// The boundary states (the forward's, read by the backward) in each
+// thread's own order: slot `tile` of the state before that tile, float4
+// group (k2, q) of thread `threadIdx.x` of block (blockIdx.x, blockIdx.y),
+// so a warp writes and reads 512 contiguous bytes at a time.  The grid is
+// the same in both kernels.
+template <int NQ, typename P>
+__device__ __forceinline__ P* state_slot(P* hs, int tile) {
+  return hs + (((long long)tile * gridDim.y + blockIdx.y) * gridDim.x +
+               blockIdx.x) * (kCPT * NQ * kThreads) + threadIdx.x;
+}
+
+template <int NQ>
+__device__ __forceinline__ void save_state(float4* hs, int tile,
+                                           const float (&h)[kCPT][4 * NQ]) {
+  float4* d = state_slot<NQ>(hs, tile);
+#pragma unroll
+  for (int k2 = 0; k2 < kCPT; ++k2)
+#pragma unroll
+    for (int q = 0; q < NQ; ++q)
+      d[(k2 * NQ + q) * kThreads] =
+          make_float4(h[k2][4 * q], h[k2][4 * q + 1], h[k2][4 * q + 2],
+                      h[k2][4 * q + 3]);
+}
+
 // vec bits: 1 x, 2 dt, 4 Bm, 8 Cm may take 16-byte copies.
 template <typename T, int NB>
 __global__ void __launch_bounds__(kThreads)
 ssm_scan_fwd(const T* __restrict__ x, const T* __restrict__ dt,
              const float* __restrict__ A, const T* __restrict__ Bm,
              const T* __restrict__ Cm, const float* __restrict__ h0,
-             T* __restrict__ y, float* __restrict__ hout, Strides sx,
-             Strides sdt, Strides sbm, Strides scm, Strides sy, int S, int C,
-             int N, int vec) {
+             T* __restrict__ y, float* __restrict__ hout,
+             float4* __restrict__ hsave, Strides sx, Strides sdt,
+             Strides sbm, Strides scm, Strides sy, int S, int C, int N,
+             int vec) {
   constexpr int NPL = NB / kL;         // states a lane
   constexpr int NQ = NPL / 4;          // float4 groups a lane
   static_assert(NPL % 4 == 0, "a lane holds whole float4 groups");
@@ -268,6 +333,8 @@ ssm_scan_fwd(const T* __restrict__ x, const T* __restrict__ dt,
     }
     if (k + kStages - 1 < tiles) fetch(k + kStages - 1);
     cp_async_commit();
+    if (hsave != nullptr && k > 0)     // the state before tile k
+      save_state<NQ>(hsave, k - 1, h);
     __syncthreads();                   // sB, sC, sDX of tile k are ready
 
     // all kT steps, unrolled; each lane's share of y_t stays in registers
@@ -334,56 +401,525 @@ ssm_scan_fwd(const T* __restrict__ x, const T* __restrict__ dt,
   }
 }
 
+// ---------------------------------------------------------------------------
+// The backward
+// ---------------------------------------------------------------------------
+
+constexpr int kWarps = kThreads / 32;
+static_assert(kSlots % kWarps == 0 && 32 / kL == 4,
+              "four channel slots a warp (lane bits 3 and 4)");
+
+template <int NB>
+__host__ __device__ constexpr int bwd_raw_elems() {  // x, dt, dy, B, C
+  return 3 * kT * kCB + 2 * kT * NB;
+}
+
+template <typename T, int NB>
+__host__ __device__ constexpr size_t bwd_smem_bytes() {
+  return (size_t)kT * kCB * NB * sizeof(float)         // the tile's states
+         + kT * kCB * sizeof(float4)                   // (a, u, dy, dt)
+         + kT * kCB * sizeof(float2)                   // (dx, ddt)
+         + 2 * kT * NB * sizeof(float)                 // B, C in f32
+         + 2 * kWarps * kT * NB * sizeof(float)        // dB, dC by warp
+         + kStages * bwd_raw_elems<NB>() * sizeof(T);  // ring
+}
+
+// Sums v over the four channel slots of a warp (lane bits 3 and 4) by
+// recursive halving: the lane ends with NPL / 4 of the NPL sums, those
+// from the returned index on.
+template <int NPL>
+__device__ __forceinline__ int slot_sum(float (&v)[NPL], int lane) {
+  constexpr int H1 = NPL / 2, H2 = NPL / 4;
+  const bool up1 = lane & 8, up2 = lane & 16;
+#pragma unroll
+  for (int j = 0; j < H1; ++j) {
+    const float send = up1 ? v[j] : v[j + H1];
+    const float keep = up1 ? v[j + H1] : v[j];
+    v[j] = keep + __shfl_xor_sync(0xffffffffu, send, 8);
+  }
+#pragma unroll
+  for (int j = 0; j < H2; ++j) {
+    const float send = up2 ? v[j] : v[j + H2];
+    const float keep = up2 ? v[j + H2] : v[j];
+    v[j] = keep + __shfl_xor_sync(0xffffffffu, send, 16);
+  }
+  return (up1 ? H1 : 0) + (up2 ? H2 : 0);
+}
+
+// The gradients of ssm_scan_fwd.  A block takes the forward's kCB channels
+// of one batch row, with the same thread layout, and walks the tiles from
+// the last to the first; the forward's state before each tile (hsave, or
+// h0 for the first) lets it take the tile's states again.  g, the
+// gradient of the state carried from the later steps, stays in registers
+// (seeded by dh, the final state's gradient).  Per tile:
+//  1. the tile's states from its boundary, each thread's own into sH;
+//     dC_t = sum_c dy_t[c] h_t[c, :] summed over the warp's channels into
+//     sRC (the two channels of a thread, then the four slots of a warp);
+//  2. the steps in reverse: g_t = dy_t C_t + g, du_t = <g_t, B_t>,
+//     da_t = <g_t, h_{t-1}> (each lane's share, as the forward's y),
+//     dB_t = sum_c g_t[c, :] u_t[c] by warp into sRB, then g = a_t g_t;
+//  3. du and da summed over a channel's lanes by recursive halving; dx,
+//     ddt into sO, a_t dt_t da_t into the lane's sum for dA.
+// The tile's outputs and its by-warp dB, dC go out at the top of the next
+// tile: dx, ddt to their tensors, dB and dC (the four warps summed in
+// order) to this block's partial rows pB, pC (parts, B, S, N); dA's sum
+// over the block's steps to pA (B, C).  ssm_scan_bwd_sum adds the parts
+// in order.  vec bits as the forward's, and 16 for dy.
+template <typename T, int NB>
+__global__ void __launch_bounds__(kThreads)
+ssm_scan_bwd(const T* __restrict__ x, const T* __restrict__ dt,
+             const float* __restrict__ A, const T* __restrict__ Bm,
+             const T* __restrict__ Cm, const float* __restrict__ h0,
+             const float4* __restrict__ hsave, const T* __restrict__ dy,
+             const float* __restrict__ dh, T* __restrict__ dx,
+             T* __restrict__ ddt, float* __restrict__ dh0,
+             float* __restrict__ pB, float* __restrict__ pC,
+             float* __restrict__ pA, Strides sx, Strides sdt, Strides sbm,
+             Strides scm, Strides sdy, Strides sdx, int S, int C, int N,
+             int vec) {
+  constexpr int NPL = NB / kL;         // states a lane
+  constexpr int NQ = NPL / 4;          // float4 groups a lane
+  constexpr int HSTEP = kCPT * NQ * kThreads;   // float4s of sH a step
+  static_assert(NPL % 4 == 0, "a lane holds whole float4 groups");
+  static_assert(kT * NB % kThreads == 0, "whole passes over a tile's N");
+  extern __shared__ __align__(16) unsigned char smem[];
+  float4* sH = reinterpret_cast<float4*>(smem);
+  float4* sP = sH + kT * HSTEP;
+  float2* sO = reinterpret_cast<float2*>(sP + kT * kCB);
+  float* sB = reinterpret_cast<float*>(sO + kT * kCB);
+  float* sC = sB + kT * NB;
+  float* sRB = sC + kT * NB;
+  float* sRC = sRB + kWarps * kT * NB;
+  T* ring = reinterpret_cast<T*>(sRC + kWarps * kT * NB);
+
+  const int b = blockIdx.y;
+  const int c0 = blockIdx.x * kCB;
+  const int cols = min(kCB, C - c0);
+  const int sub = threadIdx.x % kL;
+  const int slot = threadIdx.x / kL;
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x / 32;
+  const T* xb = x + b * sx.b + c0;
+  const T* db = dt + b * sdt.b + c0;
+  const T* bb = Bm + b * sbm.b;
+  const T* cb = Cm + b * scm.b;
+  const T* gb = dy + b * sdy.b + c0;
+  T* dxb = dx + b * sdx.b + c0;
+  T* ddtb = ddt + b * sdx.b + c0;
+  const long long part = (long long)gridDim.y * S * N;   // (B, S, N)
+  float* pBb = pB + blockIdx.x * part + (long long)b * S * N;
+  float* pCb = pC + blockIdx.x * part + (long long)b * S * N;
+
+  float g[kCPT][NPL];
+  float ak[kCPT], dA_acc[kCPT];
+#pragma unroll
+  for (int k2 = 0; k2 < kCPT; ++k2) {
+    const int cl = slot + kSlots * k2;
+    ak[k2] = cl < cols ? A[c0 + cl] : 0.f;
+    dA_acc[k2] = 0.f;
+    const float* gr = dh + ((long long)b * C + c0 + cl) * N;
+#pragma unroll
+    for (int q = 0; q < NQ; ++q)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int n = 4 * (sub + kL * q) + e;
+        g[k2][4 * q + e] =
+            (dh != nullptr && cl < cols && n < N) ? gr[n] : 0.f;
+      }
+  }
+  const int pcl = threadIdx.x % kCB;   // the pre-pass's channel
+  const float a = pcl < cols ? A[c0 + pcl] : 0.f;
+
+  const int tiles = (S + kT - 1) / kT;
+  auto fetch = [&](int k) {
+    T* st = ring + (k % kStages) * bwd_raw_elems<NB>();
+    const int t0 = k * kT, rows = min(kT, S - t0);
+    load_rows<T, kCB>(st, xb + t0 * sx.s, sx.s, rows, cols, vec & 1);
+    load_rows<T, kCB>(st + kT * kCB, db + t0 * sdt.s, sdt.s, rows, cols,
+                      vec & 2);
+    load_rows<T, kCB>(st + 2 * kT * kCB, gb + t0 * sdy.s, sdy.s, rows, cols,
+                      vec & 16);
+    load_rows<T, NB>(st + 3 * kT * kCB, bb + t0 * sbm.s, sbm.s, rows, N,
+                     vec & 4);
+    load_rows<T, NB>(st + 3 * kT * kCB + kT * NB, cb + t0 * scm.s, scm.s,
+                     rows, N, vec & 8);
+  };
+  auto flush = [&](int k) {            // tile k's dx, ddt and dB, dC parts
+    const int t0 = k * kT, rows = min(kT, S - t0);
+#pragma unroll
+    for (int j = 0; j < kT * kCB / kThreads; ++j) {
+      const int i = threadIdx.x + j * kThreads;
+      const int tt = i / kCB;
+      if (tt < rows && pcl < cols) {
+        const float2 o = sO[i];
+        dxb[(t0 + tt) * sdx.s + pcl] = from_f32<T>(o.x);
+        ddtb[(t0 + tt) * sdx.s + pcl] = from_f32<T>(o.y);
+      }
+    }
+#pragma unroll
+    for (int j = 0; j < kT * NB / kThreads; ++j) {
+      const int i = threadIdx.x + j * kThreads;
+      const int tt = i / NB, n = i % NB;
+      if (tt < rows && n < N) {
+        float vb = sRB[i], vc = sRC[i];
+#pragma unroll
+        for (int w = 1; w < kWarps; ++w) {
+          vb += sRB[w * kT * NB + i];
+          vc += sRC[w * kT * NB + i];
+        }
+        pBb[(long long)(t0 + tt) * N + n] = vb;
+        pCb[(long long)(t0 + tt) * N + n] = vc;
+      }
+    }
+  };
+
+  if (tiles > 0) fetch(tiles - 1);
+  cp_async_commit();
+  for (int it = 0; it < tiles; ++it) {
+    const int k = tiles - 1 - it;
+    cp_async_wait<kStages - 2>();      // this thread's copies of tile k
+    __syncthreads();                   // everyone's; tile k+1 is done
+    if (it > 0) flush(k + 1);
+    const int steps = min(kT, S - k * kT);
+    const T* st = ring + (k % kStages) * bwd_raw_elems<NB>();
+
+    float h[kCPT][NPL];                // the state before the tile
+    if (k > 0) {
+      const float4* src = state_slot<NQ>(hsave, k - 1);
+#pragma unroll
+      for (int k2 = 0; k2 < kCPT; ++k2)
+#pragma unroll
+        for (int q = 0; q < NQ; ++q) {
+          const float4 v = src[(k2 * NQ + q) * kThreads];
+          h[k2][4 * q] = v.x;
+          h[k2][4 * q + 1] = v.y;
+          h[k2][4 * q + 2] = v.z;
+          h[k2][4 * q + 3] = v.w;
+        }
+    } else {
+#pragma unroll
+      for (int k2 = 0; k2 < kCPT; ++k2) {
+        const int cl = slot + kSlots * k2;
+        const float* hr = h0 + ((long long)b * C + c0 + cl) * N;
+#pragma unroll
+        for (int q = 0; q < NQ; ++q)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int n = 4 * (sub + kL * q) + e;
+            h[k2][4 * q + e] =
+                (h0 != nullptr && cl < cols && n < N) ? hr[n] : 0.f;
+          }
+      }
+    }
+    // the forward's pre-pass (the same expressions, so the same states),
+    // with dy and dt beside; past the last step and channel decay 1 and
+    // input 0 keep h and g as they are
+#pragma unroll
+    for (int j = 0; j < kT * kCB / kThreads; ++j) {
+      const int i = threadIdx.x + j * kThreads;
+      float4 v = make_float4(1.f, 0.f, 0.f, 0.f);
+      if (i / kCB < steps && pcl < cols) {
+        const float d = to_f32(st[kT * kCB + i]);
+        v = make_float4(expf(d * a), d * to_f32(st[i]),
+                        to_f32(st[2 * kT * kCB + i]), d);
+      }
+      sP[i] = v;
+    }
+#pragma unroll
+    for (int j = 0; j < (kT * NB + kThreads - 1) / kThreads; ++j) {
+      const int i = threadIdx.x + j * kThreads;
+      if (i >= kT * NB) break;
+      const bool ok = i / NB < steps && i % NB < N;
+      sB[i] = ok ? to_f32(st[3 * kT * kCB + i]) : 0.f;
+      sC[i] = ok ? to_f32(st[3 * kT * kCB + kT * NB + i]) : 0.f;
+    }
+    if (k > 0) fetch(k - 1);
+    cp_async_commit();
+    __syncthreads();                   // sP, sB, sC of tile k are ready
+
+    // 1. the states again; dC by warp
+#pragma unroll
+    for (int tt = 0; tt < kT; ++tt) {
+      float4* hs = sH + tt * HSTEP + threadIdx.x;
+      const float4* b4 = reinterpret_cast<const float4*>(sB + tt * NB);
+      float4 p[kCPT];
+#pragma unroll
+      for (int k2 = 0; k2 < kCPT; ++k2)
+        p[k2] = sP[tt * kCB + slot + kSlots * k2];
+      float v[NPL];
+#pragma unroll
+      for (int q = 0; q < NQ; ++q) {
+#pragma unroll
+        for (int k2 = 0; k2 < kCPT; ++k2)
+          hs[(k2 * NQ + q) * kThreads] =
+              make_float4(h[k2][4 * q], h[k2][4 * q + 1], h[k2][4 * q + 2],
+                          h[k2][4 * q + 3]);
+        const float4 bv = b4[sub + kL * q];
+        const float bs[4] = {bv.x, bv.y, bv.z, bv.w};
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+#pragma unroll
+          for (int k2 = 0; k2 < kCPT; ++k2) {
+            float& hv = h[k2][4 * q + e];
+            hv = fmaf(p[k2].x, hv, p[k2].y * bs[e]);
+          }
+          float s = p[0].z * h[0][4 * q + e];
+#pragma unroll
+          for (int k2 = 1; k2 < kCPT; ++k2)
+            s = fmaf(p[k2].z, h[k2][4 * q + e], s);
+          v[4 * q + e] = s;
+        }
+      }
+      const int first = slot_sum<NPL>(v, lane);
+#pragma unroll
+      for (int j = 0; j < NPL / 4; ++j) {
+        const int jj = first + j;
+        sRC[(warp * kT + tt) * NB + 4 * (sub + kL * (jj / 4)) + jj % 4] =
+            v[j];
+      }
+    }
+
+    // 2. the steps in reverse; each lane's share of du, da in registers
+    float du[kCPT][kT], da[kCPT][kT];
+#pragma unroll
+    for (int tt = kT - 1; tt >= 0; --tt) {
+      const float4* hs = sH + tt * HSTEP + threadIdx.x;
+      const float4* b4 = reinterpret_cast<const float4*>(sB + tt * NB);
+      const float4* c4 = reinterpret_cast<const float4*>(sC + tt * NB);
+      float4 p[kCPT];
+      float su[kCPT][4], sa[kCPT][4];
+#pragma unroll
+      for (int k2 = 0; k2 < kCPT; ++k2) {
+        p[k2] = sP[tt * kCB + slot + kSlots * k2];
+#pragma unroll
+        for (int e = 0; e < 4; ++e) su[k2][e] = sa[k2][e] = 0.f;
+      }
+      float w[NPL];
+#pragma unroll
+      for (int q = 0; q < NQ; ++q) {
+        const float4 bv = b4[sub + kL * q];
+        const float4 cv = c4[sub + kL * q];
+        const float bs[4] = {bv.x, bv.y, bv.z, bv.w};
+        const float cs[4] = {cv.x, cv.y, cv.z, cv.w};
+        float hp[kCPT][4];
+#pragma unroll
+        for (int k2 = 0; k2 < kCPT; ++k2) {
+          const float4 v = hs[(k2 * NQ + q) * kThreads];
+          hp[k2][0] = v.x;
+          hp[k2][1] = v.y;
+          hp[k2][2] = v.z;
+          hp[k2][3] = v.w;
+        }
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          float s = 0.f;
+#pragma unroll
+          for (int k2 = 0; k2 < kCPT; ++k2) {
+            float& gv = g[k2][4 * q + e];
+            gv = fmaf(p[k2].z, cs[e], gv);           // g_t
+            su[k2][e] = fmaf(gv, bs[e], su[k2][e]);
+            sa[k2][e] = fmaf(gv, hp[k2][e], sa[k2][e]);
+            s = k2 == 0 ? gv * p[0].y : fmaf(gv, p[k2].y, s);
+            gv *= p[k2].x;                           // a_t g_t
+          }
+          w[4 * q + e] = s;
+        }
+      }
+#pragma unroll
+      for (int k2 = 0; k2 < kCPT; ++k2) {
+        du[k2][tt] = (su[k2][0] + su[k2][1]) + (su[k2][2] + su[k2][3]);
+        da[k2][tt] = (sa[k2][0] + sa[k2][1]) + (sa[k2][2] + sa[k2][3]);
+      }
+      const int first = slot_sum<NPL>(w, lane);
+#pragma unroll
+      for (int j = 0; j < NPL / 4; ++j) {
+        const int jj = first + j;
+        sRB[(warp * kT + tt) * NB + 4 * (sub + kL * (jj / 4)) + jj % 4] =
+            w[j];
+      }
+    }
+
+    // 3. du, da over a channel's lanes; dx, ddt and dA's terms
+    const int base = lane_steps<kT / 2, 1>(du, sub);
+    lane_steps<kT / 2, 1>(da, sub);
+#pragma unroll
+    for (int k2 = 0; k2 < kCPT; ++k2) {
+      const int cl = slot + kSlots * k2;
+#pragma unroll
+      for (int j = 0; j < kT / kL; ++j) {
+        const int tt = base + j;
+        if (tt < steps && cl < cols) {
+          const float4 p = sP[tt * kCB + cl];          // (a, u, dy, dt)
+          const float xv = to_f32(st[tt * kCB + cl]);
+          const float gl = da[k2][j] * p.x;            // d(dt A)
+          sO[tt * kCB + cl] =
+              make_float2(du[k2][j] * p.w, fmaf(du[k2][j], xv, gl * ak[k2]));
+          dA_acc[k2] = fmaf(gl, p.w, dA_acc[k2]);
+        }
+      }
+    }
+  }
+  cp_async_wait<0>();
+  __syncthreads();
+  if (tiles > 0) flush(0);
+
+#pragma unroll
+  for (int k2 = 0; k2 < kCPT; ++k2) {
+    const int cl = slot + kSlots * k2;
+    // dA: the channel's kL lanes summed in a fixed order (a + b is b + a
+    // to the bit, so every lane ends with the same value)
+    float v = dA_acc[k2];
+#pragma unroll
+    for (int m = 1; m < kL; m <<= 1) v += __shfl_xor_sync(0xffffffffu, v, m);
+    if (cl >= cols) continue;
+    if (sub == 0) pA[(long long)b * C + c0 + cl] = v;
+    if (dh0 == nullptr) continue;
+    float* hr = dh0 + ((long long)b * C + c0 + cl) * N;   // a_0 g_0
+#pragma unroll
+    for (int q = 0; q < NQ; ++q)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int n = 4 * (sub + kL * q) + e;
+        if (n < N) hr[n] = g[k2][4 * q + e];
+      }
+  }
+}
+
+// dB, dC (B, S, N) = the parts of pB, pC summed in order; dA (C,) = pA
+// (B, C) summed over the batch in order.  Bytes: each part read once.
+template <typename T>
+__global__ void ssm_scan_bwd_sum(const float* __restrict__ pB,
+                                 const float* __restrict__ pC,
+                                 const float* __restrict__ pA,
+                                 T* __restrict__ dB, T* __restrict__ dC,
+                                 float* __restrict__ dA, int parts,
+                                 long long rows, int B, int C) {
+  const long long stride = (long long)gridDim.x * blockDim.x;
+  for (long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+       i < rows + C; i += stride) {
+    if (i < rows) {
+      float vb = 0.f, vc = 0.f;
+      for (int k = 0; k < parts; ++k) {
+        vb += pB[k * rows + i];
+        vc += pC[k * rows + i];
+      }
+      dB[i] = from_f32<T>(vb);
+      dC[i] = from_f32<T>(vc);
+    } else {
+      const int c = static_cast<int>(i - rows);
+      float v = 0.f;
+      for (int b = 0; b < B; ++b) v += pA[(long long)b * C + c];
+      dA[c] = v;
+    }
+  }
+}
+
 bool aligned16(const void* p) {
   return (reinterpret_cast<uintptr_t>(p) & 15u) == 0;
+}
+
+// a tensor takes 16-byte copies when its base and its batch and sequence
+// strides are 16-byte aligned
+template <typename T>
+int vec_bits(const void* const* ptrs, int n, const long long* st) {
+  int vec = 0;
+  for (int i = 0; i < n; ++i) {
+    const bool ok = aligned16(ptrs[i]) && st[2 * i] * sizeof(T) % 16 == 0 &&
+                    st[2 * i + 1] * sizeof(T) % 16 == 0;
+    vec |= ok << i;
+  }
+  return vec;
 }
 
 template <typename T, int NB>
 cudaError_t launch(const void* x, const void* dt, const void* A,
                    const void* Bm, const void* Cm, const void* h0, void* y,
-                   void* hout, int B, int S, int C, int N,
+                   void* hout, void* hsave, int B, int S, int C, int N,
                    const long long* st, cudaStream_t stream) {
   constexpr size_t smem = smem_bytes<T, NB>();
   cudaError_t err = cudaFuncSetAttribute(
       ssm_scan_fwd<T, NB>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)smem);
   if (err != cudaSuccess) return err;
-  // a tensor takes 16-byte copies when its base and its batch and
-  // sequence strides are 16-byte aligned
   const void* seq[4] = {x, dt, Bm, Cm};
-  int vec = 0;
-  for (int i = 0; i < 4; ++i) {
-    const bool ok = aligned16(seq[i]) && st[2 * i] * sizeof(T) % 16 == 0 &&
-                    st[2 * i + 1] * sizeof(T) % 16 == 0;
-    vec |= ok << i;
-  }
+  const int vec = vec_bits<T>(seq, 4, st);
   const dim3 grid((C + kCB - 1) / kCB, B);
   ssm_scan_fwd<T, NB><<<grid, kThreads, smem, stream>>>(
       static_cast<const T*>(x), static_cast<const T*>(dt),
       static_cast<const float*>(A), static_cast<const T*>(Bm),
       static_cast<const T*>(Cm), static_cast<const float*>(h0),
-      static_cast<T*>(y), static_cast<float*>(hout), Strides{st[0], st[1]},
+      static_cast<T*>(y), static_cast<float*>(hout),
+      static_cast<float4*>(hsave), Strides{st[0], st[1]},
       Strides{st[2], st[3]}, Strides{st[4], st[5]}, Strides{st[6], st[7]},
       Strides{st[8], st[9]}, S, C, N, vec);
   return cudaGetLastError();
 }
 
+struct BwdArgs {
+  const void *x, *dt, *A, *Bm, *Cm, *h0, *hsave, *dy, *dh;
+  void *dx, *ddt, *dA, *dB, *dC, *dh0, *work;
+};
+
+template <typename T, int NB>
+cudaError_t launch_bwd(const BwdArgs& g, int B, int S, int C, int N,
+                       const long long* st, cudaStream_t stream) {
+  constexpr size_t smem = bwd_smem_bytes<T, NB>();
+  cudaError_t err = cudaFuncSetAttribute(
+      ssm_scan_bwd<T, NB>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)smem);
+  if (err != cudaSuccess) return err;
+  const void* seq[5] = {g.x, g.dt, g.Bm, g.Cm, g.dy};
+  const int vec = vec_bits<T>(seq, 5, st);
+  const dim3 grid((C + kCB - 1) / kCB, B);
+  const long long rows = (long long)B * S * N;
+  float* pB = static_cast<float*>(g.work);
+  float* pC = pB + grid.x * rows;
+  float* pA = pC + grid.x * rows;
+  ssm_scan_bwd<T, NB><<<grid, kThreads, smem, stream>>>(
+      static_cast<const T*>(g.x), static_cast<const T*>(g.dt),
+      static_cast<const float*>(g.A), static_cast<const T*>(g.Bm),
+      static_cast<const T*>(g.Cm), static_cast<const float*>(g.h0),
+      static_cast<const float4*>(g.hsave), static_cast<const T*>(g.dy),
+      static_cast<const float*>(g.dh), static_cast<T*>(g.dx),
+      static_cast<T*>(g.ddt), static_cast<float*>(g.dh0), pB, pC, pA,
+      Strides{st[0], st[1]}, Strides{st[2], st[3]}, Strides{st[4], st[5]},
+      Strides{st[6], st[7]}, Strides{st[8], st[9]}, Strides{st[10], st[11]},
+      S, C, N, vec);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  const long long items = rows + C;
+  const int blocks = (int)((items + 255) / 256 < 132 * 16
+                               ? (items + 255) / 256 : 132 * 16);
+  ssm_scan_bwd_sum<T><<<blocks, 256, 0, stream>>>(
+      pB, pC, pA, static_cast<T*>(g.dB), static_cast<T*>(g.dC),
+      static_cast<float*>(g.dA), grid.x, rows, B, C);
+  return cudaGetLastError();
+}
+
 // N rounded up to a bucket that splits into whole float4 groups a lane
 constexpr int bucket(int nb) { return nb < 4 * kL ? 4 * kL : nb; }
+int bucket_of(int N) { return N <= 32 ? bucket(32) : bucket(64); }
 
 template <typename T>
 cudaError_t dispatch_n(const void* x, const void* dt, const void* A,
                        const void* Bm, const void* Cm, const void* h0,
-                       void* y, void* hout, int B, int S, int C, int N,
-                       const long long* st, cudaStream_t stream) {
+                       void* y, void* hout, void* hsave, int B, int S, int C,
+                       int N, const long long* st, cudaStream_t stream) {
   if (N <= 16)
-    return launch<T, bucket(16)>(x, dt, A, Bm, Cm, h0, y, hout, B, S, C, N,
-                                 st, stream);
+    return launch<T, bucket(16)>(x, dt, A, Bm, Cm, h0, y, hout, hsave, B, S,
+                                 C, N, st, stream);
   if (N <= 32)
-    return launch<T, bucket(32)>(x, dt, A, Bm, Cm, h0, y, hout, B, S, C, N,
-                                 st, stream);
-  return launch<T, bucket(64)>(x, dt, A, Bm, Cm, h0, y, hout, B, S, C, N,
-                               st, stream);
+    return launch<T, bucket(32)>(x, dt, A, Bm, Cm, h0, y, hout, hsave, B, S,
+                                 C, N, st, stream);
+  return launch<T, bucket(64)>(x, dt, A, Bm, Cm, h0, y, hout, hsave, B, S,
+                               C, N, st, stream);
+}
+
+template <typename T>
+cudaError_t dispatch_bwd(const BwdArgs& g, int B, int S, int C, int N,
+                         const long long* st, cudaStream_t stream) {
+  if (N <= 32) return launch_bwd<T, bucket(32)>(g, B, S, C, N, st, stream);
+  return launch_bwd<T, bucket(64)>(g, B, S, C, N, st, stream);
 }
 
 }  // namespace
@@ -393,21 +929,62 @@ extern "C" {
 // x, dt, y: (B, S, C); Bm, Cm: (B, S, N), each with the last-axis stride 1
 // and the (batch, seq) strides in `strides` (10 values in elements: x, dt,
 // Bm, Cm, y).  A: (C,) f32; h0 (may be null: zeros) and hout: (B, C, N)
-// f32 contiguous.  dtype 0 = float32, 1 = bfloat16 (x, dt, Bm, Cm, y).
-// 1 <= N <= 64 and B <= 65535; the wrapper checks both.
+// f32 contiguous.  hsave (may be null): ssm_scan_state_floats(...) f32,
+// the states before tiles 1, 2, ... for the backward.  dtype 0 = float32,
+// 1 = bfloat16 (x, dt, Bm, Cm, y).  1 <= N <= 64 and B <= 65535; the
+// wrapper checks both.
 int ssm_scan_launch(const void* x, const void* dt, const void* A,
                     const void* Bm, const void* Cm, const void* h0, void* y,
-                    void* hout, int dtype, int B, int S, int C, int N,
-                    const long long* strides, void* stream) {
+                    void* hout, void* hsave, int dtype, int B, int S, int C,
+                    int N, const long long* strides, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (N < 1 || N > 64 || B < 1 || B > 65535 || C < 1 || S < 0)
     return cudaErrorInvalidValue;
   if (dtype == 0)
-    return dispatch_n<float>(x, dt, A, Bm, Cm, h0, y, hout, B, S, C, N,
-                             strides, s);
+    return dispatch_n<float>(x, dt, A, Bm, Cm, h0, y, hout, hsave, B, S, C,
+                             N, strides, s);
   if (dtype == 1)
-    return dispatch_n<__nv_bfloat16>(x, dt, A, Bm, Cm, h0, y, hout, B, S, C,
-                                     N, strides, s);
+    return dispatch_n<__nv_bfloat16>(x, dt, A, Bm, Cm, h0, y, hout, hsave, B,
+                                     S, C, N, strides, s);
+  return cudaErrorInvalidValue;
+}
+
+// The forward's saved states: one (B, C, N) state (channels padded to the
+// block's kCB, states to the bucket) before every tile of kT steps but
+// the first.
+long long ssm_scan_state_floats(int B, int S, int C, int N) {
+  const long long tiles = (S + kT - 1) / kT;
+  if (tiles <= 1) return 0;
+  return (tiles - 1) * B * ((C + kCB - 1) / kCB) * kCB * bucket_of(N);
+}
+
+// The backward's scratch: the dB and dC parts (C / kCB of (B, S, N)
+// each) and dA's (B, C).
+long long ssm_scan_bwd_work_floats(int B, int S, int C, int N) {
+  return 2LL * ((C + kCB - 1) / kCB) * B * S * N + (long long)B * C;
+}
+
+// The forward's inputs, h0 (may be null) and hsave as it filled them; dy
+// (B, S, C) in x's type with its strides; dh (B, C, N) f32 contiguous (may
+// be null: zeros) -> dx, ddt (B, S, C) in x's type, strides shared; dB,
+// dC (B, S, N) contiguous in x's type; dA (C,) f32; dh0 (B, C, N) f32 (may
+// be null); work: ssm_scan_bwd_work_floats(...) f32.  `strides`: 12
+// values, x, dt, Bm, Cm, dy, dx.
+int ssm_scan_bwd_launch(const void* x, const void* dt, const void* A,
+                        const void* Bm, const void* Cm, const void* h0,
+                        const void* hsave, const void* dy, const void* dh,
+                        void* dx, void* ddt, void* dA, void* dB, void* dC,
+                        void* dh0, void* work, int dtype, int B, int S, int C,
+                        int N, const long long* strides, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (N < 1 || N > 64 || B < 1 || B > 65535 || C < 1 || S < 0 ||
+      (S > kT && hsave == nullptr))
+    return cudaErrorInvalidValue;
+  const BwdArgs g{x, dt, A, Bm, Cm, h0, hsave, dy, dh,
+                  dx, ddt, dA, dB, dC, dh0, work};
+  if (dtype == 0) return dispatch_bwd<float>(g, B, S, C, N, strides, s);
+  if (dtype == 1)
+    return dispatch_bwd<__nv_bfloat16>(g, B, S, C, N, strides, s);
   return cudaErrorInvalidValue;
 }
 

@@ -2,10 +2,13 @@
 
 Replaces the Pallas kernel of the JAX package's ``kernels/moe_gating.py``:
 softmax over the experts, top-k by k argmaxes (ties to the lower index),
-renormalised.  The source is ``csrc/moe_gating.cu``, built by ``nvcc`` at
-first use (:mod:`._build`).  :func:`topk_gating` launches on the current
-stream and counts nothing: :func:`repro_torch.kernels.ops.topk_gating` is
-the wrapper that picks the plain version on the CPU and counts launches.
+renormalised; and its backward, :func:`topk_gating_bwd` (dlogits for the
+forward's picks, ``ref.topk_gating_bwd_ref``).  The source is
+``csrc/moe_gating.cu``, built by ``nvcc`` at first use (:mod:`._build`).
+Both launch on the current stream and count nothing:
+:func:`repro_torch.kernels.ops.topk_gating` is the wrapper that picks the
+plain version on the CPU, puts the backward under autograd and counts
+launches.
 """
 from __future__ import annotations
 
@@ -25,32 +28,46 @@ def _lib() -> ctypes.CDLL:
         p, i = ctypes.c_void_p, ctypes.c_int
         lib.topk_gating_launch.argtypes = [p, p, p, i, i, i, p]
         lib.topk_gating_launch.restype = i
+        lib.topk_gating_bwd_launch.argtypes = [p, p, p, p, p, i, i, i, p]
+        lib.topk_gating_bwd_launch.restype = i
         lib.moe_gating_error_string.argtypes = [i]
         lib.moe_gating_error_string.restype = ctypes.c_char_p
         lib._typed = True
     return lib
 
 
+def _check_logits(name: str, logits: torch.Tensor, k: int) -> None:
+    if logits.dim() != 2:
+        raise ValueError(f"{name} wants logits (T, E); got "
+                         f"{tuple(logits.shape)}")
+    E = logits.shape[1]
+    if logits.device.type != "cuda":
+        raise ValueError(f"{name}: the CUDA kernel takes a CUDA "
+                         f"tensor; got {logits.device}")
+    if logits.dtype != torch.float32:
+        raise TypeError(f"{name}: the CUDA kernel takes float32 "
+                        f"logits; got {logits.dtype}")
+    if not logits.is_contiguous():
+        raise ValueError(f"{name}: the CUDA kernel takes contiguous "
+                         "logits")
+    if not 1 <= E <= MAX_EXPERTS or not 1 <= k <= min(E, MAX_K):
+        raise ValueError(f"{name}: the CUDA kernel takes 1..."
+                         f"{MAX_EXPERTS} experts and 1 <= k <= min(E, "
+                         f"{MAX_K}); got E={E}, k={k}")
+
+
+def _raise_on(lib, err: int, name: str) -> None:
+    if err:
+        msg = lib.moe_gating_error_string(err).decode()
+        raise RuntimeError(f"{name}: kernel launch failed: CUDA error "
+                           f"{err} ({msg})")
+
+
 def topk_gating(logits: torch.Tensor, k: int):
     """logits (T, E) float32 contiguous on the card → probs (T, k) f32,
     idx (T, k) int32.  Raises on what the kernel does not take."""
-    if logits.dim() != 2:
-        raise ValueError(f"topk_gating wants logits (T, E); got "
-                         f"{tuple(logits.shape)}")
+    _check_logits("topk_gating", logits, k)
     T, E = logits.shape
-    if logits.device.type != "cuda":
-        raise ValueError(f"topk_gating: the CUDA kernel takes a CUDA "
-                         f"tensor; got {logits.device}")
-    if logits.dtype != torch.float32:
-        raise TypeError(f"topk_gating: the CUDA kernel takes float32 "
-                        f"logits; got {logits.dtype}")
-    if not logits.is_contiguous():
-        raise ValueError("topk_gating: the CUDA kernel takes contiguous "
-                         "logits")
-    if not 1 <= E <= MAX_EXPERTS or not 1 <= k <= min(E, MAX_K):
-        raise ValueError(f"topk_gating: the CUDA kernel takes 1..."
-                         f"{MAX_EXPERTS} experts and 1 <= k <= min(E, "
-                         f"{MAX_K}); got E={E}, k={k}")
     probs = torch.empty((T, k), dtype=torch.float32, device=logits.device)
     idx = torch.empty((T, k), dtype=torch.int32, device=logits.device)
     if T == 0:
@@ -59,8 +76,35 @@ def topk_gating(logits: torch.Tensor, k: int):
     err = lib.topk_gating_launch(
         logits.data_ptr(), probs.data_ptr(), idx.data_ptr(), T, E, k,
         torch.cuda.current_stream(logits.device).cuda_stream)
-    if err:
-        msg = lib.moe_gating_error_string(err).decode()
-        raise RuntimeError(f"topk_gating: kernel launch failed: CUDA error "
-                           f"{err} ({msg})")
+    _raise_on(lib, err, "topk_gating")
     return probs, idx
+
+
+def topk_gating_bwd(logits: torch.Tensor, idx: torch.Tensor,
+                    probs: torch.Tensor, dprobs: torch.Tensor
+                    ) -> torch.Tensor:
+    """The forward's logits (T, E), its picks idx (T, k) int32 and probs
+    (T, k) f32, and dprobs (T, k) f32, all contiguous on one card →
+    dlogits (T, E) f32.  Raises on what the kernel does not take."""
+    k = idx.shape[-1] if idx.dim() == 2 else 0
+    _check_logits("topk_gating_bwd", logits, k)
+    T = logits.shape[0]
+    for name, t, dtype in (("idx", idx, torch.int32),
+                           ("probs", probs, torch.float32),
+                           ("dprobs", dprobs, torch.float32)):
+        if t.shape != (T, k) or t.dtype != dtype or not t.is_contiguous() \
+                or t.device != logits.device:
+            raise ValueError(f"topk_gating_bwd: {name} must be a contiguous "
+                             f"({T}, {k}) {dtype} tensor on "
+                             f"{logits.device}; got {tuple(t.shape)} "
+                             f"{t.dtype} on {t.device}")
+    dlogits = torch.empty_like(logits)
+    if T == 0:
+        return dlogits
+    lib = _lib()
+    err = lib.topk_gating_bwd_launch(
+        logits.data_ptr(), probs.data_ptr(), idx.data_ptr(),
+        dprobs.data_ptr(), dlogits.data_ptr(), T, logits.shape[1], k,
+        torch.cuda.current_stream(logits.device).cuda_stream)
+    _raise_on(lib, err, "topk_gating_bwd")
+    return dlogits

@@ -5,16 +5,19 @@
     a gradient is asked for, through a ``torch.autograd.Function`` whose
     backward launches the backward kernel of the same source.
   * :func:`topk_gating` — softmax → top-k → renormalise router gating,
-    through the gating kernel (``csrc/moe_gating.cu``).
+    through the gating kernel (``csrc/moe_gating.cu``); under grad its
+    backward launches the gating backward kernel of the same source.
   * :func:`ssm_scan`    — the diagonal selective scan of a Mamba2 block,
-    through the scan kernel (``csrc/ssm_scan.cu``).
+    through the scan kernel (``csrc/ssm_scan.cu``); under grad the
+    forward also writes the state before every tile of 16 steps, and its
+    backward launches the scan's backward kernel of the same source,
+    which takes each tile's states again from there.
 
 As in :mod:`.lasso_cd`: tensors on the CPU take the plain version
-(:mod:`.ref`); CUDA tensors launch the kernel or raise, with no plain
-fallback.  Each launch adds one to :data:`LAUNCHES`, so a run can show
-that it went through the kernels.  ``topk_gating`` and ``ssm_scan`` have
-no backward kernel yet: on CUDA tensors that require a gradient they
-raise rather than return outputs that would carry none.
+(:mod:`.ref`; autograd differentiates it); CUDA tensors launch the
+kernel or raise, with no plain fallback.  Each launch adds one to
+:data:`LAUNCHES`, so a run can show that it went through the kernels:
+a backward counts under its own name (``*_bwd``).
 """
 from __future__ import annotations
 
@@ -29,7 +32,8 @@ from .ref import attention_ref, ssm_scan_ref, topk_gating_ref
 
 #: kernel name → launches since the last :func:`reset_launch_counts`
 LAUNCHES = {"flash_attention": 0, "flash_attention_bwd": 0,
-            "topk_gating": 0, "ssm_scan": 0}
+            "topk_gating": 0, "topk_gating_bwd": 0, "ssm_scan": 0,
+            "ssm_scan_bwd": 0}
 
 
 def reset_launch_counts() -> None:
@@ -95,23 +99,66 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     return _t(out)
 
 
-def _refuse_grad(name: str, *xs: torch.Tensor) -> None:
-    if _needs_grad(*xs):
-        raise NotImplementedError(
-            f"{name}: the CUDA kernel has no backward yet, so its output "
-            f"would carry no gradient (ROADMAP.md queue 2, the backward "
-            f"kernels of {name}); call it under torch.no_grad()")
+class _TopkGating(torch.autograd.Function):
+    """The gating kernel, and for dlogits the backward kernel; ``idx``
+    carries no gradient."""
+
+    @staticmethod
+    def forward(ctx, logits, k):
+        probs, idx = _mg.topk_gating(logits, k)
+        LAUNCHES["topk_gating"] += 1
+        ctx.save_for_backward(logits, idx, probs)
+        ctx.mark_non_differentiable(idx)
+        return probs, idx
+
+    @staticmethod
+    def backward(ctx, dprobs, _didx):
+        logits, idx, probs = ctx.saved_tensors
+        dlogits = _mg.topk_gating_bwd(logits, idx, probs,
+                                      dprobs.float().contiguous())
+        LAUNCHES["topk_gating_bwd"] += 1
+        return dlogits, None
 
 
 def topk_gating(logits: torch.Tensor, k: int):
     """(T, E) logits → (probs (T, k) f32, idx (T, k) int32).  See
-    :func:`.ref.topk_gating_ref`."""
+    :func:`.ref.topk_gating_ref`.  On CUDA, when grad is enabled and the
+    logits require it, probs carries a ``grad_fn`` whose backward is the
+    backward kernel (one count of ``topk_gating_bwd`` a call)."""
     if _on_cpu(logits):
         return topk_gating_ref(logits, k)
-    _refuse_grad("topk_gating", logits)
+    if _needs_grad(logits):
+        return _TopkGating.apply(logits, k)
     out = _mg.topk_gating(logits, k)
     LAUNCHES["topk_gating"] += 1
     return out
+
+
+class _SsmScan(torch.autograd.Function):
+    """The scan kernel writing its tile boundaries' states, and the
+    backward kernel from them.  ``dh`` is None when the caller drops the
+    final state."""
+
+    @staticmethod
+    def forward(ctx, x, dt, A, Bm, Cm, h0):
+        y, h, states = _ss.ssm_scan(x, dt, A, Bm, Cm, h0, save_states=True)
+        LAUNCHES["ssm_scan"] += 1
+        ctx.save_for_backward(x, dt, A, Bm, Cm, h0, states)
+        ctx.set_materialize_grads(False)
+        return y, h
+
+    @staticmethod
+    def backward(ctx, dy, dh):
+        x, dt, A, Bm, Cm, h0, states = ctx.saved_tensors
+        if dy is None:
+            dy = torch.zeros_like(x)
+        elif dy.dtype != x.dtype or dy.stride(-1) != 1:
+            dy = dy.to(x.dtype).contiguous()
+        if dh is not None:
+            dh = dh.float().contiguous()
+        grads = _ss.ssm_scan_bwd(x, dt, A, Bm, Cm, h0, states, dy, dh)
+        LAUNCHES["ssm_scan_bwd"] += 1
+        return grads
 
 
 def ssm_scan(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
@@ -119,11 +166,14 @@ def ssm_scan(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
              h0: Optional[torch.Tensor] = None):
     """x, dt (B, S, C); A (C,); Bm, Cm (B, S, N); h0 (B, C, N) or None →
     (y (B, S, C) in x.dtype, h (B, C, N) f32).  See
-    :func:`.ref.ssm_scan_ref`."""
+    :func:`.ref.ssm_scan_ref`.  On CUDA, when grad is enabled and an input
+    requires it, the outputs carry a ``grad_fn`` whose backward is the
+    backward kernel (one count of ``ssm_scan_bwd`` a call)."""
     xs = (x, dt, A, Bm, Cm) + (() if h0 is None else (h0,))
     if _on_cpu(*xs):
         return ssm_scan_ref(x, dt, A, Bm, Cm, h0)
-    _refuse_grad("ssm_scan", *xs)
+    if _needs_grad(*xs):
+        return _SsmScan.apply(x, dt, A, Bm, Cm, h0)
     out = _ss.ssm_scan(x, dt, A, Bm, Cm, h0)
     LAUNCHES["ssm_scan"] += 1
     return out

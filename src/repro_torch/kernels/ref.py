@@ -139,6 +139,28 @@ def topk_gating_ref(logits: torch.Tensor, k: int):
     return top_p, torch.cat(idx, dim=-1).to(torch.int32)
 
 
+def topk_gating_bwd_ref(logits: torch.Tensor, idx: torch.Tensor,
+                        probs: torch.Tensor,
+                        dprobs: torch.Tensor) -> torch.Tensor:
+    """The gradient of :func:`topk_gating_ref` at ``logits`` (T, E) for
+    the forward's picks ``idx`` and ``probs`` (T, k) and ``dprobs``, the
+    gradient of ``probs``: dlogits (T, E) f32, the formulas the CUDA
+    backward computes:
+
+        p = softmax(logits),  s = Σ_sel p  (the picks, in pick order),
+        dp_sel = (dprobs − Σ_k probs·dprobs) / s at ``idx``, 0 elsewhere,
+        dlogits = p ⊙ (dp − Σ_e p_e·dp_e).
+
+    The picks are the forward's, so ties go as they went there."""
+    p = torch.softmax(logits.float(), dim=-1)
+    idx = idx.long()
+    dq = dprobs.float()
+    s = p.gather(-1, idx).sum(dim=-1, keepdim=True)
+    coef = (dq - (probs.float() * dq).sum(dim=-1, keepdim=True)) / s
+    dp = torch.zeros_like(p).scatter(-1, idx, coef)
+    return p * (dp - (p * dp).sum(dim=-1, keepdim=True))
+
+
 def ssm_scan_ref(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
                  Bm: torch.Tensor, Cm: torch.Tensor,
                  h0: Optional[torch.Tensor] = None):
@@ -167,6 +189,57 @@ def ssm_scan_ref(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
     y = (torch.stack(ys, dim=1) if ys else
          torch.zeros((Bsz, 0, C), dtype=torch.float32, device=x.device))
     return y.to(x.dtype), h
+
+
+def ssm_scan_bwd_ref(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
+                     Bm: torch.Tensor, Cm: torch.Tensor,
+                     h0: Optional[torch.Tensor], dy: torch.Tensor,
+                     dh_final: Optional[torch.Tensor] = None):
+    """The gradients of :func:`ssm_scan_ref` at (x, dt, A, Bm, Cm, h0) for
+    ``dy`` (B, S, C), the gradient of y, and ``dh_final`` (B, C, N), that
+    of the final state (None: zeros) — the formulas the CUDA backward
+    computes.  With a_t = exp(dt_t ⊙ A) and u_t = dt_t ⊙ x_t, per step in
+    reverse, in f32 (g_t the gradient of h_t, seeded by dh_final):
+
+        g_t   = dy_t ⊗ C_t + a_{t+1} ⊙ g_{t+1}
+        dC_t  = Σ_c dy_t[c]·h_t[c, :]         dB_t  = Σ_c g_t[c, :]·u_t[c]
+        du_t  = Σ_n g_t·B_t                   da_t  = Σ_n g_t·h_{t−1}
+        dx = du·dt,  ddt = du·x + da·a·A,  dA = Σ_{b,t} da·a·dt,
+        dh0 = a_0 ⊙ g_0.
+
+    The states h_{t−1} are taken forward once (all S of them: B·S·C·N
+    floats).  Returns (dx, ddt, dA, dB, dC, dh0), each in its input's
+    type, as autograd gives them; dh0 is None when h0 is."""
+    Bsz, S, C = x.shape
+    N = Bm.shape[-1]
+    xf, dtf = x.float(), dt.float()
+    Bf, Cf, Af = Bm.float(), Cm.float(), A.float()
+    a = torch.exp(dtf * Af)                                    # (B, S, C)
+    u = dtf * xf
+    h = (torch.zeros((Bsz, C, N), dtype=torch.float32, device=x.device)
+         if h0 is None else h0.float())
+    hs = [h]                                                   # h_{t−1}
+    for t in range(S):
+        h = a[:, t, :, None] * h + u[:, t, :, None] * Bf[:, t][:, None, :]
+        hs.append(h)
+    dyf = dy.float()
+    g_next = (torch.zeros((Bsz, C, N), dtype=torch.float32, device=x.device)
+              if dh_final is None else dh_final.float())
+    du, da = torch.empty_like(xf), torch.empty_like(xf)
+    dB, dC = torch.empty_like(Bf), torch.empty_like(Cf)
+    for t in reversed(range(S)):
+        g = dyf[:, t, :, None] * Cf[:, t][:, None, :] + g_next
+        dC[:, t] = torch.einsum("bc,bcn->bn", dyf[:, t], hs[t + 1])
+        dB[:, t] = torch.einsum("bcn,bc->bn", g, u[:, t])
+        du[:, t] = torch.einsum("bcn,bn->bc", g, Bf[:, t])
+        da[:, t] = (g * hs[t]).sum(-1)
+        g_next = a[:, t, :, None] * g
+    dx = du * dtf
+    ddt = du * xf + da * a * Af
+    dA = (da * a * dtf).sum((0, 1))
+    dh0 = None if h0 is None else g_next.to(h0.dtype)
+    return (dx.to(x.dtype), ddt.to(dt.dtype), dA.to(A.dtype),
+            dB.to(Bm.dtype), dC.to(Cm.dtype), dh0)
 
 
 def lasso_partial_ref(Xb: torch.Tensor, r: torch.Tensor) -> torch.Tensor:

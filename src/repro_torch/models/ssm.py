@@ -15,7 +15,10 @@ which falls back to the scan kernel when the sequence does not split
 into whole chunks of ``min(128, S)`` (a prompt longer than 128 tokens
 and not a multiple of 128); ``ssm_impl="scan"`` always takes the kernel.
 Types as in the JAX package: ``dt`` is cast to the activation type
-before the kernel, A stays f32, the state ``h`` is f32.
+before the kernel, A stays f32, the state ``h`` is f32.  Training
+differentiates both forms: the SSD form is plain tensor code under
+autograd, and on the card the scan's backward is the scan's backward
+kernel (:func:`repro_torch.kernels.ops.ssm_scan`).
 """
 from __future__ import annotations
 
@@ -226,10 +229,14 @@ def _chunked_ssm_scan(xs, dt, A, Bm, Cm, h0):
     """The selective scan over the whole sequence in one kernel call.
 
     The JAX package splits S into ``default_chunk(S)`` pieces under
-    ``jax.checkpoint`` to bound the memory of *autodiff*.  Serving has no
-    backward, the recurrence is the same step for step and h is f32 in
-    both, so one call gives the same y and h with one launch instead of
-    one a piece, and the state is not written out between pieces."""
+    ``jax.checkpoint`` to bound the memory of *autodiff*: only the state
+    at each piece's boundary is kept, and each piece's steps are taken
+    again in the backward.  Here the kernel does that job itself: under
+    grad its forward writes the state before every tile of 16 steps, and
+    its backward kernel takes each tile's states again from there.  The
+    recurrence is the same step for step and h is f32 in both, so one
+    call gives the same y and h, with one launch instead of one a
+    piece."""
     return ops.ssm_scan(xs, dt, A, Bm, Cm, h0)
 
 

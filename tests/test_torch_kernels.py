@@ -1122,20 +1122,134 @@ def test_flash_attention_bwd_training_shape_equal_to_the_bit_on_card(cuda):
         assert torch.equal(x, y)
 
 
+# the backward kernels of topk_gating and ssm_scan: against their plain
+# versions (``ref.topk_gating_bwd_ref``, ``ref.ssm_scan_bwd_ref``), two
+# calls to the bit.  Gating: 1e-6 absolute (f32 sums over ≤ 128 experts
+# in another order).  Scan: against the plain version in f32, 1e-4 (f32)
+# or 1e-3 (bf16) of each gradient's largest value, plus for bf16 outputs
+# their own rounding (2⁻⁸ of the element); the sums run over up to 1,000
+# steps and 5,120 channels in another order.
+GPU_GATING_BWD_CASES = [(8192, 16, 2), (4096, 16, 2), (1000, 128, 1),
+                        (77, 128, 2), (33, 40, 3), (5, 8, 8), (3, 33, 32)]
+
+
 @pytest.mark.gpu
-def test_kernels_without_a_backward_raise_under_grad_on_card(cuda):
-    """topk_gating and ssm_scan have no backward kernel: asked for a
-    gradient on the card they raise; under no_grad they serve."""
-    logits = torch.randn((16, 8), device=cuda, requires_grad=True)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+@pytest.mark.parametrize("T,E,k", GPU_GATING_BWD_CASES)
+def test_topk_gating_bwd_kernel_matches_plain_on_card(cuda, T, E, k):
+    g = torch.Generator(device=cuda).manual_seed(T + E + k)
+    logits = torch.randn((T, E), generator=g, device=cuda)
+    logits[::5, 1] = logits[::5, 0]                  # ties
+    logits[1::7] = 0.5
+    dprobs = torch.randn((T, k), generator=g, device=cuda)
+    x = logits.clone().requires_grad_()
+    before = dict(tops.LAUNCHES)
+    probs, idx = tops.topk_gating(x, k)
+    assert probs.requires_grad and not idx.requires_grad
+    got, = torch.autograd.grad(probs, x, dprobs)
+    torch.cuda.synchronize()
+    assert tops.LAUNCHES["topk_gating"] == before["topk_gating"] + 1
+    assert tops.LAUNCHES["topk_gating_bwd"] == before["topk_gating_bwd"] + 1
+    want = tref.topk_gating_bwd_ref(logits, idx, probs.detach(), dprobs)
+    assert (got - want).abs().max().item() <= 1e-6
+    again = tmg.topk_gating_bwd(logits, idx, probs.detach(), dprobs)
+    assert torch.equal(got, again)
+
+
+GPU_SSM_BWD_CASES = [  # B, S, C, N, h0, dh, dtype
+    (1, 1000, 5120, 64, False, False, "bfloat16"),
+    (2, 77, 70, 20, True, True, "float32"),
+    (2, 16, 96, 64, True, False, "float32"),
+    (3, 200, 257, 33, False, True, "bfloat16"),
+    (1, 1, 32, 16, True, True, "float32"),
+    (2, 40, 64, 64, True, True, "float32"),
+    (1, 17, 40, 1, False, True, "float32"),
+]
+
+
+def _ssm_bwd_close(got, want, dtype, what):
+    want = want.float()
+    lim = (1e-4 if dtype == "float32" else 1e-3) * want.abs().max().item()
+    if dtype == "bfloat16":
+        lim = lim + 2.0 ** -8 * want.abs()
+    err = (got.float() - want).abs()
+    assert bool((err <= lim).all()), (what, err.max().item())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("strided", [False, True])
+@pytest.mark.parametrize("case", GPU_SSM_BWD_CASES)
+def test_ssm_scan_bwd_kernel_matches_plain_on_card(cuda, case, strided):
+    B, S, C, N, with_h0, with_dh, dtype = case
+    args = _cuda_ssm(cuda, B, S, C, N, with_h0, getattr(torch, dtype),
+                     strided=strided)
+    g = torch.Generator(device=cuda).manual_seed(S + C)
+    dy = torch.randn((B, S, C), generator=g, device=cuda).to(args[0].dtype)
+    dh = (torch.randn((B, C, N), generator=g, device=cuda) if with_dh
+          else None)
+    y, h, states = tss.ssm_scan(*args, save_states=True)
+    y0, h0_ = tss.ssm_scan(*args)          # saving the states changes no bit
+    assert torch.equal(y, y0) and torch.equal(h, h0_)
+    got = tss.ssm_scan_bwd(*args, states, dy, dh)
+    again = tss.ssm_scan_bwd(*args, states, dy, dh)
+    torch.cuda.synchronize()
+    for a, b in zip(got, again):
+        assert (a is None and b is None) or torch.equal(a, b)
+    f32 = [None if a is None else a.float() for a in args]
+    want = tref.ssm_scan_bwd_ref(*f32, dy.float(), dh)
+    for name, a, b in zip(["dx", "ddt", "dA", "dB", "dC", "dh0"], got, want):
+        assert (a is None) == (b is None), name
+        if a is not None:
+            assert a.shape == b.shape and a.dtype == (
+                torch.float32 if name in ("dA", "dh0") else args[0].dtype)
+            _ssm_bwd_close(a, b, dtype, name)
+
+
+@pytest.mark.gpu
+def test_ssm_scan_under_grad_launches_the_backward_on_card(cuda):
+    """Through ``ops.ssm_scan`` under autograd, with dh dropped (None) and
+    given: the gradients of every input equal the raw backward's."""
+    args = _cuda_ssm(cuda, 2, 100, 128, 64, True, torch.float32)
+    leaves = [a.clone().requires_grad_() for a in args]
+    dy = torch.randn((2, 100, 128), device=cuda)
+    for use_h in (False, True):
+        before = dict(tops.LAUNCHES)
+        y, h = tops.ssm_scan(*leaves)
+        loss = (y * dy).sum() + (h.sum() if use_h else 0.0)
+        grads = torch.autograd.grad(loss, leaves)
+        torch.cuda.synchronize()
+        assert tops.LAUNCHES["ssm_scan"] == before["ssm_scan"] + 1
+        assert tops.LAUNCHES["ssm_scan_bwd"] == before["ssm_scan_bwd"] + 1
+        _, _, states = tss.ssm_scan(*args, save_states=True)
+        raw = tss.ssm_scan_bwd(*args, states, dy,
+                               torch.ones_like(h) if use_h else None)
+        for a, b in zip(grads, raw):
+            assert torch.equal(a, b)
+
+
+@pytest.mark.gpu
+def test_backward_kernels_reject_what_they_do_not_take_on_card(cuda):
+    logits = torch.randn((16, 200), device=cuda, requires_grad=True)
+    with pytest.raises(ValueError, match="experts"):
         tops.topk_gating(logits, 2)
-    args = list(_cuda_ssm(cuda, 1, 8, 16, 16, True, torch.float32))
-    args[0] = args[0].requires_grad_()
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        tops.ssm_scan(*args)
-    with torch.no_grad():
-        tops.topk_gating(logits, 2)
-        tops.ssm_scan(*args)
+    idx = torch.zeros((16, 2), dtype=torch.int32, device=cuda)
+    p = torch.zeros((16, 2), device=cuda)
+    with pytest.raises(ValueError, match="experts"):
+        tmg.topk_gating_bwd(logits.detach(), idx, p, p)
+    with pytest.raises(ValueError, match="dprobs"):
+        tmg.topk_gating_bwd(logits.detach()[:, :16].contiguous(), idx, p,
+                            p.double())
+    x, dt, A, Bm, Cm, h0 = _cuda_ssm(cuda, 1, 40, 16, 16, True,
+                                     torch.float32)
+    _, _, states = tss.ssm_scan(x, dt, A, Bm, Cm, h0, save_states=True)
+    big = torch.zeros((1, 40, 65), device=cuda)
+    with pytest.raises(ValueError, match="at most 64"):
+        tss.ssm_scan_bwd(x, dt, A, big, big, None, states, x)
+    with pytest.raises(ValueError, match="states"):
+        tss.ssm_scan_bwd(x, dt, A, Bm, Cm, h0, states[1:], x)
+    with pytest.raises(ValueError, match="dy"):
+        tss.ssm_scan_bwd(x, dt, A, Bm, Cm, h0, states, x.bfloat16())
+    with pytest.raises(ValueError, match="dh"):
+        tss.ssm_scan_bwd(x, dt, A, Bm, Cm, h0, states, x, h0.mT)
     q = torch.zeros((1, 4, 2, 256), device=cuda)
     with pytest.raises(ValueError, match="head_dim"):
         tfa.flash_attention_bwd(q.transpose(1, 2), q.transpose(1, 2),

@@ -177,7 +177,7 @@ def test_templates_match_the_jax_package(arch, preset):
 
 
 @pytest.mark.parametrize("arch", ONCE_REFUSED)
-def test_families_not_ported_yet_raise(arch):
+def test_once_refused_archs_build_and_run(arch):
     """The xLSTM family and the vision and audio frontends raised
     NotImplementedError until the port had them.  Now nothing of the
     JAX package's zoo raises it: these build and run a forward, and only
