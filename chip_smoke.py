@@ -201,7 +201,9 @@
    each holding 40 launches of each wgmma-route kernel and none of the
    mma.sync route's; the backward kernel (and the forward's ``lse``) at
    layer 0's real inputs and at GQA, head-dim 80, windowed, Sq ≠ Skv,
-   ragged and unaligned shapes against its plain version, each on the
+   ragged and unaligned shapes (head dim 80 on the wgmma route, and one
+   element into its buffer on the mma.sync route) against its plain
+   version, each on the
    route it must take, timed with SDPA's forward and backward beside it
    (eager, and as device time from CUDA graphs), the wgmma kernels'
    registers and spills from ptxas (none may spill); a
@@ -230,12 +232,15 @@
    launches a step, all on the wgmma route, none of
    ``_chunked_attention``), a training step with every forward launch
    checked, the backward at layer 0's inputs against its plain version
-   and timed with SDPA's, a profiler window over a step.  HuBERT-XLarge
+   and timed with SDPA's, a profiler window over a step holding 24
+   launches of each wgmma-route kernel and none of the mma.sync
+   route's.  HuBERT-XLarge
    (``audio_phase``; 48 layers, 16 heads of 80, bidirectional):
    ``encode_step`` of 4 × 1,500 frames with every launch checked, the
    kernel timed at layer 0's non-causal inputs with SDPA, 3 timed
    encodes (48 launches each), a profiler window; then training as
-   InternVL2's on the mma.sync backward route.
+   InternVL2's, its backward on the wgmma route at head dim 80 (48
+   launches of each of its kernels in the window, none of mma.sync's).
 12. Training the moe and hybrid families, with the backward kernels of
    ``ssm_scan`` and ``topk_gating``.  Zamba2-2.7B (``zamba_train_phase``)
    at full width and depth, bf16, batch 4 × 2,000 (not a multiple of
@@ -244,10 +249,13 @@
    ZTRAIN_STEPS plain steps, then as many ``--strads --weight-decay 0``
    steps (5 of 10 blocks; every unscheduled block keeps its bits), each
    step 108 ``ssm_scan``, 54 ``ssm_scan_bwd``, 18 ``flash_attention``
-   and 9 backward launches on the mma.sync route (head dim 80);
+   and 9 backward launches on the wgmma route (head dim 80);
    ``ssm_scan_bwd`` at layer 0's inputs against its plain version (two
-   calls to the bit), timed beside the forward with and without its
-   saved states; a profiler window over a plain step; ZTRAIN_SSD_STEPS
+   calls to the bit), its resident blocks an SM (at least 2) and shared
+   memory a block from the occupancy API, timed beside the forward with
+   and without its saved states; a profiler window over a plain step (9
+   launches of each wgmma-route backward kernel, none of mma.sync's);
+   ZTRAIN_SSD_STEPS
    steps at 4 × 2,048 (the SSD form: no SSM kernel); an f32 step of one
    group (6 layers) with the kernels against the plain versions.
    Phi-3.5-MoE (``phi_train_phase``) at full width, depth cut to
@@ -4280,13 +4288,12 @@ def bwd_routes(route=None, n: int = 0) -> dict:
 
 def train_run(torch, ops, tfa, tlaunch, argv, on_step, layers: int,
               steps: int = TRAIN_STEPS, tokens: int = TRAIN_BATCH * TRAIN_SEQ,
-              route: str = "wgmma", attention: bool = True,
-              per_step: dict = None) -> tuple:
+              attention: bool = True, per_step: dict = None) -> tuple:
     """One ``launch.train.main`` run of ``steps`` steps with the launch
     counts set to 0 just before and read just after: 2 forward launches
     a layer a step (the forward and the group checkpoint's recompute) and
-    1 backward, every backward on ``route``; no launch at all for a model
-    without attention (``attention=False``); or ``per_step``'s counts a
+    1 backward, every backward on the wgmma route; no launch at all for
+    a model without attention (``attention=False``); or ``per_step``'s counts a
     step, when given.  The loss must fall; step ms is the median of steps
     2 on."""
     torch.cuda.synchronize()
@@ -4307,9 +4314,9 @@ def train_run(torch, ops, tfa, tlaunch, argv, on_step, layers: int,
         n = want["flash_attention_bwd"]
     check(launches == want, f"training run {argv[:2]} {argv[-4:]}: "
                             f"launches {launches}, expected {want}")
-    check(routes == bwd_routes(route, n),
+    check(routes == bwd_routes("wgmma", n),
           f"training run {argv[:2]} {argv[-4:]}: backward routes {routes}, "
-          f"expected {n} on {route}")
+          f"expected {n} on wgmma")
     losses = [h["loss"] for h in hist]
     check(len(hist) == steps and all(map(math.isfinite, losses)),
           f"training run: losses {losses}")
@@ -4446,10 +4453,11 @@ def bwd_check(torch, ref, tfa, q, k, v, kw, seed: int,
 # 32/8 at head dim 64 and Phi's 32/8 at 128 (bf16, the wgmma route), and
 # at 1,000 rows (a tail of 104, not a multiple of 128); Sq < Skv, Sq > Skv
 # with a window (rows that see no key), full attention, ragged, on the
-# wgmma route; a view one element into its buffer and Zamba2's head dim 80
-# (bf16, the mma.sync route); Zamba2's head dim 80 with a window, Sq < Skv
-# and Sq > Skv with ragged tails, and full attention, in f32 against the
-# f64 plain version
+# wgmma route; a view one element into its buffer (bf16, the mma.sync
+# route); Zamba2's head dim 80 with a window (bf16, the wgmma route) and
+# one element into its buffer (the mma.sync route); Zamba2's head dim 80
+# with a window, Sq < Skv and Sq > Skv with ragged tails, and full
+# attention, in f32 against the f64 plain version
 TRAIN_BWD_CASES = [
     (1, 2048, 2048, 32, 8, 64, True, None, "bfloat16"),
     (1, 2048, 2048, 32, 8, 128, True, None, "bfloat16"),
@@ -4460,6 +4468,7 @@ TRAIN_BWD_CASES = [
     (2, 129, 257, 4, 1, 64, False, None, "bfloat16"),
     (1, 1000, 1000, 32, 8, 64, True, None, "bfloat16", 1),
     (2, 1000, 1000, 32, 32, 80, True, 300, "bfloat16"),
+    (1, 1000, 1000, 32, 32, 80, True, 300, "bfloat16", 1),
     (2, 1000, 1000, 32, 32, 80, True, 300, "float32"),
     (2, 333, 1001, 8, 2, 64, True, None, "float32"),
     (1, 700, 333, 8, 2, 128, True, 100, "float32"),
@@ -4471,7 +4480,7 @@ def case_route(D: int, dtype: str, offset: int) -> str:
     """The backward route a TRAIN_BWD_CASES case must take."""
     if dtype == "float32":
         return "f32"
-    return "wgmma" if D in (64, 128) and not offset else "mma_sync"
+    return "wgmma" if D in (64, 80, 128) and not offset else "mma_sync"
 
 
 def bwd_ptxas() -> dict:
@@ -4481,8 +4490,10 @@ def bwd_ptxas() -> dict:
     regs = ptxas_kernels(_build.build_log["flash_attention"]["ptxas"])
     out = {n: regs.get(n) for n in (
         "flash_bwd_prep<64>", "flash_bwd_dkdv_wgmma<64>",
-        "flash_bwd_dq_wgmma<64,3>", "flash_bwd_prep<128>",
-        "flash_bwd_dkdv_wgmma<128>", "flash_bwd_dq_wgmma<128,2>")}
+        "flash_bwd_dq_wgmma<64,3>", "flash_bwd_prep<80>",
+        "flash_bwd_dkdv_wgmma<80>", "flash_bwd_dq_wgmma<80,3>",
+        "flash_bwd_prep<128>", "flash_bwd_dkdv_wgmma<128>",
+        "flash_bwd_dq_wgmma<128,2>")}
     check(all(r and r.get("spill_store_bytes") == 0
               and r.get("spill_load_bytes") == 0 for r in out.values()),
           f"flash_attention_bwd: the wgmma route's kernels spill or are "
@@ -4814,16 +4825,7 @@ def train_phase(torch, ops, ref, tfa, M, tlaunch, tstep, get_config, data,
     res["profile_strads_step"] = profile_window(
         torch, lambda: strads_step(state, batch), kernels, counts=True)
     for w in ("profile_plain_step", "profile_strads_step"):
-        counts = res[w].pop("counts")
-        bwd = {n: sum(c for k, c in counts.items() if n in k) for n in (
-            "flash_bwd_prep", "flash_bwd_dkdv_wgmma", "flash_bwd_dq_wgmma",
-            "flash_bwd_delta", "flash_bwd_dkdv_bf16", "flash_bwd_dq_bf16")}
-        res[w]["bwd_kernels"] = bwd
-        check(bwd == {"flash_bwd_prep": L, "flash_bwd_dkdv_wgmma": L,
-                      "flash_bwd_dq_wgmma": L, "flash_bwd_delta": 0,
-                      "flash_bwd_dkdv_bf16": 0, "flash_bwd_dq_bf16": 0},
-              f"training {w}: the backward's kernels {bwd}, expected the "
-              f"wgmma route's {L} each and none of the mma.sync route's")
+        wgmma_bwd_kernels(res[w], L, f"training {w}")
         print(f"training {w}: " + json.dumps(
             {k: v for k, v in res[w].items() if k != "top"}))
         for row in res[w]["top"][:8]:
@@ -4932,11 +4934,34 @@ def checked_train_step(torch, ops, ref, tstep, cfg, params, batch,
         first["attention"]
 
 
-def train_profile(torch, ops, tstep, cfg, state, batch, kernels) -> dict:
+def train_profile(torch, ops, tstep, cfg, state, batch, kernels,
+                  counts: bool = False) -> dict:
     """A profiler window over one plain training step (warmed first)."""
     step = tstep.make_train_step(cfg, tstep.TrainConfig(), donate=True)
     step(state, batch)
-    return profile_window(torch, lambda: step(state, batch), kernels)
+    return profile_window(torch, lambda: step(state, batch), kernels,
+                          counts=counts)
+
+
+BWD_KERNELS = ("flash_bwd_prep", "flash_bwd_dkdv_wgmma",
+               "flash_bwd_dq_wgmma", "flash_bwd_delta",
+               "flash_bwd_dkdv_bf16", "flash_bwd_dq_bf16")
+
+
+def wgmma_bwd_kernels(window: dict, n: int, tag: str) -> dict:
+    """The attention backward's kernels by name in a profiler window taken
+    with ``counts``: the wgmma route's prep, dK/dV and dQ ``n`` times
+    each, none of the mma.sync route's (its delta pass, its bf16 dK/dV
+    and dQ kernels)."""
+    counts = window.pop("counts")
+    bwd = {k: sum(c for name, c in counts.items() if k in name)
+           for k in BWD_KERNELS}
+    want = {k: n if k in BWD_KERNELS[:3] else 0 for k in BWD_KERNELS}
+    check(bwd == want, f"{tag}: the backward's kernels {bwd}, expected the "
+                       f"wgmma route's {n} each and none of the mma.sync "
+                       f"route's")
+    window["bwd_kernels"] = bwd
+    return bwd
 
 
 def xlstm_parity(torch, M, get_config, data, seed: int) -> dict:
@@ -5135,14 +5160,15 @@ def attn_kernels(ops):
 
 
 def zoo_train_phase(torch, ops, ref, tfa, M, tlaunch, tstep, layers_mod,
-                    cfg, seed: int, seq: int, route: str) -> dict:
+                    cfg, seed: int, seq: int) -> dict:
     """InternVL2-1B or HuBERT-XLarge at full width and depth, bf16, batch
     4 × ``seq`` (InternVL2: 2,048 tokens after 256 patch embeddings, 2,304
     queries; HuBERT: 1,500 frames) through ``launch.train.main``
     (ZOO_STEPS plain steps), with ``_chunked_attention`` counted (none
     may run on the card); then a checked training step, the backward
-    kernel at layer 0's inputs on ``route`` and timed, and a profiler
-    window over one step.  Returns (the numbers, the backward's entry,
+    kernel at layer 0's inputs (the wgmma route) and timed, and a
+    profiler window over one step holding L launches of each wgmma-route
+    kernel and none of the mma.sync route's.  Returns (the numbers, the backward's entry,
     the forward's training-shape entry)."""
     L = cfg.num_layers
     chunked = {"calls": 0}
@@ -5153,7 +5179,7 @@ def zoo_train_phase(torch, ops, ref, tfa, M, tlaunch, tstep, layers_mod,
             torch, ops, tfa, tlaunch, zoo_argv(cfg.name, seed, ZOO_STEPS,
                                                seq),
             lambda i, state, metrics: box.update(state=state), L,
-            steps=ZOO_STEPS, tokens=TRAIN_BATCH * seq, route=route)
+            steps=ZOO_STEPS, tokens=TRAIN_BATCH * seq)
         print(f"{cfg.name} training: " + json.dumps(res))
         state = box.pop("state")
         batch = data_batch(cfg, seq, ZOO_STEPS, seed)
@@ -5164,15 +5190,18 @@ def zoo_train_phase(torch, ops, ref, tfa, M, tlaunch, tstep, layers_mod,
     res["chunked_attention_calls"] = 0
     q, k, v, kw = first
     res["queries"] = q.shape[1]
-    res["bwd_layer0"] = bwd_check(torch, ref, tfa, q, k, v, kw, seed, route)
+    res["bwd_layer0"] = bwd_check(torch, ref, tfa, q, k, v, kw, seed,
+                                  "wgmma")
     bentry, fentry = bwd_timing(torch, ref, tfa, q, k, v, kw, seed)
     bentry["max_abs_err"] = max(res["bwd_layer0"][f"d{x}_max_abs_err"]
                                 for x in "qkv")
-    bentry["bwd_route"] = route
+    bentry["bwd_route"] = "wgmma"
     fentry["max_rel_err"] = res["bwd_layer0"]["forward_max_abs_err"]
     del first, q, k, v
-    res["profile_train_step"] = train_profile(torch, ops, tstep, cfg, state,
-                                              batch, attn_kernels(ops))
+    res["profile_train_step"] = train_profile(
+        torch, ops, tstep, cfg, state, batch, attn_kernels(ops), counts=True)
+    wgmma_bwd_kernels(res["profile_train_step"], L,
+                      f"{cfg.name} training profile")
     print(f"{cfg.name} training profile: " + json.dumps(
         {k: v for k, v in res["profile_train_step"].items() if k != "top"}))
     for row in res["profile_train_step"]["top"][:8]:
@@ -5234,7 +5263,7 @@ def vlm_phase(torch, ops, ref, tfa, M, serve_lm, tlaunch, tstep, layers_mod,
     torch.cuda.empty_cache()
     train, bentry, fentry = zoo_train_phase(
         torch, ops, ref, tfa, M, tlaunch, tstep, layers_mod, cfg, seed,
-        TRAIN_SEQ, "wgmma")
+        TRAIN_SEQ)
     check(train["queries"] == TRAIN_SEQ + cfg.frontend_tokens,
           f"{cfg.name} training: attention over {train['queries']} queries")
     return ({"serve": res, "train": train},
@@ -5249,8 +5278,9 @@ def audio_phase(torch, ops, ref, tfa, M, tlaunch, tstep, get_config, data,
     launch checked, the kernel timed at layer 0's inputs (non-causal,
     with SDPA), 3 timed encodes (48 launches each), the plain attention's
     logits beside the kernels' (printed), a profiler window; then
-    training on the mma.sync backward route.  Returns (the numbers, the
-    flash_attention entries by shape, the backward's entry)."""
+    training on the wgmma backward route (head dim 80).  Returns (the
+    numbers, the flash_attention entries by shape, the backward's
+    entry)."""
     cfg = get_config(AUDIO)
     L = cfg.num_layers
     torch.cuda.reset_peak_memory_stats()
@@ -5314,7 +5344,7 @@ def audio_phase(torch, ops, ref, tfa, M, tlaunch, tstep, get_config, data,
     torch.cuda.empty_cache()
     train, bentry, fentry = zoo_train_phase(
         torch, ops, ref, tfa, M, tlaunch, tstep, layers_mod, cfg, seed,
-        AUDIO_FRAMES, "mma_sync")
+        AUDIO_FRAMES)
     return ({"encode": res, "train": train},
             {f"{AUDIO} encode": encode_attn, f"{AUDIO} training": fentry},
             bentry)
@@ -5393,17 +5423,16 @@ def layer0_inputs(torch, ops, tstep, tree_flatten, cfg, params,
     return first, float(loss)
 
 
-def attn_bwd_layer0(torch, ref, tfa, first: dict, route: str,
-                    seed: int) -> tuple:
+def attn_bwd_layer0(torch, ref, tfa, first: dict, seed: int) -> tuple:
     """The attention backward at layer 0's inputs of a training step on
-    ``route``, against its plain version and timed with SDPA's (as the
-    zoo's training phases do).  Returns (the check, the backward's entry,
-    the forward's)."""
+    the wgmma route, against its plain version and timed with SDPA's (as
+    the zoo's training phases do).  Returns (the check, the backward's
+    entry, the forward's)."""
     q, k, v, kw = first.pop("attention")
-    checked = bwd_check(torch, ref, tfa, q, k, v, kw, seed, route)
+    checked = bwd_check(torch, ref, tfa, q, k, v, kw, seed, "wgmma")
     bentry, fentry = bwd_timing(torch, ref, tfa, q, k, v, kw, seed)
     bentry.update(max_abs_err=max(checked[f"d{x}_max_abs_err"]
-                                  for x in "qkv"), bwd_route=route)
+                                  for x in "qkv"), bwd_route="wgmma")
     fentry["max_rel_err"] = checked["forward_max_abs_err"]
     return checked, bentry, fentry
 
@@ -5468,6 +5497,9 @@ def ssm_bwd_phase(torch, ref, tss, args, seed: int) -> dict:
     del want, got, again, st32, f32
     B, S, C = x.shape
     N = Bm.shape[-1]
+    blocks, smem = tss.ssm_scan_bwd_occupancy(x.dtype, N)
+    check(blocks >= 2, f"ssm_scan_bwd: {blocks} resident block(s) an SM at "
+                       f"{smem} bytes of shared memory, expected 2 or more")
     e = x.element_size()
     nbytes = (5 * B * S * C * e + 4 * B * S * N * e + 8 * C
               + 4 * states.numel() + (8 * B * C * N if h0 is not None else 0))
@@ -5489,7 +5521,8 @@ def ssm_bwd_phase(torch, ref, tss, args, seed: int) -> dict:
         "tolerance": f"{SSM_BWD_TOL} of each gradient's max|plain| (f32 "
                      f"plain) plus the output's rounding (bf16: 2^-8 of the "
                      f"element)",
-        "same_bits_twice": True,
+        "same_bits_twice": True, "blocks_per_sm": blocks,
+        "smem_bytes_per_block": smem,
         "states_gb": states.numel() * 4 / 1e9,
         "forward_device_ms": graph_ms(torch, fwd, calls=10, replays=5),
         "forward_saving_states_device_ms": graph_ms(torch, fwd_save,
@@ -5601,8 +5634,8 @@ def zamba_train_phase(torch, ops, ref, tfa, M, tlaunch, tstep, get_config,
     block after every 6), bf16, batch 4 × ZTRAIN_SEQ through
     ``launch.train.main``: plain steps, then ``--strads --weight-decay 0``
     steps (an unscheduled block keeps its bits), every scan through
-    ``ssm_scan`` and ``ssm_scan_bwd``, attention on the mma.sync route
-    (head dim 80); then plain steps at 4 × ZTRAIN_SSD_SEQ (the SSD form,
+    ``ssm_scan`` and ``ssm_scan_bwd``, attention's backward on the wgmma
+    route (head dim 80); then plain steps at 4 × ZTRAIN_SSD_SEQ (the SSD form,
     no SSM kernel); ``ssm_scan_bwd`` at layer 0's inputs; an f32 step of
     one group against the plain versions; a profiler window over a plain
     step.  Returns (the ``ssm_scan_bwd`` entry, the numbers)."""
@@ -5620,7 +5653,7 @@ def zamba_train_phase(torch, ops, ref, tfa, M, tlaunch, tstep, get_config,
                                            ZTRAIN_SEQ),
         lambda i, state, metrics: box.update(state=state), L,
         steps=ZTRAIN_STEPS, tokens=TRAIN_BATCH * ZTRAIN_SEQ,
-        route="mma_sync", per_step=per_step)
+        per_step=per_step)
     res["launches_a_step"] = per_step
     print("zamba2 training plain: " + json.dumps(res["plain"]))
     box.clear()
@@ -5634,8 +5667,7 @@ def zamba_train_phase(torch, ops, ref, tfa, M, tlaunch, tstep, get_config,
             ZAMBA, seed, ZTRAIN_STEPS, ZTRAIN_SEQ, "--strads",
             "--weight-decay", "0"),
         strads_check, L, steps=ZTRAIN_STEPS,
-        tokens=TRAIN_BATCH * ZTRAIN_SEQ, route="mma_sync",
-        per_step=per_step)
+        tokens=TRAIN_BATCH * ZTRAIN_SEQ, per_step=per_step)
     check(len(sstats["blocks_active"]) == ZTRAIN_STEPS,
           f"zamba2 STRADS: {len(sstats['blocks_active'])} steps checked")
     res["strads"].update(sstats, U=U, blocks=G + 1,
@@ -5650,7 +5682,7 @@ def zamba_train_phase(torch, ops, ref, tfa, M, tlaunch, tstep, get_config,
     kentry = ssm_bwd_phase(torch, ref, tss, first.pop("ssm"), seed)
     print("ssm_scan_bwd at layer 0's inputs: " + json.dumps(kentry))
     res["attn_bwd_layer0"], res["attn_bwd"], res["attn_fwd"] = \
-        attn_bwd_layer0(torch, ref, tfa, first, "mma_sync", seed)
+        attn_bwd_layer0(torch, ref, tfa, first, seed)
     print("zamba2 training: flash_attention_bwd at layer 0's inputs: "
           + json.dumps(res["attn_bwd"]))
     torch.cuda.empty_cache()
@@ -5660,7 +5692,10 @@ def zamba_train_phase(torch, ops, ref, tfa, M, tlaunch, tstep, get_config,
         torch, ops, tstep, cfg, state, batch,
         {"ssm_scan": (ops.LAUNCHES, ("ssm_scan_fwd<", "ssm_scan_fwdI")),
          "ssm_scan_bwd": (ops.LAUNCHES, ("ssm_scan_bwd<", "ssm_scan_bwdI")),
-         "flash_attention_bwd": (ops.LAUNCHES, ("flash_bwd_dq",))})
+         "flash_attention_bwd": (ops.LAUNCHES, ("flash_bwd_dq_wgmma",))},
+        counts=True)
+    wgmma_bwd_kernels(res["profile_plain_step"], G,
+                      "zamba2 training profile_plain_step")
     print_profile("zamba2 training profile_plain_step",
                   res["profile_plain_step"])
     del state, batch, first
@@ -5671,7 +5706,7 @@ def zamba_train_phase(torch, ops, ref, tfa, M, tlaunch, tstep, get_config,
         torch, ops, tfa, tlaunch, zoo_argv(ZAMBA, seed, ZTRAIN_SSD_STEPS,
                                            ZTRAIN_SSD_SEQ),
         lambda i, state, metrics: None, L, steps=ZTRAIN_SSD_STEPS,
-        tokens=TRAIN_BATCH * ZTRAIN_SSD_SEQ, route="mma_sync",
+        tokens=TRAIN_BATCH * ZTRAIN_SSD_SEQ,
         per_step=family_per_step(cfg, L, scan=False))
     res["ssd"]["seq"] = ZTRAIN_SSD_SEQ
     print("zamba2 training SSD form (4 x 2048): " + json.dumps(res["ssd"]))
@@ -5719,7 +5754,7 @@ def phi_train_phase(torch, ops, ref, tfa, M, tlaunch, tstep, get_config,
                                    "--layers", str(L), *extra)
     _, res["plain"] = train_run(
         torch, ops, tfa, tlaunch, argv(), lambda i, state, metrics: None, L,
-        steps=PHI_TRAIN_STEPS, route="wgmma", per_step=per_step)
+        steps=PHI_TRAIN_STEPS, per_step=per_step)
     print("phi3.5-moe training plain: " + json.dumps(res["plain"]))
     torch.cuda.empty_cache()
 
@@ -5729,8 +5764,7 @@ def phi_train_phase(torch, ops, ref, tfa, M, tlaunch, tstep, get_config,
                                                 box)
     _, res["strads"] = train_run(
         torch, ops, tfa, tlaunch, argv("--strads", "--weight-decay", "0"),
-        strads_check, L, steps=PHI_TRAIN_STEPS, route="wgmma",
-        per_step=per_step)
+        strads_check, L, steps=PHI_TRAIN_STEPS, per_step=per_step)
     check(len(sstats["blocks_active"]) == PHI_TRAIN_STEPS,
           f"phi STRADS: {len(sstats['blocks_active'])} steps checked")
     res["strads"].update(sstats, U=U, blocks=L + 1,
@@ -5749,7 +5783,7 @@ def phi_train_phase(torch, ops, ref, tfa, M, tlaunch, tstep, get_config,
     kentry = gating_bwd_phase(torch, ref, tmg, logits, k, seed)
     print("topk_gating_bwd at layer 0's logits: " + json.dumps(kentry))
     res["attn_bwd_layer0"], res["attn_bwd"], res["attn_fwd"] = \
-        attn_bwd_layer0(torch, ref, tfa, first, "wgmma", seed)
+        attn_bwd_layer0(torch, ref, tfa, first, seed)
     print("phi3.5-moe training: flash_attention_bwd at layer 0's inputs: "
           + json.dumps(res["attn_bwd"]))
     res["profile_plain_step"] = train_profile(

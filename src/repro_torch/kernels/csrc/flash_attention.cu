@@ -775,10 +775,11 @@ cudaError_t dispatch_bf16(const void* q, const void* k, const void* v,
 // wrapper's bwd_route is its mirror) from the dtype, head dim and
 // alignment, never from a failed launch:
 //
-// wgmma (bf16 at D = 64 or 128, q, k, v, o, dO with 16-byte aligned bases
-// and strides; MiniCPM-2B's training call, GQA 32/8 at both head dims):
-// flash_bwd_prep, then flash_bwd_dkdv_wgmma and flash_bwd_dq_wgmma (the
-// section "bf16 on Hopper" below).  Bound at the training shape (4, 2048,
+// wgmma (bf16 at D = 64, 80 or 128, q, k, v, o, dO with 16-byte aligned
+// bases and strides; MiniCPM-2B's training call, GQA 32/8 at 64 and 128,
+// HuBERT-XLarge's and Zamba2-2.7B's head dim 80): flash_bwd_prep, then
+// flash_bwd_dkdv_wgmma and flash_bwd_dq_wgmma (the section "bf16 on
+// Hopper" below).  Bound at the training shape (4, 2048,
 // 48, 64) causal: operations, 10 D a visible pair (five products of 2 D)
 // at 989 TFLOP/s, 0.261 ms; the bytes take 0.04 ms.  This split design
 // runs seven products (S and dP twice), 3.6e11 operations, and the
@@ -811,8 +812,18 @@ cudaError_t dispatch_bf16(const void* q, const void* k, const void* v,
 //     0.97, 48 bytes spilled at 160 registers;
 //   * K_w, V_w (Q_w, dO_w in dQ) as register A operands loaded by
 //     ldmatrix: 0.98 against 1.02, with wrong gradients, not pursued.
+// Head dim 80: 160 bytes a row are not a whole 128-byte swizzle row, so a
+// tile is laid out as at D = 128, two 64-column halves, and the second
+// box's columns 80..127 lie past the tensor map's inner extent (80): TMA
+// fills them with zeros without reading memory.  The products are those
+// of D = 80: S and dP take 5 k16 steps (4 on the first half, 1 on the
+// second), and dV, dK, dQ are m64n80k16 (N = D read MN-major across both
+// halves, `lbo` apart); the stores write the 80 columns.  Tried in turns
+// (tools/attn_bwd_turns.py) and not kept: the D = 128 kernels on the same
+// zero-filled tiles (1.6x the products) and dQ on 2 consumer warpgroups;
+// PERF.md has their times.
 //
-// mma_sync (every other bf16 call: D = 80, D % 8 != 0, unaligned views):
+// mma_sync (every other bf16 call: D not 64, 80 or 128, unaligned views):
 // flash_bwd_delta, then the dk/dv kernel (one block per kv tile of 64
 // keys, kv head and batch row, walking the G query heads of its group and
 // every q tile that sees the tile) and the dq kernel (one block per q tile
@@ -1463,7 +1474,7 @@ flash_bwd_dq_bf16(const bf16* __restrict__ q, const bf16* __restrict__ k,
 // 64-row slab, and a last warpgroup that produces, one thread issuing TMA
 // copies (its registers lowered to 24 by setmaxnreg, the consumers' raised
 // to what that frees).  Tiles land 128-byte swizzled (64 bf16 = one
-// 128-byte row; D = 128 as two 64-column halves) in shared memory, where
+// 128-byte row; D = 80 and 128 as two 64-column halves) in shared memory, where
 // wgmma reads them through descriptors.  A ring of kRing stages, each with
 // a full barrier (the producer's expect_tx, then TMA's bytes) and an empty
 // one (one arrival from each consumer thread), replaces the block-wide
@@ -1479,6 +1490,17 @@ constexpr int kRing = 4;                 // stages of the streamed ring
 constexpr int kSwRow = 128;              // bytes of one swizzled row
 constexpr int kBwdPad = 384;             // the padded lse/delta rows: a
                                          // multiple of a dQ block's rows
+
+// Columns a tile row takes in shared memory: whole 64-column halves.
+__host__ __device__ constexpr int bwd_width(int DP) {
+  return (DP + 63) / 64 * 64;
+}
+
+// dQ's consumer warpgroups: 3 where their registers fit 160 a thread
+// (D = 64, 80), 2 at D = 128.
+__host__ __device__ constexpr int dq_consumers(int DP) {
+  return DP == 128 ? 2 : 3;
+}
 
 __device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
   asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar),
@@ -1535,14 +1557,14 @@ __device__ __forceinline__ void bulk_load(uint32_t dst, const void* src,
 }
 
 // Rows [row, row + 64) of the (h, b) slice of `map`, all DP columns, into
-// rows [r_off, r_off + 64) of a tile of ROWS rows laid out as DP / 64
-// column halves of ROWS swizzled rows each.
+// rows [r_off, r_off + 64) of a tile of ROWS rows laid out as
+// bwd_width(DP) / 64 column halves of ROWS swizzled rows each.
 template <int DP, int ROWS>
 __device__ __forceinline__ void tma_slab(const CUtensorMap* map, uint32_t tile,
                                          int r_off, int row, int h, int b,
                                          uint32_t bar) {
 #pragma unroll
-  for (int c = 0; c < DP / 64; ++c)
+  for (int c = 0; c < bwd_width(DP) / 64; ++c)
     tma_load_4d(tile + (c * ROWS + r_off) * kSwRow, map, 64 * c, row, h, b,
                 bar);
 }
@@ -1644,6 +1666,36 @@ __device__ __forceinline__ void wgmma_rs_n64(float (&d)[32],
         "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
         "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
         "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db),
+        "r"(accumulate));
+}
+
+// d (64 x 80, f32) (+)= A (64 x 16, bf16 pairs in registers, the mma.sync
+// A layout a warp) B (16 x 80, MN-major in shared memory: columns 0..63 in
+// one 64-column half, 64..79 in the next, `lbo` on); `accumulate` 0
+// overwrites d.
+__device__ __forceinline__ void wgmma_rs_n80(float (&d)[40],
+                                            const uint32_t (&a)[4],
+                                            uint64_t db, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %45, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n80k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7,"
+      "%8, %9, %10, %11, %12, %13, %14, %15,"
+      "%16, %17, %18, %19, %20, %21, %22, %23,"
+      "%24, %25, %26, %27, %28, %29, %30, %31,"
+      "%32, %33, %34, %35, %36, %37, %38, %39}, "
+      "{%40, %41, %42, %43}, %44, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db),
         "r"(accumulate));
 }
@@ -1767,6 +1819,13 @@ __device__ __forceinline__ void wgmma_rs<64>(float (&d)[32],
 }
 
 template <>
+__device__ __forceinline__ void wgmma_rs<80>(float (&d)[40],
+                                             const uint32_t (&a)[4],
+                                             uint64_t db) {
+  wgmma_rs_n80(d, a, db, 1);
+}
+
+template <>
 __device__ __forceinline__ void wgmma_rs<128>(float (&d)[64],
                                               const uint32_t (&a)[4],
                                               uint64_t db) {
@@ -1775,28 +1834,31 @@ __device__ __forceinline__ void wgmma_rs<128>(float (&d)[64],
 
 // Rows row0 + 16 wi + g (+ 8) of an m64nDP accumulator (columns 8 j + 2 t,
 // + 1 in acc[4 j + 2 hr + {0, 1}]), times mul, to dst (rows past `rows`
-// left out).
+// and columns past `cols` left out).
 template <int DP>
 __device__ __forceinline__ void store_slab(bf16* dst, long long stride,
                                            const float (&acc)[DP / 2],
                                            float mul, int row0, int rows,
-                                           int g, int t) {
+                                           int cols, int g, int t) {
 #pragma unroll
   for (int hr = 0; hr < 2; ++hr) {
     const int row = row0 + g + 8 * hr;
     if (row >= rows) continue;
 #pragma unroll
     for (int j = 0; j < DP / 8; ++j)
-      *reinterpret_cast<uint32_t*>(dst + row * stride + 8 * j + 2 * t) =
-          pack_bf16(acc[4 * j + 2 * hr] * mul, acc[4 * j + 2 * hr + 1] * mul);
+      if (8 * j < cols)
+        *reinterpret_cast<uint32_t*>(dst + row * stride + 8 * j + 2 * t) =
+            pack_bf16(acc[4 * j + 2 * hr] * mul,
+                      acc[4 * j + 2 * hr + 1] * mul);
   }
 }
 
 // Shared memory of flash_bwd_dkdv_wgmma, in bytes from a 1,024-aligned base.
 template <int DP>
 struct DkdvSmem {
-  static constexpr int kTile = kKvTile * DP * 2;   // K or V, kept
-  static constexpr int kStage = kSlab * DP * 2;    // Q or dO, streamed
+  static constexpr int W = bwd_width(DP);          // columns a tile row
+  static constexpr int kTile = kKvTile * W * 2;    // K or V, kept
+  static constexpr int kStage = kSlab * W * 2;     // Q or dO, streamed
   static constexpr int K = 0, V = kTile, Q = 2 * kTile,
                        O = Q + kRing * kStage, L = O + kRing * kStage,
                        Dl = L + kRing * kSlab * 4, Bar = Dl + kRing * kSlab * 4,
@@ -1806,8 +1868,9 @@ struct DkdvSmem {
 // Shared memory of flash_bwd_dq_wgmma with NC consumer warpgroups.
 template <int DP, int NC>
 struct DqSmem {
-  static constexpr int kTile = NC * kSlab * DP * 2;  // Q or dO, kept
-  static constexpr int kStage = kSlab * DP * 2;    // K or V, streamed
+  static constexpr int W = bwd_width(DP);          // columns a tile row
+  static constexpr int kTile = NC * kSlab * W * 2;   // Q or dO, kept
+  static constexpr int kStage = kSlab * W * 2;     // K or V, streamed
   static constexpr int Q = 0, O = kTile, K = 2 * kTile,
                        V = K + kRing * kStage, Bar = V + kRing * kStage,
                        bytes = Bar + (2 * kRing + 1) * 8 + 1024;
@@ -1839,8 +1902,8 @@ flash_bwd_dkdv_wgmma(const __grid_constant__ CUtensorMap tq,
                      const float* __restrict__ ll,
                      const float* __restrict__ dl, bf16* __restrict__ dk,
                      bf16* __restrict__ dv, Strides dks, Strides dvs, int Hq,
-                     int Hkv, int G, int Sq, int Sq_pad, int Skv, int causal,
-                     int window, float scale_log2, float scale) {
+                     int Hkv, int G, int Sq, int Sq_pad, int Skv, int D,
+                     int causal, int window, float scale_log2, float scale) {
   using Sm = DkdvSmem<DP>;
   extern __shared__ __align__(1024) unsigned char smem_raw[];
   unsigned char* sm = align1024(smem_raw);
@@ -2023,9 +2086,9 @@ flash_bwd_dkdv_wgmma(const __grid_constant__ CUtensorMap tq,
     if (wg == 0 && n > 0) turn_wait(wg);        // warpgroup 1's last pass
     BWD_STAMP_END(0, n);
     store_slab<DP>(dk + b * dks.b + hk * dks.h, dks.s, dk_acc, scale,
-                   kw0 + 16 * wi, Skv, g, t);
+                   kw0 + 16 * wi, Skv, D, g, t);
     store_slab<DP>(dv + b * dvs.b + hk * dvs.h, dvs.s, dv_acc, 1.f,
-                   kw0 + 16 * wi, Skv, g, t);
+                   kw0 + 16 * wi, Skv, D, g, t);
   }
 }
 
@@ -2047,7 +2110,7 @@ flash_bwd_dq_wgmma(const __grid_constant__ CUtensorMap tq,
                    const __grid_constant__ CUtensorMap tdo,
                    const float* __restrict__ ll, const float* __restrict__ dl,
                    bf16* __restrict__ dq, Strides dqs, int Hq, int G, int Sq,
-                   int Sq_pad, int Skv, int causal, int window,
+                   int Sq_pad, int Skv, int D, int causal, int window,
                    float scale_log2, float scale) {
   using Sm = DqSmem<DP, NC>;
   constexpr int QT = NC * kSlab;                // q rows a block
@@ -2212,29 +2275,35 @@ flash_bwd_dq_wgmma(const __grid_constant__ CUtensorMap tq,
     if (wg == 0 && nt > 0) turn_wait(wg);       // the last one's last pass
     BWD_STAMP_END(1, nt);
     store_slab<DP>(dq + b * dqs.b + h * dqs.h, dqs.s, dq_acc, scale,
-                   r0 + 16 * wi, Sq, g, t);
+                   r0 + 16 * wi, Sq, D, g, t);
   }
 }
 
 // Before the wgmma kernels: ll = lse * log2(e) (+inf where lse = -inf, a
 // row that sees no key, and on the rows past Sq) and dl = delta (0 past
 // Sq), both (B, Hq, Sq_pad) so the producer's 256-byte copies stay inside
-// one (b, h) row and 16-byte aligned.  D / 8 threads a row, each reading
-// 16 bytes of o and of dO (the route's views are 16-byte aligned).
+// one (b, h) row and 16-byte aligned.  prep_lanes(DP) threads a row (D / 8
+// rounded up to a power of two), each reading 16 bytes of o and of dO (the
+// route's views are 16-byte aligned) below column D.
+__host__ __device__ constexpr int prep_lanes(int DP) {
+  return DP <= 64 ? 8 : 16;
+}
+
 template <int DP>
 __global__ void __launch_bounds__(256)
 flash_bwd_prep(const bf16* __restrict__ o, const bf16* __restrict__ dout,
                const float* __restrict__ lse, float* __restrict__ ll,
                float* __restrict__ dl, Strides os, Strides ds, int Hq, int Sq,
-               int Sq_pad, long long rows) {
-  constexpr int CH = DP / 8;                   // threads a row
+               int Sq_pad, int D, long long rows) {
+  constexpr int CH = prep_lanes(DP);           // threads a row
+  static_assert(8 * CH >= DP && 4 * CH < DP, "a power of two >= D / 8");
   const long long idx = (long long)blockIdx.x * 256 + threadIdx.x;
   const long long row = idx / CH;
   const int c = (int)(idx % CH) * 8;
   const int i = (int)(row % Sq_pad);
   const long long bh = row / Sq_pad;
   float acc = 0.f;
-  if (row < rows && i < Sq) {
+  if (row < rows && i < Sq && c < D) {
     const int h = (int)(bh % Hq);
     const long long b = bh / Hq;
     const uint4 ov = *reinterpret_cast<const uint4*>(
@@ -2318,14 +2387,15 @@ bool tma_view(const void* p, int B, int H, int S, const long long* st) {
 
 // The route of a backward call (repro_torch/kernels/flash_attention.py::
 // bwd_route is its mirror): 0 the f32 kernels; for bf16, 2 the TMA/wgmma
-// kernels when D is 64 or 128 and q, k, v, o and dO are TMA views (o for
-// the prep pass's 16-byte loads), else 1, the mma.sync kernels (D = 80,
-// D % 8 != 0, unaligned views).
+// kernels when D is 64, 80 or 128 and q, k, v, o and dO are TMA views (o
+// for the prep pass's 16-byte loads), else 1, the mma.sync kernels (other
+// head dims, unaligned views).
 int bwd_route(const void* q, const void* k, const void* v, const void* o,
               const void* dout, int dtype, int B, int Hq, int Hkv, int Sq,
               int Skv, int D, const long long* st) {
   if (dtype == 0) return 0;
-  const bool tma = (D == 64 || D == 128) && tma_view(q, B, Hq, Sq, st) &&
+  const bool tma = (D == 64 || D == 80 || D == 128) &&
+                   tma_view(q, B, Hq, Sq, st) &&
                    tma_view(k, B, Hkv, Skv, st + 3) &&
                    tma_view(v, B, Hkv, Skv, st + 6) &&
                    tma_view(o, B, Hq, Sq, st + 9) &&
@@ -2333,13 +2403,15 @@ int bwd_route(const void* q, const void* k, const void* v, const void* o,
   return tma ? 2 : 1;
 }
 
-// The wgmma route: the prep pass, then the dK/dV and the dQ kernels.
+// The wgmma route: the prep pass, then the dK/dV and the dQ kernels, on
+// tiles of DP columns; D (<= DP) the head dim the tensor maps read and the
+// stores write.
 template <int DP>
 cudaError_t launch_bwd_wgmma(const void* q, const void* k, const void* v,
                              const void* o, const void* dout,
                              const float* lse, float* ll, float* dl, void* dq,
                              void* dk, void* dv, int B, int Hq, int Hkv,
-                             int Sq, int Skv, int Sq_pad,
+                             int Sq, int Skv, int D, int Sq_pad,
                              const long long* st, int causal, int window,
                              float scale, cudaStream_t stream) {
   const Strides qs{st[0], st[1], st[2]}, ks{st[3], st[4], st[5]},
@@ -2347,16 +2419,16 @@ cudaError_t launch_bwd_wgmma(const void* q, const void* k, const void* v,
       dos{st[12], st[13], st[14]}, dqs{st[15], st[16], st[17]},
       dks{st[18], st[19], st[20]}, dvs{st[21], st[22], st[23]};
   CUtensorMap tq, tk, tv, tdo;
-  if (!tensor_map(&tq, q, B, Hq, Sq, DP, qs) ||
-      !tensor_map(&tk, k, B, Hkv, Skv, DP, ks) ||
-      !tensor_map(&tv, v, B, Hkv, Skv, DP, vs) ||
-      !tensor_map(&tdo, dout, B, Hq, Sq, DP, dos))
+  if (D > DP || !tensor_map(&tq, q, B, Hq, Sq, D, qs) ||
+      !tensor_map(&tk, k, B, Hkv, Skv, D, ks) ||
+      !tensor_map(&tv, v, B, Hkv, Skv, D, vs) ||
+      !tensor_map(&tdo, dout, B, Hq, Sq, D, dos))
     return cudaErrorInvalidValue;
   const long long rows = (long long)B * Hq * Sq_pad;
-  const long long prep_blocks = (rows * (DP / 8) + 255) / 256;
+  const long long prep_blocks = (rows * prep_lanes(DP) + 255) / 256;
   const long long kv_blocks =
       (long long)((Skv + kKvTile - 1) / kKvTile) * Hkv * B;
-  constexpr int NC = DP == 64 ? 3 : 2;          // dQ's consumer warpgroups
+  constexpr int NC = dq_consumers(DP);
   const long long q_blocks =
       (long long)((Sq + NC * kSlab - 1) / (NC * kSlab)) * Hq * B;
   if (prep_blocks > INT_MAX || kv_blocks > INT_MAX || q_blocks > INT_MAX)
@@ -2373,7 +2445,7 @@ cudaError_t launch_bwd_wgmma(const void* q, const void* k, const void* v,
   if (err != cudaSuccess) return err;
   flash_bwd_prep<DP><<<(unsigned)prep_blocks, 256, 0, stream>>>(
       static_cast<const bf16*>(o), static_cast<const bf16*>(dout), lse, ll,
-      dl, os, dos, Hq, Sq, Sq_pad, rows);
+      dl, os, dos, Hq, Sq, Sq_pad, D, rows);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   const float sl2 = log2_scale(scale);
@@ -2381,13 +2453,13 @@ cudaError_t launch_bwd_wgmma(const void* q, const void* k, const void* v,
                              stream>>>(
       tq, tk, tv, tdo, ll, dl, static_cast<bf16*>(dk),
       static_cast<bf16*>(dv), dks, dvs, Hq, Hkv, Hq / Hkv, Sq, Sq_pad, Skv,
-      causal, window, sl2, scale);
+      D, causal, window, sl2, scale);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   flash_bwd_dq_wgmma<DP, NC><<<(unsigned)q_blocks, (NC + 1) * kWg, q_smem,
                              stream>>>(
       tq, tk, tv, tdo, ll, dl, static_cast<bf16*>(dq), dqs, Hq, Hq / Hkv, Sq,
-      Sq_pad, Skv, causal, window, sl2, scale);
+      Sq_pad, Skv, D, causal, window, sl2, scale);
   return cudaGetLastError();
 }
 
@@ -2505,10 +2577,14 @@ cudaError_t dispatch_bwd(const void* q, const void* k, const void* v,
     if (Sq_pad < Sq || Sq_pad % kBwdPad) return cudaErrorInvalidValue;
     if (D == 64)
       return launch_bwd_wgmma<64>(q, k, v, o, dout, lse, ll, delta, dq, dk,
-                                  dv, B, Hq, Hkv, Sq, Skv, Sq_pad, st, causal,
-                                  window, scale, s);
+                                  dv, B, Hq, Hkv, Sq, Skv, D, Sq_pad, st,
+                                  causal, window, scale, s);
+    if (D == 80)
+      return launch_bwd_wgmma<80>(q, k, v, o, dout, lse, ll, delta, dq, dk,
+                                  dv, B, Hq, Hkv, Sq, Skv, D, Sq_pad, st,
+                                  causal, window, scale, s);
     return launch_bwd_wgmma<128>(q, k, v, o, dout, lse, ll, delta, dq, dk, dv,
-                                 B, Hq, Hkv, Sq, Skv, Sq_pad, st, causal,
+                                 B, Hq, Hkv, Sq, Skv, D, Sq_pad, st, causal,
                                  window, scale, s);
   }
   cudaError_t err =
@@ -2570,7 +2646,7 @@ int flash_attention_launch(const void* q, const void* k, const void* v,
 // route: the caller's bwd_route, which must be this file's (0 f32, 1
 // mma.sync, 2 wgmma).  Routes 0 and 1: delta is a (B, Hq, Sq) f32
 // workspace, lse2 unused, three launches.  Route 2: delta and lse2 are
-// (B, Hq, sq_pad) f32 workspaces, sq_pad a multiple of 128 >= Sq, three
+// (B, Hq, sq_pad) f32 workspaces, sq_pad a multiple of 384 >= Sq, three
 // launches.  D <= 128 and even; the wrapper checks.  All on `stream`.
 int flash_attention_bwd_launch(const void* q, const void* k, const void* v,
                                const void* o, const void* dout,

@@ -76,17 +76,28 @@
 // Design: a block takes the forward's 32 channels of one batch row with
 // its thread layout and walks the tiles from the last.  Per tile it
 // loads x, dt, dy, B and C by cp.async (the next tile's copies in flight
-// while this one runs), reads its boundary state, takes the 16 states
-// again into shared memory (each thread its own, 128 KB at N = 64, so
-// one block a SM), summing dC over the warp's channels on the way
-// (shuffles by recursive halving across the warp's four channel slots);
-// then walks the 16 steps in reverse with g in registers, du and da each
-// lane's share (summed over a channel's lanes after the tile, as the
-// forward's y) and dB summed over the warp as dC.  The tile's dB and dC
-// go out as this block's partial rows (the four warps added in order),
+// while this one runs) and walks it as two halves of 8 steps, the later
+// first: for the later half it takes the state at step 8 again in
+// registers from the tile's boundary (8 steps of the forward, 3 more
+// operations a (b, t, c, n) in each 16-step tile, +11 % on the 14 the
+// bound counts), then for each half the 8 states into shared memory (each
+// thread its own, 64 KB at N = 64), summing dC over the warp's channels on
+// the way (shuffles by recursive halving across the warp's four channel
+// slots); then walks the half's steps in reverse with g in registers, du
+// and da each lane's share (summed over a channel's lanes after the tile,
+// as the forward's y) and dB summed over the warp as dC.  A half's dB and
+// dC go out as this block's partial rows (the four warps added in order),
 // dA's sum over the block's steps as a partial of its batch row; the
-// second kernel adds the C / 32 partials of dB and dC and the B of dA
-// in order.  No atomics: two launches give the same bits.
+// second kernel adds the C / 32 partials of dB and dC and the B of dA in
+// order.  No atomics: two launches give the same bits, and every f32 sum
+// runs in the order of a one-pass walk of the whole tile, so the halves
+// change no bit.  Shared memory: 110 KB a block at N = 64 in bf16 (a
+// whole tile's 16 states would take 194 KB and leave one block an SM), so
+// two blocks of 4 warps share an SM and one's shuffles and barriers run
+// under the other's arithmetic (ssm_scan_bwd_occupancy reports the count;
+// PERF.md has the times, tools/ssm_bwd_turns.py takes them).  Saving the
+// state every 8 steps instead takes no step again but doubles the saved
+// states and slows the forward more than it speeds the backward.
 //
 // Built by nvcc for sm_90a into a shared library with a plain C interface
 // (repro_torch/kernels/_build.py); the entry point returns
@@ -409,6 +420,9 @@ constexpr int kWarps = kThreads / 32;
 static_assert(kSlots % kWarps == 0 && 32 / kL == 4,
               "four channel slots a warp (lane bits 3 and 4)");
 
+constexpr int kTB = kT / 2;            // steps a backward half-tile
+static_assert(kTB % kL == 0, "a half-tile's steps split over the lanes");
+
 template <int NB>
 __host__ __device__ constexpr int bwd_raw_elems() {  // x, dt, dy, B, C
   return 3 * kT * kCB + 2 * kT * NB;
@@ -416,11 +430,11 @@ __host__ __device__ constexpr int bwd_raw_elems() {  // x, dt, dy, B, C
 
 template <typename T, int NB>
 __host__ __device__ constexpr size_t bwd_smem_bytes() {
-  return (size_t)kT * kCB * NB * sizeof(float)         // the tile's states
+  return (size_t)kTB * kCB * NB * sizeof(float)        // a half's states
          + kT * kCB * sizeof(float4)                   // (a, u, dy, dt)
          + kT * kCB * sizeof(float2)                   // (dx, ddt)
-         + 2 * kT * NB * sizeof(float)                 // B, C in f32
-         + 2 * kWarps * kT * NB * sizeof(float)        // dB, dC by warp
+         + 2 * kTB * NB * sizeof(float)                // B, C in f32
+         + 2 * kWarps * kTB * NB * sizeof(float)       // dB, dC by warp
          + kStages * bwd_raw_elems<NB>() * sizeof(T);  // ring
 }
 
@@ -446,25 +460,42 @@ __device__ __forceinline__ int slot_sum(float (&v)[NPL], int lane) {
   return (up1 ? H1 : 0) + (up2 ? H2 : 0);
 }
 
+template <int V>
+struct Half {                          // a half-tile's index, as a type
+  static constexpr int value = V;
+};
+
 // The gradients of ssm_scan_fwd.  A block takes the forward's kCB channels
 // of one batch row, with the same thread layout, and walks the tiles from
 // the last to the first; the forward's state before each tile (hsave, or
 // h0 for the first) lets it take the tile's states again.  g, the
 // gradient of the state carried from the later steps, stays in registers
-// (seeded by dh, the final state's gradient).  Per tile:
-//  1. the tile's states from its boundary, each thread's own into sH;
-//     dC_t = sum_c dy_t[c] h_t[c, :] summed over the warp's channels into
-//     sRC (the two channels of a thread, then the four slots of a warp);
-//  2. the steps in reverse: g_t = dy_t C_t + g, du_t = <g_t, B_t>,
-//     da_t = <g_t, h_{t-1}> (each lane's share, as the forward's y),
-//     dB_t = sum_c g_t[c, :] u_t[c] by warp into sRB, then g = a_t g_t;
-//  3. du and da summed over a channel's lanes by recursive halving; dx,
-//     ddt into sO, a_t dt_t da_t into the lane's sum for dA.
-// The tile's outputs and its by-warp dB, dC go out at the top of the next
-// tile: dx, ddt to their tensors, dB and dC (the four warps summed in
-// order) to this block's partial rows pB, pC (parts, B, S, N); dA's sum
-// over the block's steps to pA (B, C).  ssm_scan_bwd_sum adds the parts
-// in order.  vec bits as the forward's, and 16 for dy.
+// (seeded by dh, the final state's gradient).  A tile of kT steps is
+// walked as two halves of kTB steps, the later first, so that shared
+// memory holds kTB states a thread, not kT, and two blocks fit an SM.
+// Per tile:
+//  0. (a, u, dy, dt) of the kT steps into sP; B and C of a half in f32
+//     into sB, sC;
+//  1. when the tile has steps in its later half: the state before that
+//     half again, in registers, from the tile's boundary (kTB steps of the
+//     forward's recurrence in its own expressions, so the same bits);
+//  2. each half, the later first: its states again, each thread's own
+//     into sH; dC_t = sum_c dy_t[c] h_t[c, :] summed over the warp's
+//     channels into sRC (the two channels of a thread, then the four
+//     slots of a warp); then its steps in reverse: g_t = dy_t C_t + g,
+//     du_t = <g_t, B_t>, da_t = <g_t, h_{t-1}> (each lane's share, as the
+//     forward's y, kept for the tile's kT steps), dB_t = sum_c g_t[c, :]
+//     u_t[c] by warp into sRB, then g = a_t g_t; the half's dB and dC go
+//     out (the four warps added in order) to this block's partial rows
+//     pB, pC (parts, B, S, N);
+//  3. du and da summed over a channel's lanes by recursive halving over
+//     the tile's kT steps; dx, ddt into sO, a_t dt_t da_t into the lane's
+//     sum for dA.
+// Every f32 sum runs in the order a walk of the whole tile in one pass
+// takes (du and da are summed over the lanes once a tile, over its kT
+// steps), so the halves change no bit of the outputs.  dx, ddt go out at the top of the next tile; dA's sum over the
+// block's steps to pA (B, C).  ssm_scan_bwd_sum adds the parts in order.
+// vec bits as the forward's, and 16 for dy.
 template <typename T, int NB>
 __global__ void __launch_bounds__(kThreads)
 ssm_scan_bwd(const T* __restrict__ x, const T* __restrict__ dt,
@@ -481,16 +512,16 @@ ssm_scan_bwd(const T* __restrict__ x, const T* __restrict__ dt,
   constexpr int NQ = NPL / 4;          // float4 groups a lane
   constexpr int HSTEP = kCPT * NQ * kThreads;   // float4s of sH a step
   static_assert(NPL % 4 == 0, "a lane holds whole float4 groups");
-  static_assert(kT * NB % kThreads == 0, "whole passes over a tile's N");
+  static_assert(kTB * NB % kThreads == 0, "whole passes over a half's N");
   extern __shared__ __align__(16) unsigned char smem[];
   float4* sH = reinterpret_cast<float4*>(smem);
-  float4* sP = sH + kT * HSTEP;
+  float4* sP = sH + kTB * HSTEP;
   float2* sO = reinterpret_cast<float2*>(sP + kT * kCB);
   float* sB = reinterpret_cast<float*>(sO + kT * kCB);
-  float* sC = sB + kT * NB;
-  float* sRB = sC + kT * NB;
-  float* sRC = sRB + kWarps * kT * NB;
-  T* ring = reinterpret_cast<T*>(sRC + kWarps * kT * NB);
+  float* sC = sB + kTB * NB;
+  float* sRB = sC + kTB * NB;
+  float* sRC = sRB + kWarps * kTB * NB;
+  T* ring = reinterpret_cast<T*>(sRC + kWarps * kTB * NB);
 
   const int b = blockIdx.y;
   const int c0 = blockIdx.x * kCB;
@@ -544,7 +575,7 @@ ssm_scan_bwd(const T* __restrict__ x, const T* __restrict__ dt,
     load_rows<T, NB>(st + 3 * kT * kCB + kT * NB, cb + t0 * scm.s, scm.s,
                      rows, N, vec & 8);
   };
-  auto flush = [&](int k) {            // tile k's dx, ddt and dB, dC parts
+  auto flush_o = [&](int k) {          // tile k's dx, ddt
     const int t0 = k * kT, rows = min(kT, S - t0);
 #pragma unroll
     for (int j = 0; j < kT * kCB / kThreads; ++j) {
@@ -556,36 +587,40 @@ ssm_scan_bwd(const T* __restrict__ x, const T* __restrict__ dt,
         ddtb[(t0 + tt) * sdx.s + pcl] = from_f32<T>(o.y);
       }
     }
+  };
+  auto flush_bc = [&](int t0) {        // the dB, dC parts of a half-tile
+    const int rows = min(kTB, S - t0);
 #pragma unroll
-    for (int j = 0; j < kT * NB / kThreads; ++j) {
+    for (int j = 0; j < kTB * NB / kThreads; ++j) {
       const int i = threadIdx.x + j * kThreads;
       const int tt = i / NB, n = i % NB;
       if (tt < rows && n < N) {
         float vb = sRB[i], vc = sRC[i];
 #pragma unroll
         for (int w = 1; w < kWarps; ++w) {
-          vb += sRB[w * kT * NB + i];
-          vc += sRC[w * kT * NB + i];
+          vb += sRB[w * kTB * NB + i];
+          vc += sRC[w * kTB * NB + i];
         }
         pBb[(long long)(t0 + tt) * N + n] = vb;
         pCb[(long long)(t0 + tt) * N + n] = vc;
       }
     }
   };
-
-  if (tiles > 0) fetch(tiles - 1);
-  cp_async_commit();
-  for (int it = 0; it < tiles; ++it) {
-    const int k = tiles - 1 - it;
-    cp_async_wait<kStages - 2>();      // this thread's copies of tile k
-    __syncthreads();                   // everyone's; tile k+1 is done
-    if (it > 0) flush(k + 1);
-    const int steps = min(kT, S - k * kT);
-    const T* st = ring + (k % kStages) * bwd_raw_elems<NB>();
-
-    float h[kCPT][NPL];                // the state before the tile
-    if (k > 0) {
-      const float4* src = state_slot<NQ>(hsave, k - 1);
+  // B and C of the tile's steps o .. o + kTB - 1 in f32, 0 past the last
+  // step and past N
+  auto convert_bc = [&](const T* st, int o, int steps) {
+#pragma unroll
+    for (int j = 0; j < kTB * NB / kThreads; ++j) {
+      const int i = threadIdx.x + j * kThreads;
+      const bool ok = o + i / NB < steps && i % NB < N;
+      sB[i] = ok ? to_f32(st[3 * kT * kCB + o * NB + i]) : 0.f;
+      sC[i] = ok ? to_f32(st[3 * kT * kCB + kT * NB + o * NB + i]) : 0.f;
+    }
+  };
+  float h[kCPT][NPL];
+  auto boundary = [&](int j) {         // h: saved state j, or h0 (j < 0)
+    if (j >= 0) {
+      const float4* src = state_slot<NQ>(hsave, j);
 #pragma unroll
       for (int k2 = 0; k2 < kCPT; ++k2)
 #pragma unroll
@@ -611,41 +646,20 @@ ssm_scan_bwd(const T* __restrict__ x, const T* __restrict__ dt,
           }
       }
     }
-    // the forward's pre-pass (the same expressions, so the same states),
-    // with dy and dt beside; past the last step and channel decay 1 and
-    // input 0 keep h and g as they are
+  };
+  // each lane's share of du, da for the tile's kT steps
+  float du[kCPT][kT], da[kCPT][kT];
+  // 2. the half-tile of steps O .. O + kTB - 1, h the state before it
+  auto walk = [&](auto half) {
+    constexpr int O = decltype(half)::value * kTB;
 #pragma unroll
-    for (int j = 0; j < kT * kCB / kThreads; ++j) {
-      const int i = threadIdx.x + j * kThreads;
-      float4 v = make_float4(1.f, 0.f, 0.f, 0.f);
-      if (i / kCB < steps && pcl < cols) {
-        const float d = to_f32(st[kT * kCB + i]);
-        v = make_float4(expf(d * a), d * to_f32(st[i]),
-                        to_f32(st[2 * kT * kCB + i]), d);
-      }
-      sP[i] = v;
-    }
-#pragma unroll
-    for (int j = 0; j < (kT * NB + kThreads - 1) / kThreads; ++j) {
-      const int i = threadIdx.x + j * kThreads;
-      if (i >= kT * NB) break;
-      const bool ok = i / NB < steps && i % NB < N;
-      sB[i] = ok ? to_f32(st[3 * kT * kCB + i]) : 0.f;
-      sC[i] = ok ? to_f32(st[3 * kT * kCB + kT * NB + i]) : 0.f;
-    }
-    if (k > 0) fetch(k - 1);
-    cp_async_commit();
-    __syncthreads();                   // sP, sB, sC of tile k are ready
-
-    // 1. the states again; dC by warp
-#pragma unroll
-    for (int tt = 0; tt < kT; ++tt) {
+    for (int tt = 0; tt < kTB; ++tt) {  // the states again; dC by warp
       float4* hs = sH + tt * HSTEP + threadIdx.x;
       const float4* b4 = reinterpret_cast<const float4*>(sB + tt * NB);
       float4 p[kCPT];
 #pragma unroll
       for (int k2 = 0; k2 < kCPT; ++k2)
-        p[k2] = sP[tt * kCB + slot + kSlots * k2];
+        p[k2] = sP[(O + tt) * kCB + slot + kSlots * k2];
       float v[NPL];
 #pragma unroll
       for (int q = 0; q < NQ; ++q) {
@@ -674,15 +688,12 @@ ssm_scan_bwd(const T* __restrict__ x, const T* __restrict__ dt,
 #pragma unroll
       for (int j = 0; j < NPL / 4; ++j) {
         const int jj = first + j;
-        sRC[(warp * kT + tt) * NB + 4 * (sub + kL * (jj / 4)) + jj % 4] =
+        sRC[(warp * kTB + tt) * NB + 4 * (sub + kL * (jj / 4)) + jj % 4] =
             v[j];
       }
     }
-
-    // 2. the steps in reverse; each lane's share of du, da in registers
-    float du[kCPT][kT], da[kCPT][kT];
 #pragma unroll
-    for (int tt = kT - 1; tt >= 0; --tt) {
+    for (int tt = kTB - 1; tt >= 0; --tt) {   // the steps in reverse
       const float4* hs = sH + tt * HSTEP + threadIdx.x;
       const float4* b4 = reinterpret_cast<const float4*>(sB + tt * NB);
       const float4* c4 = reinterpret_cast<const float4*>(sC + tt * NB);
@@ -690,7 +701,7 @@ ssm_scan_bwd(const T* __restrict__ x, const T* __restrict__ dt,
       float su[kCPT][4], sa[kCPT][4];
 #pragma unroll
       for (int k2 = 0; k2 < kCPT; ++k2) {
-        p[k2] = sP[tt * kCB + slot + kSlots * k2];
+        p[k2] = sP[(O + tt) * kCB + slot + kSlots * k2];
 #pragma unroll
         for (int e = 0; e < 4; ++e) su[k2][e] = sa[k2][e] = 0.f;
       }
@@ -727,17 +738,91 @@ ssm_scan_bwd(const T* __restrict__ x, const T* __restrict__ dt,
       }
 #pragma unroll
       for (int k2 = 0; k2 < kCPT; ++k2) {
-        du[k2][tt] = (su[k2][0] + su[k2][1]) + (su[k2][2] + su[k2][3]);
-        da[k2][tt] = (sa[k2][0] + sa[k2][1]) + (sa[k2][2] + sa[k2][3]);
+        du[k2][O + tt] = (su[k2][0] + su[k2][1]) + (su[k2][2] + su[k2][3]);
+        da[k2][O + tt] = (sa[k2][0] + sa[k2][1]) + (sa[k2][2] + sa[k2][3]);
       }
       const int first = slot_sum<NPL>(w, lane);
 #pragma unroll
       for (int j = 0; j < NPL / 4; ++j) {
         const int jj = first + j;
-        sRB[(warp * kT + tt) * NB + 4 * (sub + kL * (jj / 4)) + jj % 4] =
+        sRB[(warp * kTB + tt) * NB + 4 * (sub + kL * (jj / 4)) + jj % 4] =
             w[j];
       }
     }
+  };
+
+  if (tiles > 0) fetch(tiles - 1);
+  cp_async_commit();
+  for (int it = 0; it < tiles; ++it) {
+    const int k = tiles - 1 - it;
+    cp_async_wait<kStages - 2>();      // this thread's copies of tile k
+    __syncthreads();                   // everyone's; tile k+1 is done
+    if (it > 0) {
+      flush_o(k + 1);
+      flush_bc((k + 1) * kT);
+    }
+    const int steps = min(kT, S - k * kT);
+    const T* st = ring + (k % kStages) * bwd_raw_elems<NB>();
+
+    // 0. the forward's pre-pass (the same expressions, so the same
+    // states), with dy and dt beside; past the last step and channel
+    // decay 1 and input 0 keep h and g as they are
+#pragma unroll
+    for (int j = 0; j < kT * kCB / kThreads; ++j) {
+      const int i = threadIdx.x + j * kThreads;
+      float4 v = make_float4(1.f, 0.f, 0.f, 0.f);
+      if (i / kCB < steps && pcl < cols) {
+        const float d = to_f32(st[kT * kCB + i]);
+        v = make_float4(expf(d * a), d * to_f32(st[i]),
+                        to_f32(st[2 * kT * kCB + i]), d);
+      }
+      sP[i] = v;
+    }
+    convert_bc(st, 0, steps);
+    if (k > 0) fetch(k - 1);
+    cp_async_commit();
+    __syncthreads();                   // sP, the earlier half's sB, sC
+
+    if (steps > kTB) {
+      boundary(k - 1);                 // 1. the later half's first state
+#pragma unroll
+      for (int tt = 0; tt < kTB; ++tt) {
+        const float4* b4 = reinterpret_cast<const float4*>(sB + tt * NB);
+        float4 p[kCPT];
+#pragma unroll
+        for (int k2 = 0; k2 < kCPT; ++k2)
+          p[k2] = sP[tt * kCB + slot + kSlots * k2];
+#pragma unroll
+        for (int q = 0; q < NQ; ++q) {
+          const float4 bv = b4[sub + kL * q];
+          const float bs[4] = {bv.x, bv.y, bv.z, bv.w};
+#pragma unroll
+          for (int e = 0; e < 4; ++e)
+#pragma unroll
+            for (int k2 = 0; k2 < kCPT; ++k2) {
+              float& hv = h[k2][4 * q + e];
+              hv = fmaf(p[k2].x, hv, p[k2].y * bs[e]);
+            }
+        }
+      }
+    }
+    if (steps > kTB) {
+      __syncthreads();                 // the earlier half's sB read
+      convert_bc(st, kTB, steps);
+      __syncthreads();
+      walk(Half<1>{});                 // 2. the later half
+      __syncthreads();                 // its sRB, sRC written, sB, sC read
+      flush_bc(k * kT + kTB);
+      convert_bc(st, 0, steps);
+      __syncthreads();
+    } else {                           // no step there: nothing to add
+#pragma unroll
+      for (int k2 = 0; k2 < kCPT; ++k2)
+#pragma unroll
+        for (int tt = kTB; tt < kT; ++tt) du[k2][tt] = da[k2][tt] = 0.f;
+    }
+    boundary(k - 1);
+    walk(Half<0>{});                   // 2. the earlier half
 
     // 3. du, da over a channel's lanes; dx, ddt and dA's terms
     const int base = lane_steps<kT / 2, 1>(du, sub);
@@ -761,7 +846,10 @@ ssm_scan_bwd(const T* __restrict__ x, const T* __restrict__ dt,
   }
   cp_async_wait<0>();
   __syncthreads();
-  if (tiles > 0) flush(0);
+  if (tiles > 0) {
+    flush_o(0);
+    flush_bc(0);
+  }
 
 #pragma unroll
   for (int k2 = 0; k2 < kCPT; ++k2) {
@@ -860,13 +948,34 @@ struct BwdArgs {
   void *dx, *ddt, *dA, *dB, *dC, *dh0, *work;
 };
 
+// The backward's shared memory a block, set on the kernel with the
+// carveout that gives shared memory all it can (so that two blocks fit).
 template <typename T, int NB>
-cudaError_t launch_bwd(const BwdArgs& g, int B, int S, int C, int N,
-                       const long long* st, cudaStream_t stream) {
+cudaError_t bwd_attributes() {
   constexpr size_t smem = bwd_smem_bytes<T, NB>();
   cudaError_t err = cudaFuncSetAttribute(
       ssm_scan_bwd<T, NB>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)smem);
+  if (err != cudaSuccess) return err;
+  return cudaFuncSetAttribute(ssm_scan_bwd<T, NB>,
+                              cudaFuncAttributePreferredSharedMemoryCarveout,
+                              cudaSharedmemCarveoutMaxShared);
+}
+
+template <typename T, int NB>
+cudaError_t bwd_occupancy(int* blocks, long long* smem) {
+  cudaError_t err = bwd_attributes<T, NB>();
+  if (err != cudaSuccess) return err;
+  *smem = (long long)bwd_smem_bytes<T, NB>();
+  return cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      blocks, ssm_scan_bwd<T, NB>, kThreads, bwd_smem_bytes<T, NB>());
+}
+
+template <typename T, int NB>
+cudaError_t launch_bwd(const BwdArgs& g, int B, int S, int C, int N,
+                       const long long* st, cudaStream_t stream) {
+  constexpr size_t smem = bwd_smem_bytes<T, NB>();
+  cudaError_t err = bwd_attributes<T, NB>();
   if (err != cudaSuccess) return err;
   const void* seq[5] = {g.x, g.dt, g.Bm, g.Cm, g.dy};
   const int vec = vec_bits<T>(seq, 5, st);
@@ -986,6 +1095,19 @@ int ssm_scan_bwd_launch(const void* x, const void* dt, const void* A,
   if (dtype == 1)
     return dispatch_bwd<__nv_bfloat16>(g, B, S, C, N, strides, s);
   return cudaErrorInvalidValue;
+}
+
+// The backward kernel's resident blocks an SM (the occupancy API, at its
+// 128 threads and shared memory) and its shared memory a block, in bytes,
+// for dtype (0 float32, 1 bfloat16) and N as ssm_scan_bwd_launch takes
+// them.
+int ssm_scan_bwd_occupancy(int dtype, int N, int* blocks, long long* smem) {
+  if (N < 1 || N > 64 || dtype < 0 || dtype > 1) return cudaErrorInvalidValue;
+  if (dtype == 0)
+    return N <= 32 ? bwd_occupancy<float, bucket(32)>(blocks, smem)
+                   : bwd_occupancy<float, bucket(64)>(blocks, smem);
+  return N <= 32 ? bwd_occupancy<__nv_bfloat16, bucket(32)>(blocks, smem)
+                 : bwd_occupancy<__nv_bfloat16, bucket(64)>(blocks, smem);
 }
 
 const char* ssm_scan_error_string(int err) {

@@ -6,9 +6,9 @@ is the port's own, for the gradients the JAX package takes by autodiff.  The sou
 ``csrc/flash_attention.cu`` (the notes at the top of its forward and
 backward sections say what bounds each kernel and how it is split), built
 by ``nvcc`` at first use (:mod:`._build`).  The backward takes one of
-three routes (:func:`bwd_route`): bf16 at head dim 64 or 128 in aligned
-views runs the TMA/``wgmma`` kernels, other bf16 calls the ``mma.sync``
-ones, float32 the FP32-core ones; :data:`BWD_ROUTE_CALLS` counts them.
+three routes (:func:`bwd_route`): bf16 at head dim 64, 80 or 128 in
+aligned views runs the TMA/``wgmma`` kernels, other bf16 calls the
+``mma.sync`` ones, float32 the FP32-core ones; :data:`BWD_ROUTE_CALLS` counts them.
 :func:`flash_attention` takes the TPU kernel's (B, H, S, D) layout, as
 views with any batch, head and sequence strides and a head_dim stride of
 1, so the model's (B, S, H, D) activations go in without a copy.  It
@@ -33,7 +33,9 @@ _GRID_LIMIT = 65535          # grid y (query heads) and z (batch)
 #: the backward's routes, by their code in ``csrc/flash_attention.cu``
 BWD_ROUTES = ("f32", "mma_sync", "wgmma")
 BWD_PAD = 384                # the wgmma route's lse/delta rows round up to
-                             # it: a multiple of a dQ block's 192 or 128 rows
+                             # it: a multiple of a dQ block's 192 rows (head
+                             # dim 64, 80) or 128 (128)
+WGMMA_HEAD_DIMS = (64, 80, 128)
 #: route → backward calls that took it (a plain count, as ``ops.LAUNCHES``)
 BWD_ROUTE_CALLS = {r: 0 for r in BWD_ROUTES}
 
@@ -133,13 +135,13 @@ def bwd_route(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """The kernels :func:`flash_attention_bwd` takes for these (B, H, S, D)
     views; the CUDA source picks the same (``bwd_route`` there) and refuses
     a call where the two differ.  ``"f32"``: float32 inputs, the FP32-core
-    kernels.  ``"wgmma"``: bfloat16 at head dim 64 or 128 with q, k, v, out
-    and dout all TMA sources (:func:`_tma_view`).  ``"mma_sync"``: any
-    other bfloat16 call (head dim 80, D % 8 != 0, an unaligned view)."""
+    kernels.  ``"wgmma"``: bfloat16 at head dim 64, 80 or 128 with q, k, v,
+    out and dout all TMA sources (:func:`_tma_view`).  ``"mma_sync"``: any
+    other bfloat16 call (another head dim, an unaligned view)."""
     if q.dtype != torch.bfloat16:
         return "f32"
-    if q.shape[-1] in (64, 128) and all(map(_tma_view,
-                                            (q, k, v, out, dout))):
+    if q.shape[-1] in WGMMA_HEAD_DIMS and all(map(_tma_view,
+                                                  (q, k, v, out, dout))):
         return "wgmma"
     return "mma_sync"
 
@@ -147,7 +149,7 @@ def bwd_route(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 def bwd_rows(Sq: int, route: str) -> int:
     """Rows a (batch, head) of the backward's lse/delta workspaces: Sq,
     or on the wgmma route Sq rounded up to BWD_PAD (a multiple of the dQ
-    kernel's q tile at either head dim), so that every tile's rows lie
+    kernel's q tile at each of its head dims), so that every tile's rows lie
     inside its own (batch, head)."""
     return -(-Sq // BWD_PAD) * BWD_PAD if route == "wgmma" else Sq
 

@@ -43,6 +43,9 @@ def _lib() -> ctypes.CDLL:
         lib.ssm_scan_launch.restype = i
         lib.ssm_scan_bwd_launch.argtypes = [p] * 16 + [i] * 5 + [p, p]
         lib.ssm_scan_bwd_launch.restype = i
+        lib.ssm_scan_bwd_occupancy.argtypes = [
+            i, i, ctypes.POINTER(i), ctypes.POINTER(ll)]
+        lib.ssm_scan_bwd_occupancy.restype = i
         for fn in (lib.ssm_scan_state_floats, lib.ssm_scan_bwd_work_floats):
             fn.argtypes = [i, i, i, i]
             fn.restype = ll
@@ -185,3 +188,17 @@ def ssm_scan_bwd(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
         torch.cuda.current_stream(x.device).cuda_stream)
     _raise_on(lib, err, "ssm_scan_bwd")
     return dx, ddt, dA, dB, dC, dh0
+
+
+def ssm_scan_bwd_occupancy(dtype: torch.dtype, N: int) -> tuple:
+    """(resident blocks an SM, shared memory bytes a block) of the
+    backward kernel :func:`ssm_scan_bwd` launches for x of ``dtype`` and
+    N state values, from the CUDA occupancy API on the current card."""
+    if dtype not in _DTYPES or not 1 <= N <= MAX_STATE:
+        raise ValueError(f"ssm_scan_bwd_occupancy: {dtype}, N={N}")
+    lib = _lib()
+    blocks, smem = ctypes.c_int(0), ctypes.c_longlong(0)
+    _raise_on(lib, lib.ssm_scan_bwd_occupancy(
+        _DTYPES[dtype], N, ctypes.byref(blocks), ctypes.byref(smem)),
+        "ssm_scan_bwd_occupancy")
+    return blocks.value, smem.value

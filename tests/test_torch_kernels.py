@@ -271,7 +271,7 @@ def _bwd_view(B, S, H, D, dtype=torch.bfloat16, offset=0, pad=0):
 
 
 # dtype, head dim, (tensor, change) → route: what decides it is the dtype,
-# the head dim (64 or 128; 80, 96, 32 and D % 8 != 0 are not), and every
+# the head dim (64, 80 or 128; 96, 32 and D % 8 != 0 are not), and every
 # one of q, k, v, out, dout having a 16-byte aligned base and strides of
 # whole 16 bytes (one element in, or rows of D + 4, are not; 8 elements
 # in, or rows of D + 8, are)
@@ -280,7 +280,10 @@ ROUTE_CASES = [
     ("bfloat16", 128, None, "wgmma"),
     ("float32", 64, None, "f32"),
     ("float32", 128, ("q", "offset", 1), "f32"),
-    ("bfloat16", 80, None, "mma_sync"),
+    ("bfloat16", 80, None, "wgmma"),
+    ("bfloat16", 80, ("q", "offset", 1), "mma_sync"),
+    ("bfloat16", 80, ("v", "pad", 4), "mma_sync"),
+    ("bfloat16", 80, ("dout", "pad", 8), "wgmma"),
     ("bfloat16", 96, None, "mma_sync"),
     ("bfloat16", 32, None, "mma_sync"),
     ("bfloat16", 62, None, "mma_sync"),
@@ -331,6 +334,19 @@ def test_training_shape_takes_the_wgmma_route():
     assert tfa.bwd_rows(2048, "wgmma") == 2304
 
 
+@pytest.mark.parametrize("B,S,H,D", [(4, 1500, 16, 80), (4, 2000, 32, 80)])
+def test_head_dim_80_training_shapes_take_the_wgmma_route(B, S, H, D):
+    """HuBERT-XLarge's (4, 1500, 16, 80) and Zamba2-2.7B's (4, 2000, 32,
+    80) training calls, contiguous in (B, S, H, D) as the attention block
+    hands them over (160-byte rows: whole 16 bytes), take the wgmma route;
+    one element into their buffer they take the mma.sync route."""
+    views = [_bwd_view(B, S, H, D) for _ in range(5)]
+    assert tfa.bwd_route(*views) == "wgmma"
+    assert tfa.bwd_rows(S, "wgmma") == -(-S // 384) * 384
+    views[0] = _bwd_view(B, S, H, D, offset=1)
+    assert tfa.bwd_route(*views) == "mma_sync"
+
+
 @pytest.mark.parametrize("Sq", [1, 63, 64, 127, 128, 129, 333, 2048])
 def test_bwd_workspace_rows(Sq):
     """The wgmma route's lse/delta workspaces hold Sq rounded up to a
@@ -339,19 +355,19 @@ def test_bwd_workspace_rows(Sq):
     copies start 16-byte aligned); the other routes hold Sq."""
     r = tfa.bwd_rows(Sq, "wgmma")
     assert r % tfa.BWD_PAD == 0 and Sq <= r < Sq + tfa.BWD_PAD
-    assert r % _q_tile(64) == 0 and r % _q_tile(128) == 0
+    assert all(r % _q_tile(D) == 0 for D in tfa.WGMMA_HEAD_DIMS)
     assert (r * 4) % 16 == 0
     assert tfa.bwd_rows(Sq, "mma_sync") == tfa.bwd_rows(Sq, "f32") == Sq
 
 
 # the wgmma kernels' tiles: a 64-row slab (a TMA box, a warpgroup's m64,
 # a streamed step), dK/dV blocks of 128 keys, dQ blocks of a slab a
-# consumer warpgroup: 3 at head dim 64, 2 at 128
+# consumer warpgroup: 3 at head dims 64 and 80, 2 at 128 (dq_consumers)
 _SLAB, _KV_TILE = 64, 128
 
 
 def _q_tile(D):
-    return _SLAB * (3 if D == 64 else 2)
+    return _SLAB * (3 if D in (64, 80) else 2)
 
 
 def _slab_cover(k0, k1, r0, r1, offs, causal, window, whole):
@@ -436,10 +452,11 @@ WALK_CASES = [
     (700, 333, True, 100), (300, 300, True, 50), (100, 333, True, 70),
     (129, 257, False, None), (65, 300, False, 40), (200, 130, True, None),
     (1, 40, True, None), (64, 64, True, 1), (150, 200, True, 40),
+    (1500, 1500, False, None), (2000, 2000, True, None),
 ]
 
 
-@pytest.mark.parametrize("D", [64, 128])
+@pytest.mark.parametrize("D", [64, 80, 128])
 @pytest.mark.parametrize("Sq,Skv,causal,window", WALK_CASES)
 def test_bwd_tile_walk_covers_every_visible_pair_once(Sq, Skv, causal,
                                                       window, D):
@@ -601,6 +618,95 @@ def test_ssm_scan_plain_matches_jax(jx, case):
         _close(y.float().numpy(), np.asarray(want_y, np.float32), ytol,
                ytol)
         _close(h.numpy(), want_h, 1e-5, 1e-5)
+
+
+# ssm_scan_bwd's walk (mirrored from csrc/ssm_scan.cu): the forward saves
+# the state before each tile of 16 steps but the first; the backward walks
+# the tiles from the last, each as two halves of 8 steps, the later first
+# (when the tile has a step there), a half's states taken again from the
+# tile's boundary (the later half's through the earlier half's steps);
+# steps past S decay 1 with input 0
+_SSM_T, _SSM_TB = 16, 8
+
+
+def _ssm_forward_states(a, u, h0):
+    """The state before each step, and the saved boundary states."""
+    before, saved, h = [], [], h0
+    tiles = -(-len(a) // _SSM_T)
+    for k in range(tiles):
+        if k > 0:
+            saved.append(h)
+        for t in range(k * _SSM_T, (k + 1) * _SSM_T):
+            if t < len(a):
+                before.append(h)
+            at, ut = (a[t], u[t]) if t < len(a) else (np.float32(1), 0)
+            h = np.float32(np.float32(at * h) + ut)
+    return before, saved
+
+
+def _ssm_bwd_walk(a, u, h0, saved):
+    """(step, the state before it, the boundary it was taken from) in the
+    order the backward takes them."""
+    S, out = len(a), []
+    for k in range(-(-S // _SSM_T) - 1, -1, -1):
+        steps = min(_SSM_T, S - k * _SSM_T)
+        bound = saved[k - 1] if k else h0
+
+        def run(h, lo, hi):
+            states = []
+            for tt in range(lo, hi):
+                states.append(h)
+                t = k * _SSM_T + tt
+                at, ut = (a[t], u[t]) if tt < steps else (np.float32(1), 0)
+                h = np.float32(np.float32(at * h) + ut)
+            return states, h
+        if steps > _SSM_TB:
+            _, h8 = run(bound, 0, _SSM_TB)
+            later, _ = run(h8, _SSM_TB, _SSM_T)
+            out += [(k * _SSM_T + tt, later[tt - _SSM_TB], k)
+                    for tt in range(min(steps, _SSM_T) - 1, _SSM_TB - 1, -1)]
+        earlier, _ = run(bound, 0, _SSM_TB)
+        out += [(k * _SSM_T + tt, earlier[tt], k)
+                for tt in range(min(steps, _SSM_TB) - 1, -1, -1)]
+    return out
+
+
+@pytest.mark.parametrize("S", [1, 7, 8, 9, 15, 16, 17, 33, 2000])
+def test_ssm_scan_bwd_walk_takes_every_state_once_in_reverse(S):
+    """Every step's state exactly once, in reverse, equal to the bit to
+    the forward's, and taken from the boundary of the step's own tile."""
+    r = np.random.default_rng(S)
+    a = np.exp(-r.uniform(0, 2, S)).astype(np.float32)
+    u = r.standard_normal(S).astype(np.float32)
+    h0 = np.float32(r.standard_normal())
+    before, saved = _ssm_forward_states(a, u, h0)
+    assert len(saved) == max(0, -(-S // _SSM_T) - 1)
+    walk = _ssm_bwd_walk(a, u, h0, saved)
+    assert [t for t, _, _ in walk] == list(range(S - 1, -1, -1))
+    assert all(h == before[t] for t, h, _ in walk)
+    assert all(k == t // _SSM_T for t, _, k in walk)
+
+
+def _ssm_bwd_smem(NB, itemsize):
+    """bwd_smem_bytes: 8 states a thread (32 channels x NB), (a, u, dy,
+    dt) and (dx, ddt) of 16 steps, B and C of 8 in f32, dB and dC of 8 by
+    warp, and a ring of two 16-step tiles of x, dt, dy, B, C."""
+    C, T, TB, W = 32, 16, 8, 4
+    return (TB * C * NB * 4 + T * C * 16 + T * C * 8 + 2 * TB * NB * 4
+            + 2 * W * TB * NB * 4 + 2 * (3 * T * C + 2 * T * NB) * itemsize)
+
+
+@pytest.mark.parametrize("NB,blocks", [(64, 2), (32, 3)])
+def test_ssm_scan_bwd_shared_memory_fits_blocks_a_sm(NB, blocks):
+    """In bf16, two blocks fit an H100 SM's 228 KB at N = 64 (Zamba2's),
+    three at N <= 32, with the 1 KB each block reserves.  This reads a
+    Python mirror of bwd_smem_bytes (ssm_scan.cu), not the source's own
+    value: test_ssm_scan_bwd_runs_two_blocks_a_sm_on_card reads that
+    through the occupancy API and holds the mirror to it."""
+    smem = _ssm_bwd_smem(NB, 2)
+    assert smem <= 113 * 1024
+    assert blocks * (smem + 1024) <= 228 * 1024 < \
+        (blocks + 1) * (smem + 1024)
 
 
 def test_ssm_scan_plain_keeps_h0_and_takes_zeros_for_none():
@@ -1010,7 +1116,10 @@ def test_ssm_scan_kernel_rejects_what_it_does_not_take(cuda):
 # rows (a tail of 104 keys, not a multiple of 128); Zamba2's head dim 80
 # with a window; Sq < Skv, Sq > Skv (rows that see no key), ragged lengths,
 # full attention, a window of three keys; views one element into a larger
-# buffer (the mma.sync route for bf16 at head dims 64 and 128 too)
+# buffer (the mma.sync route for bf16 at head dims 64 and 128 too); head
+# dim 80 on the wgmma route: HuBERT-XLarge's (1500, 16, 80) non-causal at
+# batch 1, a causal 1,000-row tail, GQA 32/8, Sq != Skv with a window, and
+# one element into its buffer (the mma.sync route)
 GPU_ATTN_BWD_CASES = [
     (1, 2048, 2048, 48, 48, 64, True, None),
     (1, 512, 512, 32, 8, 64, True, None),
@@ -1028,16 +1137,23 @@ GPU_ATTN_BWD_CASES = [
     (1, 64, 64, 2, 1, 64, True, 3),
     (2, 150, 200, 8, 2, 128, True, 40, 1),
     (1, 300, 300, 4, 2, 64, True, None, 1),
+    (1, 1500, 1500, 16, 16, 80, False, None),
+    (1, 1000, 1000, 32, 32, 80, True, None),
+    (1, 512, 512, 32, 8, 80, True, None),
+    (2, 333, 1001, 8, 2, 80, True, 100),
+    (1, 700, 333, 8, 2, 80, True, 100),
+    (2, 150, 200, 8, 2, 80, True, 40, 1),
 ]
 
 
 def _want_route(case, dtype):
-    """The route a GPU_ATTN_BWD_CASES case must take: bf16 at head dim 64
-    or 128 in aligned views is the wgmma route's."""
+    """The route a GPU_ATTN_BWD_CASES case must take: bf16 at head dim
+    64, 80 or 128 in aligned views is the wgmma route's."""
     D, offset = case[5], case[8:]
     if dtype == torch.float32:
         return "f32"
-    return "wgmma" if D in (64, 128) and not offset else "mma_sync"
+    return ("wgmma" if D in tfa.WGMMA_HEAD_DIMS and not offset
+            else "mma_sync")
 
 
 def _bwd_on_card(q, k, v, kw, seed=3):
@@ -1105,19 +1221,24 @@ def test_flash_attention_bwd_two_runs_equal_to_the_bit_on_card(cuda, dtype):
 
 
 @pytest.mark.gpu
-def test_flash_attention_bwd_training_shape_equal_to_the_bit_on_card(cuda):
-    """MiniCPM-2B's training call (4, 2048, 48, 64) bf16 causal on the
-    wgmma route: two runs of the backward give the same bits (no
-    floating-point atomics; dQ summed in one block, in a fixed order)."""
+@pytest.mark.parametrize("shape", [(4, 2048, 48, 64), (4, 2000, 32, 80)])
+def test_flash_attention_bwd_training_shape_equal_to_the_bit_on_card(
+        cuda, shape):
+    """MiniCPM-2B's training call (4, 2048, 48, 64) and Zamba2-2.7B's (4,
+    2000, 32, 80), bf16 causal, on the wgmma route: two runs of the
+    backward give the same bits (no floating-point atomics; dQ summed in
+    one block, in a fixed order)."""
     g = torch.Generator(device=cuda).manual_seed(11)
-    q, k, v, dout = (torch.randn((4, 2048, 48, 64), generator=g,
+    q, k, v, dout = (torch.randn(shape, generator=g,
                                  device=cuda).bfloat16().transpose(1, 2)
                      for _ in range(4))
     o, lse = tfa.flash_attention(q, k, v, return_lse=True)
     assert tfa.bwd_route(q, k, v, o, dout) == "wgmma"
+    calls = tfa.BWD_ROUTE_CALLS["wgmma"]
     a = tfa.flash_attention_bwd(q, k, v, o, lse, dout)
     b = tfa.flash_attention_bwd(q, k, v, o, lse, dout)
     torch.cuda.synchronize()
+    assert tfa.BWD_ROUTE_CALLS["wgmma"] == calls + 2
     for x, y in zip(a, b):
         assert torch.equal(x, y)
 
@@ -1163,6 +1284,13 @@ GPU_SSM_BWD_CASES = [  # B, S, C, N, h0, dh, dtype
     (1, 1, 32, 16, True, True, "float32"),
     (2, 40, 64, 64, True, True, "float32"),
     (1, 17, 40, 1, False, True, "float32"),
+    (1, 7, 64, 64, True, True, "float32"),
+    (2, 8, 70, 17, True, True, "bfloat16"),
+    (1, 9, 40, 63, False, True, "float32"),
+    (2, 15, 96, 1, True, False, "bfloat16"),
+    (1, 24, 64, 64, True, True, "bfloat16"),
+    (2, 33, 130, 63, True, True, "float32"),
+    (1, 2000, 512, 64, False, False, "bfloat16"),
 ]
 
 
@@ -1202,6 +1330,19 @@ def test_ssm_scan_bwd_kernel_matches_plain_on_card(cuda, case, strided):
             assert a.shape == b.shape and a.dtype == (
                 torch.float32 if name in ("dA", "dh0") else args[0].dtype)
             _ssm_bwd_close(a, b, dtype, name)
+
+
+@pytest.mark.gpu
+def test_ssm_scan_bwd_runs_two_blocks_a_sm_on_card(cuda):
+    """At Zamba2's N = 64 in bf16 two blocks of the backward fit an SM
+    (shared memory ≤ 113 KB a block), three at N ≤ 32; f32's larger ring
+    fits one at N = 64."""
+    assert tss.ssm_scan_bwd_occupancy(torch.bfloat16, 64)[0] >= 2
+    assert tss.ssm_scan_bwd_occupancy(torch.bfloat16, 64)[1] <= 113 * 1024
+    assert tss.ssm_scan_bwd_occupancy(torch.bfloat16, 64)[1] == \
+        _ssm_bwd_smem(64, 2)
+    assert tss.ssm_scan_bwd_occupancy(torch.bfloat16, 17)[0] >= 3
+    assert tss.ssm_scan_bwd_occupancy(torch.float32, 64)[0] >= 1
 
 
 @pytest.mark.gpu

@@ -3,8 +3,9 @@
 another build of ``csrc/flash_attention.cu``, in turns, with SDPA's
 backward beside them.
 
-    python3 tools/attn_bwd_turns.py [--other PATH [--other-abi route]]
-                                    [--seed 0]
+    python3 tools/attn_bwd_turns.py [--other PATH [--other-abi route]
+                                     [--other-route mma_sync]]
+                                    [--shapes all|d64|d80] [--seed 0]
 
 * ``port``: ``repro_torch.kernels.flash_attention.flash_attention_bwd``
   as the training step calls it (its route printed beside it).
@@ -12,16 +13,21 @@ backward beside them.
   design, such as the parent commit's unpacked under the git-ignored
   ``build/``, compiled here with the port's nvcc flags and called through
   its own C entry point: the ABI before the wgmma route (no route code,
-  no second workspace), or with ``--other-abi route`` the port's own.
-  Nothing of the port reaches it.
-* ``sdpa``: ``F.scaled_dot_product_attention(is_causal=True)``, its
-  backward as the device time of forward + ``autograd.grad`` less the
-  forward's, each a CUDA graph.  A yardstick only: the port never calls
-  it.
+  no second workspace), or with ``--other-abi route`` the port's own, on
+  the port's route for the call or on ``--other-route`` (``mma_sync``:
+  the route an earlier source took at head dim 80).  A design not kept
+  is timed again from a saved copy of its source.  Nothing of the port
+  reaches it.
+* ``sdpa``: ``F.scaled_dot_product_attention`` with the call's causal
+  flag, its backward as the device time of forward + ``autograd.grad``
+  less the forward's, each a CUDA graph.  A yardstick only: the port
+  never calls it.
 
-At each shape (MiniCPM-2B's training call (4, 2048, 48, 64) bf16 causal,
-and GQA 32/8 at head dim 128) both backwards are first held against the
-f32 plain version (``kernels/ref.py::attention_bwd_ref``, within 2e-2 of
+At each shape (``--shapes d64``: MiniCPM-2B's training call (4, 2048,
+48, 64) bf16 causal and GQA 32/8 at head dim 128; ``d80``: HuBERT-
+XLarge's (4, 1500, 16, 80) non-causal and Zamba2-2.7B's (4, 2000, 32,
+80) causal; ``all`` both) both backwards are first held against the f32
+plain version (``kernels/ref.py::attention_bwd_ref``, within 2e-2 of
 each gradient's largest magnitude) and run twice for equal bits; then
 timed as device ms (20 calls in a CUDA graph, replayed 10 times) in the
 order other, port, port, other, and each kernel's own device ms read from
@@ -41,8 +47,12 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PEAK_BF16_FLOPS = 989e12
 PEAK_BYTES_PER_S = 3.35e12
 TOL = 2e-2
-# (B, S, Hq, Hkv, D): MiniCPM-2B's training call, and GQA 32/8 at D = 128
-SHAPES = [(4, 2048, 48, 48, 64), (1, 2048, 32, 8, 128)]
+# (B, S, Hq, Hkv, D, causal): MiniCPM-2B's training call, GQA 32/8 at
+# D = 128; HuBERT-XLarge's and Zamba2-2.7B's training calls at D = 80
+SHAPES = {"d64": [(4, 2048, 48, 48, 64, True), (1, 2048, 32, 8, 128, True)],
+          "d80": [(4, 1500, 16, 16, 80, False),
+                  (4, 2000, 32, 32, 80, True)]}
+SHAPES["all"] = SHAPES["d64"] + SHAPES["d80"]
 
 
 def graph_ms(torch, fn, calls: int = 20, replays: int = 10) -> float:
@@ -89,10 +99,10 @@ def kernel_ms(torch, fn, calls: int = 5) -> dict:
     return out
 
 
-def build_other(path: str, nvcc_flags, abi: str) -> ctypes.CDLL:
+def build_other(path: str, nvcc_flags, abi: str, route: str) -> ctypes.CDLL:
     out = os.path.join(ROOT, "build", "attn_bwd_other")
     os.makedirs(out, exist_ok=True)
-    lib = os.path.join(out, "libflash_attention_other.so")
+    lib = os.path.join(out, f"libflash_attention_other_{os.getpid()}.so")
     nvcc = "/usr/local/cuda/bin/nvcc"
     proc = subprocess.run([nvcc, *nvcc_flags, "-o", lib, path],
                           capture_output=True, text=True)
@@ -100,6 +110,8 @@ def build_other(path: str, nvcc_flags, abi: str) -> ctypes.CDLL:
         raise RuntimeError(f"nvcc failed on {path}:\n{proc.stdout}"
                            f"{proc.stderr}")
     dll = ctypes.CDLL(lib)
+    dll.ptxas = proc.stdout + proc.stderr
+    dll.route = route
     p, i = ctypes.c_void_p, ctypes.c_int
     dll.flash_attention_bwd_launch.argtypes = (
         [p] * 10 + [i] * 7 + [p, i, i, ctypes.c_float, p] if abi == "mma"
@@ -130,7 +142,8 @@ def other_bwd(torch, tfa, dll, q, k, v, o, lse, dout, causal: bool):
             dv.data_ptr(), 1, B, Hq, Hkv, Sq, Skv, D, st, int(causal), 0,
             D ** -0.5, stream)
     else:
-        route = tfa.bwd_route(q, k, v, o, dout)
+        route = (tfa.bwd_route(q, k, v, o, dout) if dll.route == "port"
+                 else dll.route)
         rows = tfa.bwd_rows(Sq, route)
         delta = torch.empty((B, Hq, rows), dtype=torch.float32,
                             device=q.device)
@@ -150,6 +163,10 @@ def main() -> int:
     ap.add_argument("--other-abi", choices=("mma", "route"), default="mma",
                     help="its backward entry point: before the wgmma route "
                          "(mma) or the port's (route)")
+    ap.add_argument("--other-route", choices=("port", "mma_sync"),
+                    default="port", help="the route the other build takes "
+                    "(with --other-abi route)")
+    ap.add_argument("--shapes", choices=sorted(SHAPES), default="all")
     ap.add_argument("--seed", type=int, default=0)
     args = ap.parse_args()
     import torch
@@ -169,27 +186,33 @@ def main() -> int:
              _build.build_log["flash_attention"]["ptxas"].splitlines()
              if "wgmma" in ln or "spill" in ln or "Used" in ln]
     dll = (build_other(os.path.abspath(args.other), _build.NVCC_FLAGS,
-                       args.other_abi) if args.other else None)
+                       args.other_abi, args.other_route)
+           if args.other else None)
     t = lambda x: x.transpose(1, 2)
     out = {"card": smi, "other": args.other, "shapes": []}
+    if dll is not None:
+        out["other_ptxas"] = [
+            ln.strip() for ln in dll.ptxas.splitlines()
+            if "wgmma" in ln or "spill" in ln or "Used" in ln]
     gen = torch.Generator(device="cuda").manual_seed(args.seed)
-    for B, S, Hq, Hkv, D in SHAPES:
+    for B, S, Hq, Hkv, D, causal in SHAPES[args.shapes]:
         q, k, v = (torch.randn((B, S, H, D), generator=gen, device="cuda")
                    .to(torch.bfloat16) for H in (Hq, Hkv, Hkv))
         dout = torch.randn((B, S, Hq, D), generator=gen,
                            device="cuda").to(torch.bfloat16)
-        o, lse = tfa.flash_attention(t(q), t(k), t(v), return_lse=True)
-        lse_ref = ref.attention_lse_ref(q, k, causal=True, window=None,
+        o, lse = tfa.flash_attention(t(q), t(k), t(v), causal=causal,
+                                     return_lse=True)
+        lse_ref = ref.attention_lse_ref(q, k, causal=causal, window=None,
                                         dtype=torch.float32)
         want = ref.attention_bwd_ref(q, k, v, t(o), dout, lse_ref,
-                                     causal=True, window=None,
+                                     causal=causal, window=None,
                                      dtype=torch.float32)
         runs = {"port": lambda: tfa.flash_attention_bwd(
-            t(q), t(k), t(v), o, lse, t(dout))}
+            t(q), t(k), t(v), o, lse, t(dout), causal=causal)}
         if dll is not None:
             runs["other"] = lambda: other_bwd(torch, tfa, dll, t(q), t(k),
-                                              t(v), o, lse, t(dout), True)
-        row = {"shape": [B, S, Hq, Hkv, D],
+                                              t(v), o, lse, t(dout), causal)
+        row = {"shape": [B, S, Hq, Hkv, D], "causal": causal,
                "route": tfa.bwd_route(t(q), t(k), t(v), o, t(dout))}
         for name, fn in runs.items():
             a, b = fn(), fn()
@@ -210,13 +233,13 @@ def main() -> int:
         qs, ks, vs = (t(x).detach().requires_grad_() for x in (q, k, v))
 
         def sdpa_fwd_bwd():
-            y = F.scaled_dot_product_attention(qs, ks, vs, is_causal=True,
+            y = F.scaled_dot_product_attention(qs, ks, vs, is_causal=causal,
                                                enable_gqa=Hq != Hkv)
             torch.autograd.grad(y, (qs, ks, vs), t(dout))
 
         def sdpa_fwd():
             with torch.no_grad():
-                F.scaled_dot_product_attention(qs, ks, vs, is_causal=True,
+                F.scaled_dot_product_attention(qs, ks, vs, is_causal=causal,
                                                enable_gqa=Hq != Hkv)
         order = ["other", "port", "port", "other"] if dll else ["port"] * 2
         row["turns"] = [(n, graph_ms(torch, runs[n])) for n in order]
@@ -228,7 +251,7 @@ def main() -> int:
         row["sdpa_bwd_device_ms"] = (row["sdpa_fwd_bwd_device_ms"]
                                      - row["sdpa_fwd_device_ms"])
         row["kernels_ms"] = {n: kernel_ms(torch, fn) for n, fn in runs.items()}
-        pairs = B * S * (S + 1) // 2 * Hq
+        pairs = B * (S * (S + 1) // 2 if causal else S * S) * Hq
         t_ops = 10.0 * D * pairs / PEAK_BF16_FLOPS
         t_bytes = (2 * (4 * B * S * Hq * D + 4 * B * S * Hkv * D)
                    + 4 * B * Hq * S) / PEAK_BYTES_PER_S
