@@ -212,18 +212,29 @@
    resumed from step 4 equal to the uninterrupted run to the bit.
 11. The rest of the zoo at full width and depth, bf16, each model's
    weights freed before the next.  xLSTM-125M (``xlstm_phase``; 12
-   layers, sLSTM at 3 and 9; it reaches no kernel, so every launch count
-   of its main paths must be 0): serving as Phi's (batch 4, prompt
-   1,024, 32 tokens, profiler windows); in float32 at 4 layers the
-   prefill and first decode step against the same model on the CPU;
-   training at batch 4 × 2,048 (XLSTM_STEPS plain steps at full depth:
-   a step takes 12–22 s, nearly all of it the sLSTM loop's eager
-   launches; then XLSTM_STEPS ``--strads --weight-decay 0`` steps at
-   XLSTM_CUT_LAYERS layers, the STRADS run's 5 blocks the 4 unrolled
-   layers and the rest, every unscheduled block keeping its bits); the sLSTM
-   loop's share of a full-depth step (one sLSTM layer's checkpointed
+   layers, sLSTM at 3 and 9, every sLSTM call one launch of the sLSTM
+   kernel ``slstm_scan`` and none of the cell ``_slstm_cell``): serving
+   as Phi's (batch 4, prompt 1,024, 32 tokens: 2 launches a prefill and
+   2 a decode step, 66 a generate; profiler windows); in float32 at 4
+   layers the prefill and first decode step against the same model on
+   the CPU; training at batch 4 × 2,048 (XLSTM_STEPS plain steps and
+   XLSTM_STEPS ``--strads --weight-decay 0`` steps, both at full depth,
+   13 blocks: the 12 unrolled layers and the rest, every unscheduled
+   block keeping its bits; 4 forward and 2 ``slstm_scan_bwd`` launches a
+   step); both kernels at layer 3's real inputs of a training step
+   against their plain versions in f32, twice to the bit, timed with
+   the plain versions, their bounds and the barrier floor (the same
+   cooperative grid through its barriers alone), both also at the
+   prefill's inputs (from the serving cache's state, the initial
+   state's gradients checked) and the forward at a decode step's, then at
+   d = 768 from zeros with n < 1, at both ties of the cell, and at batch
+   16 and 48 run in chunks of rows (``slstm_kernel_phase``,
+   ``slstm_edge_checks``); a
+   4-layer f32 training step against the plain versions; the sLSTM
+   layers' share of a full-depth step (one sLSTM layer's checkpointed
    forward, recompute and backward, timed alone); a profiler window over
-   a step at 4 layers.  InternVL2-1B (``vlm_phase``; 256 patch embeddings ahead of
+   a full-depth step; ptxas's registers and spills of both kernels.
+   InternVL2-1B (``vlm_phase``; 256 patch embeddings ahead of
    the prompt): serving with every prefill launch of ``flash_attention``
    against its plain version, the kernel timed at layer 0's inputs
    (1,280 queries, 16 query heads padded from 14 over 2 kv heads of 64)
@@ -345,7 +356,9 @@ SOURCES = {"lasso_partial": SOURCE, "gram_block": SOURCE,
            "flash_attention_bwd":
                "src/repro_torch/kernels/csrc/flash_attention.cu",
            "topk_gating_bwd": "src/repro_torch/kernels/csrc/moe_gating.cu",
-           "ssm_scan_bwd": "src/repro_torch/kernels/csrc/ssm_scan.cu"}
+           "ssm_scan_bwd": "src/repro_torch/kernels/csrc/ssm_scan.cu",
+           "slstm_scan": "src/repro_torch/kernels/csrc/slstm_scan.cu",
+           "slstm_scan_bwd": "src/repro_torch/kernels/csrc/slstm_scan.cu"}
 REPLACES = {"lasso_partial": "src/repro/kernels/lasso_cd.py:50",
             "gram_block": "src/repro/kernels/lasso_cd.py:94",
             "flash_attention": "src/repro/kernels/flash_attention.py:100",
@@ -359,13 +372,17 @@ REPLACES = {"lasso_partial": "src/repro/kernels/lasso_cd.py:50",
             # no Pallas kernel: the JAX package differentiates its oracles
             # (ref.topk_gating_ref, ref.ssm_scan_ref) behind the forwards
             "topk_gating_bwd": "src/repro/kernels/moe_gating.py:56",
-            "ssm_scan_bwd": "src/repro/kernels/ssm_scan.py:67"}
+            "ssm_scan_bwd": "src/repro/kernels/ssm_scan.py:67",
+            # no Pallas kernel: the lax.scan of slstm_apply (chunked_scan
+            # of _slstm_cell), differentiated by autodiff
+            "slstm_scan": "src/repro/models/xlstm.py:261",
+            "slstm_scan_bwd": "src/repro/models/xlstm.py:261"}
 ARCH = "phi3.5-moe-42b-a6.6b"
 BATCH, PROMPT, GEN = 4, 1024, 32
 ZAMBA = "zamba2-2.7b"
 ZPROMPT = 1000                 # > 128 and not a multiple of 128: the scan path
 BUILD = ("lasso_cd", "flash_attention", "moe_gating", "ssm_scan",
-         "lda_gibbs")
+         "lda_gibbs", "slstm_scan")
 
 
 class SmokeFailure(Exception):
@@ -3749,7 +3766,8 @@ def profile_serving(torch, ops, M, srv) -> dict:
     kernels = {"flash_attention": (ops.LAUNCHES, ("flash_fwd_bf16",
                                                   "flash_fwd_f32")),
                "topk_gating": (ops.LAUNCHES, ("topk_gating_rows",)),
-               "ssm_scan": (ops.LAUNCHES, ("ssm_scan_fwd",))}
+               "ssm_scan": (ops.LAUNCHES, ("ssm_scan_fwd",)),
+               "slstm_scan": (ops.LAUNCHES, ("slstm_fwd",))}
     return {"profile_prefill": profile_window(
                 torch, lambda: M.prefill(cfg, prm, batch,
                                          cache_len=srv.cache_len), kernels),
@@ -4266,7 +4284,7 @@ def launch_counts(**counts) -> dict:
     """A full ``ops.LAUNCHES`` dict: the given counts, 0 elsewhere."""
     out = dict.fromkeys(("flash_attention", "flash_attention_bwd",
                          "topk_gating", "topk_gating_bwd", "ssm_scan",
-                         "ssm_scan_bwd"), 0)
+                         "ssm_scan_bwd", "slstm_scan", "slstm_scan_bwd"), 0)
     check(set(counts) <= set(out), f"unknown kernels {set(counts) - set(out)}")
     out.update(counts)
     return out
@@ -4288,14 +4306,13 @@ def bwd_routes(route=None, n: int = 0) -> dict:
 
 def train_run(torch, ops, tfa, tlaunch, argv, on_step, layers: int,
               steps: int = TRAIN_STEPS, tokens: int = TRAIN_BATCH * TRAIN_SEQ,
-              attention: bool = True, per_step: dict = None) -> tuple:
+              per_step: dict = None) -> tuple:
     """One ``launch.train.main`` run of ``steps`` steps with the launch
     counts set to 0 just before and read just after: 2 forward launches
     a layer a step (the forward and the group checkpoint's recompute) and
-    1 backward, every backward on the wgmma route; no launch at all for
-    a model without attention (``attention=False``); or ``per_step``'s counts a
-    step, when given.  The loss must fall; step ms is the median of steps
-    2 on."""
+    1 backward, every backward on the wgmma route; or ``per_step``'s
+    counts a step, when given.  The loss must fall; step ms is the median
+    of steps 2 on."""
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     ops.reset_launch_counts()
@@ -4307,7 +4324,7 @@ def train_run(torch, ops, tfa, tlaunch, argv, on_step, layers: int,
     launches = dict(ops.LAUNCHES)
     routes = {r: n - routes0[r] for r, n in tfa.BWD_ROUTE_CALLS.items()}
     if per_step is None:
-        n = layers * steps if attention else 0
+        n = layers * steps
         want = attn_launches(2 * n, n)
     else:
         want = launch_counts(**{k: c * steps for k, c in per_step.items()})
@@ -4864,17 +4881,20 @@ def train_phase(torch, ops, ref, tfa, M, tlaunch, tstep, get_config, data,
 # ---------------------------------------------------------------------------
 
 XLSTM, VLM, AUDIO = "xlstm-125m", "internvl2-1b", "hubert-xlarge"
-XLSTM_STEPS = 2                # xLSTM training steps a run: its sLSTM loop
-                               # (two layers of 2,048 eager steps, checkpointed)
-                               # makes a full-depth step 12-22 s
-XLSTM_CUT_LAYERS = 4           # the profiled step's depth (mLSTM 0-2, sLSTM
-                               # 3; a full-depth step makes ~5 × 10⁵
-                               # launches, ~34 s under a profiler), the f32
-                               # parity run's and the STRADS run's (full
-                               # depth cost ~31 s, the time the moe and
-                               # hybrid training phases take)
+XLSTM_CUT_LAYERS = 4           # the f32 runs' depth (mLSTM 0-2, sLSTM 3)
 XLSTM_PARITY_PROMPT = 512      # two mLSTM chunks; the CPU side takes ~3 s
-ZOO_STEPS = 6                  # InternVL2 and HuBERT training steps
+SLSTM_TOL = 1e-4               # sLSTM forward vs plain (f32 both): |Δ| ≤
+                               # SLSTM_TOL·max(1, max|plain|) of each output
+SLSTM_BWD_TOL = 1e-3           # sLSTM backward vs plain (f32 both): |Δ| ≤
+                               # SLSTM_BWD_TOL·max|plain| of each gradient
+                               # (dg·W_rᵀ summed over 4d in another order,
+                               # carried back over 2,048 steps)
+SLSTM_CELL_FLOPS = (30, 60)    # a (b, t, unit)'s cell, forward and backward
+                               # (the gates' adds, max, exps, tanh, σ, the
+                               # state updates; under 1 % of the product's
+                               # 2·4d at d = 768)
+ZOO_STEPS = 6                  # InternVL2, HuBERT and xLSTM training steps
+XLSTM_STEPS = ZOO_STEPS
 AUDIO_FRAMES = 1500            # 30 s of audio at HuBERT's 50 Hz frames
 
 
@@ -5023,12 +5043,13 @@ def xlstm_parity(torch, M, get_config, data, seed: int) -> dict:
 
 
 def slstm_share(torch, cfg, params, seed: int, step_ms: float) -> dict:
-    """The sLSTM loop's share of a training step: one sLSTM layer's work
-    in a step (its checkpointed forward, the recompute of each chunk of
-    the loop and the backward, as the step runs it) at the step's shapes
-    and weights, timed once on the host clock to a sync (the training
-    run before it warmed the same code and shapes), times the number of
-    sLSTM layers, over the step's ms."""
+    """The sLSTM layers' share of a training step: one sLSTM layer's work
+    in a step (its checkpointed forward, the recompute and the backward,
+    as the step runs it: two forward launches of the kernel and one
+    backward) at the step's shapes and weights, timed on the host clock
+    to a sync, the median of 3 (the training run before it warmed the
+    same code and shapes), times the number of sLSTM layers, over the
+    step's ms."""
     from torch.utils.checkpoint import checkpoint
     from repro_torch.models import params as P
     from repro_torch.models import transformer as T
@@ -5042,73 +5063,389 @@ def slstm_share(torch, cfg, params, seed: int, step_ms: float) -> dict:
     x.requires_grad_()
     ctx = {"positions": None, "kpos": None, "slot": None, "window": None,
            "cache": None}
-
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    y, _ = checkpoint(T._apply_sub, "slstm", p, x, cfg, ctx,
-                      use_reentrant=False)
-    torch.autograd.grad(y, [x] + leaves, g)
-    torch.cuda.synchronize()
-    ms = (time.perf_counter() - t0) * 1e3
+    runs = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        y, _ = checkpoint(T._apply_sub, "slstm", p, x, cfg, ctx,
+                          use_reentrant=False)
+        torch.autograd.grad(y, [x] + leaves, g)
+        torch.cuda.synchronize()
+        runs.append((time.perf_counter() - t0) * 1e3)
+    ms = median(runs)
     n = len(cfg.slstm_layers)
     return {"slstm_layers": n, "layer_fwd_bwd_ms": ms,
-            "loop_ms_a_step": n * ms, "step_ms": step_ms,
-            "share": n * ms / step_ms}
+            "layer_fwd_bwd_ms_runs": runs, "slstm_ms_a_step": n * ms,
+            "step_ms": step_ms, "share": n * ms / step_ms}
 
 
-def xlstm_phase(torch, ops, tfa, M, serve_lm, tlaunch, tstep, get_config,
-                data, seed: int) -> dict:
-    """xLSTM-125M at full width (12 layers, sLSTM at 3 and 9), bf16:
-    serving (batch 4, prompt 1,024, 32 tokens) and training (batch 4 ×
-    2,048: XLSTM_STEPS plain steps and XLSTM_STEPS ``--strads
-    --weight-decay 0`` steps, both at full depth) through the entry
-    points.  The model reaches no kernel of the port:
-    the main paths' launch counts must all be 0.  Also the f32 parity
-    run, the sLSTM loop's share of a full-depth step and a profiler
-    window over one step of a fresh XLSTM_CUT_LAYERS-layer state."""
-    import dataclasses
+class slstm_capture:
+    """``ops.slstm_scan`` swapped for the length of a ``with`` block for a
+    wrapper that keeps detached copies of its first call's (gx, wr, bias,
+    state) in ``first``; and ``xlstm._slstm_cell`` for one that counts
+    its calls in ``cells`` (the card's route never reaches it)."""
+
+    def __init__(self, torch, ops, TX):
+        self.first, self.cells = None, {"calls": 0}
+        real = ops.slstm_scan
+
+        def scan(gx, wr, bias, state=None):
+            if self.first is None:
+                with torch.inference_mode(False):   # plain tensors
+                    self.first = tuple(t.detach().clone()
+                                       for t in (gx, wr, bias)) + (
+                        None if state is None else tuple(
+                            t.detach().float().clone() for t in state),)
+            return real(gx, wr, bias, state)
+        self._swaps = (patched(ops, slstm_scan=scan),
+                       patched(TX, _slstm_cell=counted(TX._slstm_cell,
+                                                       self.cells)))
+
+    def __enter__(self):
+        for sw in self._swaps:
+            sw.__enter__()
+        return self
+
+    def __exit__(self, *exc):
+        for sw in self._swaps:
+            sw.__exit__(*exc)
+
+
+def slstm_bounds(B: int, S: int, d: int, save: bool, state: bool) -> tuple:
+    """(the forward's bound, the backward's): the product h·W_r (and
+    dg·W_rᵀ) at 2·4d operations a (b, t, unit) plus the cell's
+    (SLSTM_CELL_FLOPS) at 67 TFLOP/s in f32, against each input read once
+    and each output written once (gx, W_r, bias, the states, hs, and
+    with ``save`` the pre-activations and states the backward reads;
+    the backward reads those, dhs and W_r and writes dG)."""
+    f = 4
+    fwd_bytes = f * (B * S * 4 * d + d * 4 * d + 4 * d + B * S * d
+                     + 4 * B * d * (2 if state else 1)
+                     + (B * S * 7 * d if save else 0))
+    bwd_bytes = f * (d * 4 * d + B * S * 7 * d + B * S * d + B * S * 4 * d
+                     + (8 * B * d if state else 0))
+    units = B * S * d
+    return (bound(fwd_bytes, units * (8 * d + SLSTM_CELL_FLOPS[0])),
+            bound(bwd_bytes, units * (8 * d + SLSTM_CELL_FLOPS[1])))
+
+
+def slstm_kernel_phase(torch, ops, ref, tsl, args, prefill_args,
+                       seed: int) -> tuple:
+    """The sLSTM kernels at layer 3's real inputs of a training step
+    (``args``: gx (4, 2,048, 3,072), no state) and of a serving prefill
+    (``prefill_args``: 4 × 1,024 from the serving cache's state; the
+    backward there with the initial state's gradients) against
+    their plain versions in f32: forward (hs, the final state and what
+    the backward reads, each within SLSTM_TOL) and backward (dhs drawn
+    from a seed; dG and dW_r, dbias from it within SLSTM_BWD_TOL), each
+    twice to the bit; timed eager (CUDA events) and as device time (the
+    cooperative launch captured in a CUDA graph), beside the plain
+    versions, the bounds and the barrier floor (the same grid through its
+    S − 1 grid barriers alone).  Returns (the forward's entry, the
+    backward's)."""
+    gx, wr, bias, state = args
+    B, S, d4 = gx.shape
+    d = d4 // 4
+    check(state is None, f"slstm_scan in training: a state {state}")
+    hs, fin, saved = tsl.slstm_scan(gx, wr, bias, None, save=True)
+    hs2, fin2, saved2 = tsl.slstm_scan(gx, wr, bias, None, save=True)
+    torch.cuda.synchronize()
+    check(all(torch.equal(a, b) for a, b in zip(
+        (hs,) + fin + saved, (hs2,) + fin2 + saved2)),
+        "slstm_scan: two calls differ")
+    del hs2, fin2, saved2
+    hr, fr, sr = ref.slstm_scan_ref(gx, wr, bias, None, save=True)
+    ferr = {}
+    for name, a, b in zip(("hs", "c", "n", "m", "h", "G", "C", "N", "M"),
+                          (hs,) + fin + saved, (hr,) + fr + sr):
+        top = max(1.0, b.abs().max().item())
+        ferr[name] = {"max_abs_err": (a - b).abs().max().item(),
+                      "scale": top}
+        check(ferr[name]["max_abs_err"] <= SLSTM_TOL * top,
+              f"slstm_scan vs plain at layer 3's inputs: {name} {ferr}")
+    gen = torch.Generator(device=DEVICE).manual_seed(seed + 13)
+    dhs = torch.randn(hs.shape, generator=gen, device=DEVICE)
+    bwd = lambda: tsl.slstm_scan_bwd(wr, None, saved, dhs, None,
+                                     want_dstate=False)
+    dG, _ = bwd()
+    dG2, _ = bwd()
+    torch.cuda.synchronize()
+    check(torch.equal(dG, dG2), "slstm_scan_bwd: two calls differ")
+    del dG2
+    t0 = time.perf_counter()
+    dGr, _ = ref.slstm_scan_bwd_ref(wr, None, sr, dhs)
+    torch.cuda.synchronize()
+    plain_bwd_ms = (time.perf_counter() - t0) * 1e3
+    berr = {}
+    for name, a, b in zip(("dG", "dwr", "dbias"),
+                          (dG,) + ref.slstm_param_grads(dG, hs, None),
+                          (dGr,) + ref.slstm_param_grads(dGr, hr, None)):
+        top = b.abs().max().item()
+        berr[name] = {"max_abs_err": (a - b).abs().max().item(),
+                      "max_abs": top}
+        check(berr[name]["max_abs_err"] <= SLSTM_BWD_TOL * top,
+              f"slstm_scan_bwd vs plain at layer 3's inputs: {berr}")
+    del hr, fr, sr, dGr
+    (fb_ms, fb_by), (bb_ms, bb_by) = slstm_bounds(B, S, d, True, False)
+    fwd_save = lambda: tsl.slstm_scan(gx, wr, bias, None, save=True)
+    floor = lambda: tsl.barriers(B, S, d, gx.device)
+    plan = tsl.plan(B, d)
+    fwd = {"max_abs_err": max(v["max_abs_err"] for v in ferr.values()),
+           "errors": ferr, "tolerance": f"{SLSTM_TOL} of max(1, max|plain|)"
+                                        f" of each output (f32 both)",
+           "ms": time_ms(torch, fwd_save, iters=5, warmup=1),
+           "device_ms": graph_ms(torch, fwd_save, calls=2, replays=3),
+           "plain_ms": time_ms(torch, lambda: ref.slstm_scan_ref(
+               gx, wr, bias, None, save=True), iters=1, warmup=0),
+           "bound_ms": fb_ms, "bound_by": fb_by, "library_ms": None,
+           "library": "none: no one PyTorch call computes an sLSTM with "
+                      "exponential gating",
+           "barrier_floor_ms": time_ms(torch, floor, iters=5, warmup=1),
+           "barrier_floor_device_ms": graph_ms(torch, floor, calls=2,
+                                               replays=3),
+           "same_bits_twice": True, "plan": plan,
+           "shape": {"gx": [B, S, d4], "state": None, "save": True}}
+    fwd["device_bound_share"] = fb_ms / fwd["device_ms"]
+    fwd["barrier_floor_share"] = (fwd["barrier_floor_device_ms"]
+                                  / fwd["device_ms"])
+    bwd_entry = {
+        "max_abs_err": max(v["max_abs_err"] for v in berr.values()),
+        "errors": berr, "tolerance": f"{SLSTM_BWD_TOL} of each gradient's "
+                                     f"max|plain| (f32 both)",
+        "ms": time_ms(torch, bwd, iters=5, warmup=1),
+        "device_ms": graph_ms(torch, bwd, calls=2, replays=3),
+        "plain_ms": plain_bwd_ms, "bound_ms": bb_ms, "bound_by": bb_by,
+        "library_ms": None,
+        "library": "none: no one PyTorch call computes an sLSTM with "
+                   "exponential gating",
+        "barrier_floor_device_ms": fwd["barrier_floor_device_ms"],
+        "same_bits_twice": True, "plan": plan,
+        "shape": {"dhs": [B, S, d], "saved_gb": sum(
+            t.numel() for t in saved) * 4 / 1e9}}
+    bwd_entry["device_bound_share"] = bb_ms / bwd_entry["device_ms"]
+    bwd_entry["barrier_floor_share"] = (fwd["barrier_floor_device_ms"]
+                                        / bwd_entry["device_ms"])
+    del saved, dhs, dG, hs
+    torch.cuda.empty_cache()
+
+    # the serving prefill's call (4 × 1,024 from the cache's state,
+    # no saving) and a decode step's (S = 1 from the prefill's state)
+    gx, wr, bias, state = prefill_args
+    Bp, Sp, _ = gx.shape
+    hs, fin = tsl.slstm_scan(gx, wr, bias, state)
+    hr, fr = ref.slstm_scan_ref(gx, wr, bias, state)
+    perr = max((a - b).abs().max().item() / max(1.0, b.abs().max().item())
+               for a, b in zip((hs,) + fin, (hr,) + fr))
+    check(perr <= SLSTM_TOL, f"slstm_scan at the prefill's inputs: {perr}")
+    (pb_ms, pb_by), _ = slstm_bounds(Bp, Sp, d, False, True)
+    run = lambda: tsl.slstm_scan(gx, wr, bias, state)
+    prefill = {"shape": [Bp, Sp, d4], "max_rel_err": perr,
+               "device_ms": graph_ms(torch, run, calls=2, replays=3),
+               "ms": time_ms(torch, run, iters=5, warmup=1),
+               "plain_ms": time_ms(torch, lambda: ref.slstm_scan_ref(
+                   gx, wr, bias, state), iters=1, warmup=0),
+               "bound_ms": pb_ms, "bound_by": pb_by,
+               "barrier_floor_device_ms": graph_ms(
+                   torch, lambda: tsl.barriers(Bp, Sp, d, gx.device),
+                   calls=2, replays=3)}
+    # the backward at the prefill's shape from the same state (zeros but
+    # m = −1e30, so every first step has fa = 0 and ties max(n, 1) at
+    # n = 1): the initial state's gradients against the plain sweep too
+    check(state is not None, "sLSTM prefill: no state from the cache")
+    _, finp, savedp = tsl.slstm_scan(gx, wr, bias, state, save=True)
+    gen = torch.Generator(device=DEVICE).manual_seed(seed + 17)
+    dhp = torch.randn(hs.shape, generator=gen, device=DEVICE)
+    dfp = tuple(torch.randn(t.shape, generator=gen, device=DEVICE)
+                for t in finp)
+    bwdp = lambda: tsl.slstm_scan_bwd(wr, state, savedp, dhp, dfp)
+    dGp, dsp = bwdp()
+    _, _, srp = ref.slstm_scan_ref(gx, wr, bias, state, save=True)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    dGpr, dspr = ref.slstm_scan_bwd_ref(wr, state, srp, dhp, dfp)
+    torch.cuda.synchronize()
+    plain_bwdp_ms = (time.perf_counter() - t0) * 1e3
+    pberr = slstm_grad_errors(("dG", "dc0", "dn0", "dm0", "dh0"),
+                              (dGp,) + tuple(dsp), (dGpr,) + tuple(dspr),
+                              "slstm_scan_bwd at the prefill's inputs")
+    _, (pbb_ms, pbb_by) = slstm_bounds(Bp, Sp, d, True, True)
+    bwd_prefill = {"shape": [Bp, Sp, d], "errors": pberr,
+                   "max_abs_err": max(v["max_abs_err"]
+                                      for v in pberr.values()),
+                   "ms": time_ms(torch, bwdp, iters=5, warmup=1),
+                   "device_ms": graph_ms(torch, bwdp, calls=2, replays=3),
+                   "plain_ms": plain_bwdp_ms, "bound_ms": pbb_ms,
+                   "bound_by": pbb_by,
+                   "barrier_floor_device_ms":
+                       prefill["barrier_floor_device_ms"]}
+    del savedp, dhp, dfp, dGp, dsp, srp, dGpr, dspr
+    bwd_entry["by_shape"] = {"prefill": bwd_prefill}
+
+    one = gx[:, :1].contiguous()
+    step = lambda: tsl.slstm_scan(one, wr, bias, fin)
+    hr1, fr1 = ref.slstm_scan_ref(one, wr, bias, fin)
+    h1, f1 = step()
+    derr = max((a - b).abs().max().item() / max(1.0, b.abs().max().item())
+               for a, b in zip((h1,) + f1, (hr1,) + fr1))
+    check(derr <= SLSTM_TOL, f"slstm_scan at a decode step: {derr}")
+    (db_ms, db_by), _ = slstm_bounds(Bp, 1, d, False, True)
+    decode = {"shape": [Bp, 1, d4], "max_rel_err": derr,
+              "device_ms": graph_ms(torch, step),
+              "ms": time_ms(torch, step),
+              "plain_ms": time_ms(torch, lambda: ref.slstm_scan_ref(
+                  one, wr, bias, fin), iters=50),
+              "bound_ms": db_ms, "bound_by": db_by}
+    fwd["by_shape"] = {"prefill": prefill, "decode": decode}
+    fwd["cases"] = slstm_edge_checks(torch, ref, tsl, wr, seed)
+    return fwd, bwd_entry
+
+
+def slstm_grad_errors(names, got, want, what: str) -> dict:
+    """|got − want| of each gradient against SLSTM_BWD_TOL of its
+    max|plain|; fails the run past it."""
+    out = {}
+    for name, a, b in zip(names, got, want):
+        top = b.abs().max().item()
+        out[name] = {"max_abs_err": (a - b).abs().max().item(),
+                     "max_abs": top}
+        check(out[name]["max_abs_err"] <= SLSTM_BWD_TOL * max(top, 1e-30),
+              f"{what}: {name} {out[name]}")
+    return out
+
+
+def slstm_edge_checks(torch, ref, tsl, wr_real, seed: int) -> dict:
+    """The sLSTM kernels against their plain versions, forward (each
+    output within SLSTM_TOL) and backward (dG and the initial state's
+    dc, dn, dm, dh within SLSTM_BWD_TOL, each twice to the bit), at
+    d = 768 where the gradient's path through the stabiliser shows and
+    where B runs as several chunks of one launch:
+
+    - ``zero_state``: a state of zeros (m = 0, n = 0), i lowered by 3,
+      so n_t < 1 and max(n, 1) clamps: h depends on m and dm is real;
+    - ``m_tie``: W_r = 0 and bias = 0, the first step ties
+      max(logσ(f) + m, i) (f = 100, i = m = 0.5) and max(n, 1) (n = 0);
+    - ``chunks_16`` (the backward in 2 chunks) and ``chunks_48`` (the
+      forward in 2, the backward in 4), from a state with n ≥ 1.
+    """
+    d = wr_real.shape[0]
+    gen = torch.Generator(device=DEVICE).manual_seed(seed + 19)
+    rnd = lambda *shape: torch.randn(shape, generator=gen, device=DEVICE)
+    out = {}
+    for name, B, S in (("zero_state", 4, 64), ("m_tie", 4, 64),
+                       ("chunks_16", 16, 64), ("chunks_48", 48, 40)):
+        gx, bias = rnd(B, S, 4 * d), rnd(4 * d) * 0.5
+        wr = wr_real.clone()
+        state = (rnd(B, d), rnd(B, d).abs() + 1, rnd(B, d), rnd(B, d))
+        if name == "zero_state":
+            state = tuple(torch.zeros_like(t) for t in state)
+            gx[:, :, d:2 * d] -= 3.0
+        elif name == "m_tie":
+            wr.zero_()
+            bias.zero_()
+            state = (state[0], torch.zeros_like(state[1]),
+                     torch.full_like(state[2], 0.5), state[3])
+            gx[:, 0, d:2 * d] = 0.5
+            gx[:, 0, 2 * d:3 * d] = 100.0
+        hs, fin, saved = tsl.slstm_scan(gx, wr, bias, state, save=True)
+        hr, fr, sr = ref.slstm_scan_ref(gx, wr, bias, state, save=True)
+        ferr = max((a - b).abs().max().item() / max(1.0, b.abs().max().item())
+                   for a, b in zip((hs,) + fin + saved, (hr,) + fr + sr))
+        check(ferr <= SLSTM_TOL, f"slstm_scan, case {name}: {ferr}")
+        dhs = rnd(B, S, d)
+        dfin = tuple(rnd(B, d) for _ in range(4))
+        dG, dst = tsl.slstm_scan_bwd(wr, state, saved, dhs, dfin)
+        dG2, dst2 = tsl.slstm_scan_bwd(wr, state, saved, dhs, dfin)
+        torch.cuda.synchronize()
+        check(all(torch.equal(a, b) for a, b in zip((dG,) + dst,
+                                                    (dG2,) + dst2)),
+              f"slstm_scan_bwd, case {name}: two calls differ")
+        dGr, dsr = ref.slstm_scan_bwd_ref(wr, state, sr, dhs, dfin)
+        berr = slstm_grad_errors(("dG", "dc0", "dn0", "dm0", "dh0"),
+                                 (dG,) + tuple(dst), (dGr,) + tuple(dsr),
+                                 f"slstm_scan_bwd, case {name}")
+        plan = tsl.plan(B, d, backward=True)
+        out[name] = {"B": B, "S": S, "fwd_max_rel_err": ferr,
+                     "bwd_errors": berr,
+                     "chunks_fwd": plan["chunks_fwd"],
+                     "chunks_bwd": plan["chunks_bwd"]}
+    check(out["chunks_16"]["chunks_bwd"] > 1
+          and out["chunks_48"]["chunks_fwd"] > 1,
+          f"sLSTM edge cases: no case ran in chunks {out}")
+    return out
+
+
+def xlstm_phase(torch, ops, ref, tfa, M, serve_lm, tlaunch, tstep,
+                get_config, data, seed: int) -> tuple:
+    """xLSTM-125M at full width and depth (12 layers, sLSTM at 3 and 9),
+    bf16: serving (batch 4, prompt 1,024, 32 tokens) and training (batch
+    4 × 2,048: XLSTM_STEPS plain steps and XLSTM_STEPS ``--strads
+    --weight-decay 0`` steps) through the entry points, every sLSTM call
+    one launch of the sLSTM kernel and none of ``_slstm_cell``: 2 a
+    prefill, 2 a decode step, 4 forward and 2 backward a training step.
+    Also the f32 parity run, the kernels at layer 3's real inputs
+    against their plain versions with the barrier floor
+    (``slstm_kernel_phase``), a 4-layer f32 training step against the
+    plain versions, the sLSTM layers' share of a step and a profiler
+    window over a full-depth step.  Returns (the forward kernel's entry,
+    the backward's, the numbers)."""
+    from repro_torch.kernels import slstm_scan as tsl
+    from repro_torch.models import xlstm as TX
     from repro_torch.optim import tree_flatten
     srv, res = serve_build(torch, serve_lm, XLSTM, seed)
     cfg = srv.cfg
+    L, n_sl = cfg.num_layers, len(cfg.slstm_layers)
     res["params"] = M.num_params(cfg)
-    with torch.inference_mode():
+    with torch.inference_mode(), slstm_capture(torch, ops, TX) as cap:
         first_step(torch, M, cfg, srv.params, srv.batch, srv.cache_len)
-        toks, numbers = main_path(torch, ops, M, srv, attn_launches())
+        toks, numbers = main_path(torch, ops, M, srv, launch_counts(
+            slstm_scan=n_sl * (1 + GEN)))
         res.update(numbers)
         window = profile_serving(torch, ops, M, srv)
+    check(cap.cells["calls"] == 0, f"xLSTM serving: {cap.cells['calls']} "
+                                   f"calls of _slstm_cell on the card")
+    prefill_args = cap.first
     res.update(window)
     print("xLSTM serving: " + json.dumps(
         {k: v for k, v in res.items() if not k.startswith("profile")}))
+    print_profile("xLSTM serving profile_prefill", window["profile_prefill"])
     del srv, window
     torch.cuda.empty_cache()
     out = {"serve": res}
     out["f32_parity"] = xlstm_parity(torch, M, get_config, data, seed)
     torch.cuda.empty_cache()
 
-    L = cfg.num_layers
+    per_step = family_per_step(cfg, L, scan=False)
     box = {}
-    _, out["plain"] = train_run(
-        torch, ops, tfa, tlaunch, zoo_argv(XLSTM, seed, XLSTM_STEPS,
-                                           TRAIN_SEQ),
-        lambda i, state, metrics: box.update(state=state), L,
-        steps=XLSTM_STEPS, attention=False)
+    with slstm_capture(torch, ops, TX) as cap:
+        _, out["plain"] = train_run(
+            torch, ops, tfa, tlaunch, zoo_argv(XLSTM, seed, XLSTM_STEPS,
+                                               TRAIN_SEQ),
+            lambda i, state, metrics: box.update(state=state), L,
+            steps=XLSTM_STEPS, per_step=per_step)
+    check(cap.cells["calls"] == 0, f"xLSTM training: {cap.cells['calls']} "
+                                   f"calls of _slstm_cell on the card")
+    out["launches_a_step"] = per_step
     print("xLSTM training plain: " + json.dumps(out["plain"]))
     state = box.pop("state")
     out["slstm_share"] = slstm_share(torch, cfg, state["params"], seed,
                                      out["plain"]["step_ms_median_from_2"])
-    print("xLSTM sLSTM loop share of a step: " + json.dumps(
+    print("xLSTM sLSTM layers' share of a step: " + json.dumps(
         out["slstm_share"]))
+    fentry, bentry = slstm_kernel_phase(torch, ops, ref, tsl, cap.first,
+                                        prefill_args, seed)
+    del cap, prefill_args
+    print("slstm_scan at layer 3's inputs: " + json.dumps(fentry))
+    print("slstm_scan_bwd at layer 3's inputs: " + json.dumps(bentry))
     del state
     torch.cuda.empty_cache()
 
-    # STRADS at XLSTM_CUT_LAYERS layers, weight decay 0: a block the mask
-    # left out keeps its bits
-    cut = dataclasses.replace(cfg, num_layers=XLSTM_CUT_LAYERS)
+    # STRADS at full depth, weight decay 0: a block the mask left out keeps
+    # its bits (layer XX is block XX, the rest block L)
     prev, sstats = {}, {"blocks_active": [], "unscheduled_checked": 0}
 
     def strads_check(i, state, metrics):
         params = tree_flatten(state["params"])
-        mapping, nb = tstep.layer_blocks(cut, state["params"])
+        mapping, nb = tstep.layer_blocks(cfg, state["params"])
         if metrics is not None:
             mask = metrics["mask"] > 0
             moved = torch.zeros(nb, dtype=torch.bool, device=DEVICE)
@@ -5120,37 +5457,48 @@ def xlstm_phase(torch, ops, tfa, M, serve_lm, tlaunch, tstep, get_config,
                   f"{(moved & ~mask).nonzero().flatten().tolist()} moved")
             sstats["blocks_active"].append(int(mask.sum()))
             sstats["unscheduled_checked"] += int((~mask).sum())
+        box["state"] = state
         prev.clear()
         prev.update({n: x.clone() for n, x in params})
     _, out["strads"] = train_run(
         torch, ops, tfa, tlaunch, zoo_argv(
             XLSTM, seed, XLSTM_STEPS, TRAIN_SEQ, "--strads",
-            "--weight-decay", "0", "--layers", str(XLSTM_CUT_LAYERS)),
-        strads_check, XLSTM_CUT_LAYERS, steps=XLSTM_STEPS, attention=False)
+            "--weight-decay", "0"),
+        strads_check, L, steps=XLSTM_STEPS, per_step=per_step)
     check(len(sstats["blocks_active"]) == XLSTM_STEPS,
           f"xLSTM STRADS: {len(sstats['blocks_active'])} steps checked")
-    out["strads"].update(sstats, layers=XLSTM_CUT_LAYERS,
-                         blocks=XLSTM_CUT_LAYERS + 1)
+    out["strads"].update(sstats, layers=L, blocks=L + 1)
     print("xLSTM training STRADS: " + json.dumps(out["strads"]))
     prev.clear()
-    torch.cuda.empty_cache()
-    state = tstep.init_train_state(
-        cut, tstep.TrainConfig(),
-        torch.Generator(device=DEVICE).manual_seed(seed))
-    batch = data.make_batch(data.SyntheticLMConfig(
-        vocab_size=cfg.vocab_size, seq_len=TRAIN_SEQ,
-        batch_size=TRAIN_BATCH, seed=seed), XLSTM_STEPS, device=DEVICE)
-    out["profile_train_step"] = train_profile(torch, ops, tstep, cut, state,
-                                              batch, {})
-    out["profile_train_step"]["layers"] = XLSTM_CUT_LAYERS
-    print("xLSTM training profile_train_step: " + json.dumps(
-        {k: v for k, v in out["profile_train_step"].items() if k != "top"}))
-    for row in out["profile_train_step"]["top"][:8]:
-        print(f"    {row['device_ms']:9.3f} ms  x{row['count']:<6d} "
-              f"{row['name'][:90]}")
+    state = box.pop("state")
+    batch = data_batch(cfg, TRAIN_SEQ, XLSTM_STEPS, seed)
+    out["profile_train_step"] = train_profile(
+        torch, ops, tstep, cfg, state, batch,
+        {"slstm_scan": (ops.LAUNCHES, ("slstm_fwd",)),
+         "slstm_scan_bwd": (ops.LAUNCHES, ("slstm_bwd",))})
+    out["profile_train_step"]["layers"] = L
+    print_profile("xLSTM training profile_train_step",
+                  out["profile_train_step"])
     del state, box, batch
     torch.cuda.empty_cache()
-    return out
+
+    # 4 layers in f32, weights scaled by 0.1: the kernels against
+    # ops.slstm_scan_plain (the plain forward and reverse sweep)
+    out["f32_step"] = family_f32_step(
+        torch, ops, ref, M, tstep, tree_flatten, get_config, data, XLSTM,
+        XLSTM_CUT_LAYERS, TRAIN_SEQ, {"slstm_scan": ops.slstm_scan_plain})
+    print("xLSTM f32 step (4 layers, full width): " + json.dumps(
+        {k: v for k, v in out["f32_step"].items() if k != "grad_rel"}))
+    torch.cuda.empty_cache()
+    for entry, name in ((fentry, "slstm_scan"), (bentry, "slstm_scan_bwd")):
+        entry["launches"] = out["plain"]["launches"][name]
+        entry["launches_strads"] = out["strads"]["launches"][name]
+        entry["launches_f32_step"] = out["f32_step"]["launches"][name]
+    fentry["launches_serving"] = res["launches"]["slstm_scan"]
+    ptx = family_ptxas("slstm_scan", ("slstm_",), ("slstm_fwd", "slstm_bwd"))
+    fentry["ptxas"] = {k: v for k, v in ptx.items() if k != "slstm_bwd"}
+    bentry["ptxas"] = {"slstm_bwd": ptx["slstm_bwd"]}
+    return fentry, bentry, out
 
 
 def attn_kernels(ops):
@@ -5378,7 +5726,11 @@ def family_per_step(cfg, layers: int, scan: bool) -> dict:
     """Kernel launches of one training step of a moe or hybrid model at
     ``layers`` layers: each forward kernel twice (the step's forward and
     the group checkpoint's recompute), each backward once; the SSM
-    kernels only on the scan path (``scan``)."""
+    kernels only on the scan path (``scan``).  The xLSTM stack (family
+    ``ssm``): its sLSTM layers' kernels, forward and backward."""
+    if cfg.family == "ssm":
+        n = sum(i < layers for i in cfg.slstm_layers)
+        return launch_counts(slstm_scan=2 * n, slstm_scan_bwd=n)
     if cfg.family == "hybrid":
         g = layers // cfg.attn_every
         n = layers if scan else 0
@@ -6177,8 +6529,10 @@ def main() -> int:
     phase("minicpm-2b training")
 
     # 11. the rest of the zoo: xLSTM-125M, InternVL2-1B, HuBERT-XLarge
-    zoo = {"xlstm": xlstm_phase(torch, ops, tfa, M, serve_lm, tlaunch, tstep,
-                                get_config, tdata, args.seed)}
+    zoo = {}
+    skern["slstm_scan"], skern["slstm_scan_bwd"], zoo["xlstm"] = \
+        xlstm_phase(torch, ops, ref, tfa, M, serve_lm, tlaunch, tstep,
+                    get_config, tdata, args.seed)
     phase("xlstm-125m serving and training")
     fa, fb = skern["flash_attention"], skern["flash_attention_bwd"]
     fb["by_shape"] = {}

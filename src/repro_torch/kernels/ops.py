@@ -12,6 +12,10 @@
     forward also writes the state before every tile of 16 steps, and its
     backward launches the scan's backward kernel of the same source,
     which takes each tile's states again from there.
+  * :func:`slstm_scan`  — xLSTM's sLSTM recurrence, through the sLSTM
+    kernel (``csrc/slstm_scan.cu``, one persistent grid a call); under
+    grad the forward also writes each step's pre-activations and state,
+    and its backward launches the reverse sweep of the same source.
 
 As in :mod:`.lasso_cd`: tensors on the CPU take the plain version
 (:mod:`.ref`; autograd differentiates it); CUDA tensors launch the
@@ -27,13 +31,15 @@ import torch
 
 from . import flash_attention as _fa
 from . import moe_gating as _mg
+from . import slstm_scan as _sl
 from . import ssm_scan as _ss
-from .ref import attention_ref, ssm_scan_ref, topk_gating_ref
+from .ref import (attention_ref, slstm_param_grads, slstm_scan_bwd_ref,
+                  slstm_scan_ref, ssm_scan_ref, topk_gating_ref)
 
 #: kernel name → launches since the last :func:`reset_launch_counts`
 LAUNCHES = {"flash_attention": 0, "flash_attention_bwd": 0,
             "topk_gating": 0, "topk_gating_bwd": 0, "ssm_scan": 0,
-            "ssm_scan_bwd": 0}
+            "ssm_scan_bwd": 0, "slstm_scan": 0, "slstm_scan_bwd": 0}
 
 
 def reset_launch_counts() -> None:
@@ -176,4 +182,85 @@ def ssm_scan(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
         return _SsmScan.apply(x, dt, A, Bm, Cm, h0)
     out = _ss.ssm_scan(x, dt, A, Bm, Cm, h0)
     LAUNCHES["ssm_scan"] += 1
+    return out
+
+
+class _SlstmScan(torch.autograd.Function):
+    """The sLSTM forward writing what its backward reads, and the
+    reverse sweep; dW_r and dbias from the sweep's dG by one product and
+    one sum.  ``plain`` runs the plain versions (:mod:`.ref`) in place
+    of the kernels.  The state's four tensors are inputs and outputs of
+    their own; the initial ones are None together."""
+
+    @staticmethod
+    def forward(ctx, plain, gx, wr, bias, c0, n0, m0, h0):
+        state = None if c0 is None else (c0, n0, m0, h0)
+        if plain:
+            hs, final, saved = slstm_scan_ref(gx, wr, bias, state, save=True)
+        else:
+            hs, final, saved = _sl.slstm_scan(gx, wr, bias, state, save=True)
+            LAUNCHES["slstm_scan"] += 1
+        ctx.plain = plain
+        ctx.save_for_backward(wr, hs, *saved, c0, n0, m0, h0)
+        ctx.set_materialize_grads(False)
+        return (hs,) + tuple(final)
+
+    @staticmethod
+    def backward(ctx, dhs, *dfinal):
+        wr, hs, G, C, N, M, c0, n0, m0, h0 = ctx.saved_tensors
+        state = None if c0 is None else (c0, n0, m0, h0)
+        want = state is not None and any(ctx.needs_input_grad[4:])
+        dhs = (torch.zeros_like(hs) if dhs is None
+               else dhs.float().contiguous())
+        dfinal = tuple(None if t is None else t.float().contiguous()
+                       for t in dfinal)
+        if ctx.plain:
+            dG, dstate = slstm_scan_bwd_ref(wr, state, (G, C, N, M), dhs,
+                                            dfinal)
+        else:
+            dG, dstate = _sl.slstm_scan_bwd(wr, state, (G, C, N, M), dhs,
+                                            dfinal, want_dstate=want)
+            LAUNCHES["slstm_scan_bwd"] += 1
+        dwr, dbias = slstm_param_grads(dG, hs, h0)
+        return (None, dG, dwr, dbias) + (tuple(dstate) if want
+                                          else (None,) * 4)
+
+
+def _slstm_args(gx, wr, bias, state):
+    state = (None,) * 4 if state is None else tuple(
+        t.float().contiguous() for t in state)
+    return (gx.float().contiguous(), wr.float().contiguous(),
+            bias.float().contiguous()) + state
+
+
+def slstm_scan_plain(gx: torch.Tensor, wr: torch.Tensor, bias: torch.Tensor,
+                     state: Optional[tuple] = None):
+    """:func:`slstm_scan`'s plain version on any device: the plain
+    forward (:func:`.ref.slstm_scan_ref`), and under grad the plain
+    reverse sweep (:func:`.ref.slstm_scan_bwd_ref`) as its backward
+    (autograd through the step loop would keep every step's graph)."""
+    args = _slstm_args(gx, wr, bias, state)
+    if _needs_grad(*(t for t in args if t is not None)):
+        hs, *final = _SlstmScan.apply(True, *args)
+        return hs, tuple(final)
+    return slstm_scan_ref(*args[:3], None if state is None else args[3:])
+
+
+def slstm_scan(gx: torch.Tensor, wr: torch.Tensor, bias: torch.Tensor,
+               state: Optional[tuple] = None):
+    """gx (B, S, 4d), wr (d, 4d), bias (4d,), state (c, n, m, h) each
+    (B, d) or None (c = n = h = 0, m = −inf) → (hs (B, S, d) f32, the
+    state after the last step), in float32.  See
+    :func:`.ref.slstm_scan_ref`.  On CUDA, when grad is enabled and an
+    input requires it, the outputs carry a ``grad_fn`` whose backward is
+    the backward kernel (one count of ``slstm_scan_bwd`` a call)."""
+    xs = (gx, wr, bias) + (() if state is None else tuple(state))
+    if _on_cpu(*xs):
+        return slstm_scan_plain(gx, wr, bias, state)
+    args = _slstm_args(gx, wr, bias, state)
+    if _needs_grad(*xs):
+        hs, *final = _SlstmScan.apply(False, *args)
+        return hs, tuple(final)
+    out = _sl.slstm_scan(*args[:3], None if state is None else args[3:])
+    LAUNCHES["slstm_scan"] += 1
     return out

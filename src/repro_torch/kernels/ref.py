@@ -242,6 +242,155 @@ def ssm_scan_bwd_ref(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
             dB.to(Bm.dtype), dC.to(Cm.dtype), dh0)
 
 
+# ---------------------------------------------------------------------------
+# xLSTM's sLSTM recurrence (``kernels/csrc/slstm_scan.cu``)
+# ---------------------------------------------------------------------------
+
+def slstm_state0(B: int, d: int, device) -> tuple:
+    """The state an sLSTM starts from when it is given none: c = n = h = 0
+    and m = −inf (the JAX package's ``slstm_apply``)."""
+    zeros = lambda: torch.zeros((B, d), dtype=torch.float32, device=device)
+    return (zeros(), zeros(),
+            torch.full((B, d), -torch.inf, device=device), zeros())
+
+
+def slstm_scan_ref(gx: torch.Tensor, wr: torch.Tensor, bias: torch.Tensor,
+                   state: Optional[tuple] = None, save: bool = False):
+    """The sLSTM recurrence with exponential gating and its stabiliser,
+    one step at a time (``models/xlstm.py::_slstm_cell``'s arithmetic in
+    its order).
+
+    gx (B, S, 4d) the input's part of the pre-activations, wr (d, 4d),
+    bias (4d,), all f32; state = (c, n, m, h), each (B, d) f32, or None
+    for :func:`slstm_state0`.  Per step, with g split into the z, i, f,
+    o quarters:
+
+        g = gx_t + h_{t−1} W_r + bias
+        m_t = max(logσ(f) + m_{t−1}, i)
+        c_t = e^{logσ(f) + m_{t−1} − m_t} c_{t−1} + e^{i − m_t} tanh(z)
+        n_t = e^{logσ(f) + m_{t−1} − m_t} n_{t−1} + e^{i − m_t}
+        h_t = σ(o) c_t / max(n_t, 1)
+
+    Returns (hs (B, S, d), (c, n, m, h) after the last step), and with
+    ``save`` a third output, what the backward reads: (G (B, S, 4d) the
+    pre-activations g, C, N, M (B, S, d) the states after each step)."""
+    B, S, d4 = gx.shape
+    d = d4 // 4
+    c, n, m, h = slstm_state0(B, d, gx.device) if state is None else state
+    hs, saved = [], ([], [], [], [])
+    for t in range(S):
+        g = gx[:, t] + h @ wr + bias
+        zi, ii, fi, oi = g.split(d, dim=-1)
+        z = torch.tanh(zi)
+        o = torch.sigmoid(oi)
+        logf = torch.nn.functional.logsigmoid(fi)
+        m_new = torch.maximum(logf + m, ii)
+        fa = torch.exp(logf + m - m_new)
+        ia = torch.exp(ii - m_new)
+        c = fa * c + ia * z
+        n = fa * n + ia
+        h = o * c / torch.maximum(n, n.new_ones(()))
+        m = m_new
+        hs.append(h)
+        if save:
+            for acc, v in zip(saved, (g, c, n, m)):
+                acc.append(v)
+    stack = lambda xs, w: (torch.stack(xs, dim=1) if xs else torch.zeros(
+        (B, 0, w), dtype=torch.float32, device=gx.device))
+    out = (stack(hs, d), (c, n, m, h))
+    if save:
+        return out + (tuple(stack(v, w) for v, w in
+                            zip(saved, (4 * d, d, d, d))),)
+    return out
+
+
+def _tie_weight(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """The share of ``max(a, b)``'s gradient that goes to ``a``: 1 where
+    a > b, ½ where they tie, 0 where a < b (``torch.maximum`` and
+    ``jnp.maximum`` both split a tie evenly)."""
+    return torch.where(a > b, 1.0, torch.where(a == b, 0.5, 0.0))
+
+
+def slstm_scan_bwd_ref(wr: torch.Tensor, state: Optional[tuple],
+                       saved: tuple, dhs: torch.Tensor,
+                       dfinal: Optional[tuple] = None):
+    """The reverse sweep of :func:`slstm_scan_ref`, step by step, as the
+    CUDA backward computes it: autograd's chain through the cell, the
+    stabiliser included.
+
+    ``saved`` = (G, C, N, M) from a ``save=True`` forward; ``state`` the
+    forward's initial state (None: :func:`slstm_state0`); ``dhs`` (B, S,
+    d) the gradient of hs; ``dfinal`` = (dc, dn, dm, dh) of the final
+    state, any of them None for zeros.  At step t, from the gradients
+    dc, dn, dm of (c_t, n_t, m_t) and dh = dhs_t + (the recurrent part),
+    with D = max(n_t, 1), a = logσ(f) + m_{t−1}, fa = e^{a − m_t},
+    ia = e^{i − m_t}:
+
+        do = dh c_t / D,  dc += dh σ(o) / D,  dn += −dh (h_t / D)·[n_t ≥ 1]
+        dfa = dc c_{t−1} + dn n_{t−1},  dia = dc tanh(z) + dn
+        dm_t' = dm − dfa fa − dia ia            (m_t's total gradient)
+        da = dfa fa + dm_t'·[a ≥ i],  di = dia ia + dm_t'·[i ≥ a]
+        dg = (dc ia (1 − tanh²z), di, da σ(−f), do σ(o)(1 − σ(o)))
+        dc_{t−1} = dc fa,  dn_{t−1} = dn fa,  dm_{t−1} = da,
+        dh_{t−1} = dhs_{t−1} + dg W_rᵀ
+
+    where each [x ≥ y] of a max is ½ at a tie (:func:`_tie_weight`).  No
+    term forms inf − inf or 0·inf: with m_{t−1} = −inf, fa = 0 and
+    a < i.  Returns (dG (B, S, 4d), the gradient of the initial state
+    (dc, dn, dm, dh)); dG is also the gradient of gx."""
+    G, C, N, M = saved
+    B, S, d = C.shape
+    c0, n0, m0, _ = (slstm_state0(B, d, C.device) if state is None
+                     else state)
+    zero = lambda: torch.zeros((B, d), dtype=torch.float32, device=C.device)
+    dc, dn, dm, dhr = (zero() if dfinal is None or dfinal[i] is None
+                       else dfinal[i].float() for i in range(4))
+    dG = torch.empty_like(G)
+    for t in reversed(range(S)):
+        zi, ii, fi, oi = G[:, t].split(d, dim=-1)
+        c_t, n_t, m_t = C[:, t], N[:, t], M[:, t]
+        c_p, n_p, m_p = ((C[:, t - 1], N[:, t - 1], M[:, t - 1]) if t
+                         else (c0, n0, m0))
+        z = torch.tanh(zi)
+        o = torch.sigmoid(oi)
+        a = torch.nn.functional.logsigmoid(fi) + m_p
+        fa = torch.exp(a - m_t)
+        ia = torch.exp(ii - m_t)
+        D = torch.maximum(n_t, n_t.new_ones(()))
+        h_t = o * c_t / D
+        dh = dhs[:, t] + dhr
+        q = dh / D
+        do = q * c_t
+        dc = dc + q * o
+        dn = dn + (-dh * (h_t / D)) * _tie_weight(n_t, n_t.new_ones(()))
+        dfa = dc * c_p + dn * n_p
+        dia = dc * z + dn
+        ea, ei = dfa * fa, dia * ia
+        dmt = dm - ea - ei
+        wa = _tie_weight(a, ii)
+        da = ea + dmt * wa
+        di = ei + dmt * (1.0 - wa)
+        dg = torch.cat([dc * ia * (1.0 - z * z), di,
+                        da * torch.sigmoid(-fi), do * o * (1.0 - o)], dim=-1)
+        dG[:, t] = dg
+        dc, dn, dm = dc * fa, dn * fa, da
+        dhr = dg @ wr.T
+    return dG, (dc, dn, dm, dhr)
+
+
+def slstm_param_grads(dG: torch.Tensor, hs: torch.Tensor,
+                      h0: Optional[torch.Tensor]) -> tuple:
+    """(dW_r, dbias) from the reverse sweep's dG: H_prevᵀ dG over every
+    (b, t), with H_prev the h each step read (h0, zeros when None, then
+    hs without its last step), and Σ dG."""
+    B, S, d = hs.shape
+    first = (torch.zeros((B, 1, d), dtype=hs.dtype, device=hs.device)
+             if h0 is None else h0[:, None])
+    hprev = torch.cat([first, hs[:, :-1]], dim=1)
+    dwr = hprev.reshape(B * S, d).T @ dG.reshape(B * S, 4 * d)
+    return dwr, dG.sum(dim=(0, 1))
+
+
 def lasso_partial_ref(Xb: torch.Tensor, r: torch.Tensor) -> torch.Tensor:
     """z_j = x_jᵀ r for the scheduled block: (…, n, U), (…, n) → (…, U)
     f32."""

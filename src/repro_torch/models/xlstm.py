@@ -11,12 +11,16 @@ The port of the JAX package's ``models/xlstm.py``.
   scan of the one-step cell :func:`_mlstm_cell`; one token (decode) is
   the cell alone.
 * sLSTM — scalar memory per (head, dim) with recurrent input from the
-  previous hidden state: a sequential recurrence in float32, a Python
-  loop of the cell over :func:`~.scan_utils.chunked_scan`.
+  previous hidden state: a sequential recurrence in float32.  On the card
+  every call, one token (decode) or many, is one launch of the port's
+  sLSTM kernel (:func:`repro_torch.kernels.ops.slstm_scan`, whose
+  backward is a kernel too); elsewhere it is a Python loop of the cell
+  over :func:`~.scan_utils.chunked_scan` (:func:`slstm_route`).
 
-Matrix products are ``torch.matmul``; no kernel of the port's own runs
-here (the JAX package's xLSTM reaches no Pallas kernel either).  States
-are tuples (C, n, m) and (c, n, m, h) in float32.
+Matrix products are ``torch.matmul``; the sLSTM kernel is the only one of
+the port's here (the JAX package's xLSTM reaches no Pallas kernel: its
+sLSTM is a ``lax.scan``).  States are tuples (C, n, m) and (c, n, m, h)
+in float32.
 """
 from __future__ import annotations
 
@@ -26,6 +30,7 @@ import torch
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
+from ..kernels import ops
 from .layers import BATCH, FSDP, TENSOR, apply_norm, norm_template
 from .params import ParamMeta
 from .scan_utils import chunked_scan
@@ -240,6 +245,13 @@ def _slstm_cell(gx, wr, bias, state, d):
     return h_new, (c, n, m_new, h_new)
 
 
+def slstm_route(device_type: str) -> str:
+    """The path :func:`slstm_apply` takes: ``"kernel"`` (the sLSTM
+    kernel, one launch a call whatever the sequence length) on the card,
+    else ``"plain"`` (the cell in a Python loop)."""
+    return "kernel" if device_type == "cuda" else "plain"
+
+
 def slstm_apply(p: Dict[str, Any], x: torch.Tensor, cfg, *,
                 state: Optional[Tuple] = None
                 ) -> Tuple[torch.Tensor, Tuple]:
@@ -250,6 +262,10 @@ def slstm_apply(p: Dict[str, Any], x: torch.Tensor, cfg, *,
     gx = (hin @ p["wx"].to(hin.dtype)).float()
     wr = p["wr"].float()
     bias = p["bias"].float()
+    if slstm_route(x.device.type) == "kernel":
+        hs, state = ops.slstm_scan(gx, wr, bias, state)
+        y = hs.to(x.dtype) @ p["wdown"].to(x.dtype)
+        return x + y, state
     if state is None:
         zeros = lambda: torch.zeros((B, d), device=x.device)
         state = (zeros(), zeros(),
