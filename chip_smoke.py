@@ -223,12 +223,13 @@
    block keeping its bits; 4 forward and 2 ``slstm_scan_bwd`` launches a
    step); both kernels at layer 3's real inputs of a training step
    against their plain versions in f32, twice to the bit, timed with
-   the plain versions, their bounds and the barrier floor (the same
-   cooperative grid through its barriers alone), both also at the
-   prefill's inputs (from the serving cache's state, the initial
-   state's gradients checked) and the forward at a decode step's, then at
-   d = 768 from zeros with n < 1, at both ties of the cell, and at batch
-   16 and 48 run in chunks of rows (``slstm_kernel_phase``,
+   the plain versions, their bounds and the exchange floor (the same
+   cooperative grid through its exchanges of tagged words alone), both
+   also at the prefill's inputs (from the serving cache's state, the
+   initial state's gradients checked) and the forward at a decode
+   step's, then at d = 768 from zeros with n < 1, at both ties of the
+   cell, at batch 16 and 48, and at batch 72, which runs forward and
+   backward in chunks of rows (``slstm_kernel_phase``,
    ``slstm_edge_checks``); a
    4-layer f32 training step against the plain versions; the sLSTM
    layers' share of a full-depth step (one sLSTM layer's checkpointed
@@ -5140,9 +5141,9 @@ def slstm_kernel_phase(torch, ops, ref, tsl, args, prefill_args,
     from a seed; dG and dW_r, dbias from it within SLSTM_BWD_TOL), each
     twice to the bit; timed eager (CUDA events) and as device time (the
     cooperative launch captured in a CUDA graph), beside the plain
-    versions, the bounds and the barrier floor (the same grid through its
-    S − 1 grid barriers alone).  Returns (the forward's entry, the
-    backward's)."""
+    versions, the bounds and the exchange floor (the same grid through
+    its S − 1 exchanges of tagged words alone).  Returns (the forward's
+    entry, the backward's)."""
     gx, wr, bias, state = args
     B, S, d4 = gx.shape
     d = d4 // 4
@@ -5200,14 +5201,14 @@ def slstm_kernel_phase(torch, ops, ref, tsl, args, prefill_args,
            "bound_ms": fb_ms, "bound_by": fb_by, "library_ms": None,
            "library": "none: no one PyTorch call computes an sLSTM with "
                       "exponential gating",
-           "barrier_floor_ms": time_ms(torch, floor, iters=5, warmup=1),
-           "barrier_floor_device_ms": graph_ms(torch, floor, calls=2,
-                                               replays=3),
+           "exchange_floor_ms": time_ms(torch, floor, iters=5, warmup=1),
+           "exchange_floor_device_ms": graph_ms(torch, floor, calls=2,
+                                                replays=3),
            "same_bits_twice": True, "plan": plan,
            "shape": {"gx": [B, S, d4], "state": None, "save": True}}
     fwd["device_bound_share"] = fb_ms / fwd["device_ms"]
-    fwd["barrier_floor_share"] = (fwd["barrier_floor_device_ms"]
-                                  / fwd["device_ms"])
+    fwd["exchange_floor_share"] = (fwd["exchange_floor_device_ms"]
+                                   / fwd["device_ms"])
     bwd_entry = {
         "max_abs_err": max(v["max_abs_err"] for v in berr.values()),
         "errors": berr, "tolerance": f"{SLSTM_BWD_TOL} of each gradient's "
@@ -5218,13 +5219,13 @@ def slstm_kernel_phase(torch, ops, ref, tsl, args, prefill_args,
         "library_ms": None,
         "library": "none: no one PyTorch call computes an sLSTM with "
                    "exponential gating",
-        "barrier_floor_device_ms": fwd["barrier_floor_device_ms"],
+        "exchange_floor_device_ms": fwd["exchange_floor_device_ms"],
         "same_bits_twice": True, "plan": plan,
         "shape": {"dhs": [B, S, d], "saved_gb": sum(
             t.numel() for t in saved) * 4 / 1e9}}
     bwd_entry["device_bound_share"] = bb_ms / bwd_entry["device_ms"]
-    bwd_entry["barrier_floor_share"] = (fwd["barrier_floor_device_ms"]
-                                        / bwd_entry["device_ms"])
+    bwd_entry["exchange_floor_share"] = (fwd["exchange_floor_device_ms"]
+                                         / bwd_entry["device_ms"])
     del saved, dhs, dG, hs
     torch.cuda.empty_cache()
 
@@ -5245,7 +5246,7 @@ def slstm_kernel_phase(torch, ops, ref, tsl, args, prefill_args,
                "plain_ms": time_ms(torch, lambda: ref.slstm_scan_ref(
                    gx, wr, bias, state), iters=1, warmup=0),
                "bound_ms": pb_ms, "bound_by": pb_by,
-               "barrier_floor_device_ms": graph_ms(
+               "exchange_floor_device_ms": graph_ms(
                    torch, lambda: tsl.barriers(Bp, Sp, d, gx.device),
                    calls=2, replays=3)}
     # the backward at the prefill's shape from the same state (zeros but
@@ -5276,8 +5277,8 @@ def slstm_kernel_phase(torch, ops, ref, tsl, args, prefill_args,
                    "device_ms": graph_ms(torch, bwdp, calls=2, replays=3),
                    "plain_ms": plain_bwdp_ms, "bound_ms": pbb_ms,
                    "bound_by": pbb_by,
-                   "barrier_floor_device_ms":
-                       prefill["barrier_floor_device_ms"]}
+                   "exchange_floor_device_ms":
+                       prefill["exchange_floor_device_ms"]}
     del savedp, dhp, dfp, dGp, dsp, srp, dGpr, dspr
     bwd_entry["by_shape"] = {"prefill": bwd_prefill}
 
@@ -5324,15 +5325,17 @@ def slstm_edge_checks(torch, ref, tsl, wr_real, seed: int) -> dict:
       so n_t < 1 and max(n, 1) clamps: h depends on m and dm is real;
     - ``m_tie``: W_r = 0 and bias = 0, the first step ties
       max(logσ(f) + m, i) (f = 100, i = m = 0.5) and max(n, 1) (n = 0);
-    - ``chunks_16`` (the backward in 2 chunks) and ``chunks_48`` (the
-      forward in 2, the backward in 4), from a state with n ≥ 1.
+    - ``batch_16`` and ``batch_48``, from a state with n ≥ 1, and
+      ``chunks_72``, which runs the forward and the backward in 2 chunks
+      of rows each (the ring's tags run on across the chunks).
     """
     d = wr_real.shape[0]
     gen = torch.Generator(device=DEVICE).manual_seed(seed + 19)
     rnd = lambda *shape: torch.randn(shape, generator=gen, device=DEVICE)
     out = {}
     for name, B, S in (("zero_state", 4, 64), ("m_tie", 4, 64),
-                       ("chunks_16", 16, 64), ("chunks_48", 48, 40)):
+                       ("batch_16", 16, 64), ("batch_48", 48, 40),
+                       ("chunks_72", 72, 40)):
         gx, bias = rnd(B, S, 4 * d), rnd(4 * d) * 0.5
         wr = wr_real.clone()
         state = (rnd(B, d), rnd(B, d).abs() + 1, rnd(B, d), rnd(B, d))
@@ -5368,9 +5371,9 @@ def slstm_edge_checks(torch, ref, tsl, wr_real, seed: int) -> dict:
                      "bwd_errors": berr,
                      "chunks_fwd": plan["chunks_fwd"],
                      "chunks_bwd": plan["chunks_bwd"]}
-    check(out["chunks_16"]["chunks_bwd"] > 1
-          and out["chunks_48"]["chunks_fwd"] > 1,
-          f"sLSTM edge cases: no case ran in chunks {out}")
+    check(out["chunks_72"]["chunks_fwd"] > 1
+          and out["chunks_72"]["chunks_bwd"] > 1,
+          f"sLSTM edge cases: the chunked case ran in one chunk {out}")
     return out
 
 
@@ -5383,7 +5386,7 @@ def xlstm_phase(torch, ops, ref, tfa, M, serve_lm, tlaunch, tstep,
     one launch of the sLSTM kernel and none of ``_slstm_cell``: 2 a
     prefill, 2 a decode step, 4 forward and 2 backward a training step.
     Also the f32 parity run, the kernels at layer 3's real inputs
-    against their plain versions with the barrier floor
+    against their plain versions with the exchange floor
     (``slstm_kernel_phase``), a 4-layer f32 training step against the
     plain versions, the sLSTM layers' share of a step and a profiler
     window over a full-depth step.  Returns (the forward kernel's entry,

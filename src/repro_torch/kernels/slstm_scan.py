@@ -5,16 +5,17 @@ Replaces no Pallas kernel: the JAX package runs xLSTM's sLSTM as the
 ``lax.scan`` of its ``models/xlstm.py:261-265``, which XLA compiles into
 one device loop.  The source is ``csrc/slstm_scan.cu`` (the note at its
 top says what bounds it and how it is laid out: one persistent grid of
-co-resident blocks, each keeping its units' slice of W_r in shared
-memory, h exchanged through device memory at a grid barrier every step;
-batch rows beyond what a block's shared memory holds run as chunks, one
-after another, in the same launch), built by ``nvcc`` at first use
-(:mod:`._build`).  :func:`plan` reads the grid and the chunks the card
-gives a shape; :func:`slstm_scan` runs the forward (asked
-to, ``save=True``, it also writes what the backward reads) and
-:func:`slstm_scan_bwd` the reverse sweep; :func:`barriers` runs the
-forward's grid through its barriers alone.  All launch on the current
-stream and count nothing: :func:`repro_torch.kernels.ops.slstm_scan`
+co-resident blocks, each keeping its units' slice of W_r in registers
+or shared memory, h (in the backward, the blocks' partials of dh)
+exchanged through L2 as tagged 64-bit words in a two-slot ring, one
+round trip a step; batch rows beyond what a block's shared memory holds
+run as chunks, one after another, in the same launch), built by
+``nvcc`` at first use (:mod:`._build`).  :func:`plan` reads the grid,
+the chunks and the ring the card gives a shape; :func:`slstm_scan` runs
+the forward (asked to, ``save=True``, it also writes what the backward
+reads) and :func:`slstm_scan_bwd` the reverse sweep; :func:`barriers`
+runs the forward's grid through its exchanges alone.  All launch on the
+current stream and count nothing: :func:`repro_torch.kernels.ops.slstm_scan`
 picks the plain version on the CPU, puts the backward under autograd
 and counts launches.
 """
@@ -29,12 +30,17 @@ from . import _build
 
 
 def _lib() -> ctypes.CDLL:
-    lib = _build.load("slstm_scan")
+    return typed(_build.load("slstm_scan"))
+
+
+def typed(lib: ctypes.CDLL) -> ctypes.CDLL:
+    """``lib`` (a build of ``csrc/slstm_scan.cu``) with its functions'
+    argument types set."""
     if not getattr(lib, "_typed", False):
         p, i = ctypes.c_void_p, ctypes.c_int
         ip, llp = ctypes.POINTER(i), ctypes.POINTER(ctypes.c_longlong)
-        lib.slstm_scan_plan.argtypes = [i, i, ip, ip, ip, ip, llp, llp,
-                                        ip, ip]
+        lib.slstm_scan_plan.argtypes = [i, i, ip, ip, ip, ip, llp, llp, llp,
+                                        llp, ip, ip, ip]
         lib.slstm_scan_plan.restype = i
         lib.slstm_scan_fwd_launch.argtypes = [p] * 17 + [i, i, i, p]
         lib.slstm_scan_fwd_launch.restype = i
@@ -42,6 +48,8 @@ def _lib() -> ctypes.CDLL:
         lib.slstm_scan_bwd_launch.restype = i
         lib.slstm_barriers_launch.argtypes = [p, i, i, i, p]
         lib.slstm_barriers_launch.restype = i
+        if hasattr(lib, "slstm_stamps"):
+            lib.slstm_stamps.argtypes = [p, ctypes.c_longlong]
         lib.slstm_scan_error_string.argtypes = [i]
         lib.slstm_scan_error_string.restype = ctypes.c_char_p
         lib._typed = True
@@ -62,20 +70,26 @@ def plan(B: int, d: int, backward: bool = False) -> dict:
     shared memory holds beside its slice of W_r, evened out over the
     fewest chunks) and the chunks (``chunks_fwd``, ``chunks_bwd``), the
     forward's and the backward's shared memory a block in bytes at those
-    rows, the card's SMs and the shared memory a block may opt in to.
-    Raises when the forward (with ``backward``, the backward) cannot
-    take even one row of d."""
+    rows, the bytes of each one's exchange ring (``ring_fwd``,
+    ``ring_bwd``: two slots of tagged 64-bit words), whether the
+    blocks' slices of W_r stay in registers (``w_in_registers``; else in
+    shared memory), the card's SMs and the shared memory a block may opt
+    in to.  Raises when the forward (with ``backward``, the backward)
+    cannot take even one row of d."""
     lib = _lib()
-    vals = [ctypes.c_int(0) for _ in range(4)] + [
-        ctypes.c_longlong(0), ctypes.c_longlong(0), ctypes.c_int(0),
-        ctypes.c_int(0)]
+    L, I = ctypes.c_longlong, ctypes.c_int
+    vals = [I(0) for _ in range(4)] + [L(0) for _ in range(4)] + [
+        I(0) for _ in range(3)]
     _raise_on(lib, lib.slstm_scan_plan(B, d, *map(ctypes.byref, vals)),
               "slstm_scan plan")
-    u, blocks, rf, rb, fwd, bwd, sms, optin = (v.value for v in vals)
+    (u, blocks, rf, rb, fwd, bwd, ring_f, ring_b, regs, sms,
+     optin) = (v.value for v in vals)
     out = {"u": u, "blocks": blocks, "rows_fwd": rf, "rows_bwd": rb,
            "chunks_fwd": -(-B // rf) if rf else 0,
            "chunks_bwd": -(-B // rb) if rb else 0,
-           "smem_fwd": fwd, "smem_bwd": bwd, "sms": sms, "smem_optin": optin}
+           "smem_fwd": fwd, "smem_bwd": bwd, "ring_fwd": ring_f,
+           "ring_bwd": ring_b, "w_in_registers": bool(regs), "sms": sms,
+           "smem_optin": optin}
     name, rows, smem = (("slstm_scan_bwd", rb, bwd) if backward
                         else ("slstm_scan", rf, fwd))
     if rows < 1:
@@ -122,6 +136,11 @@ def _check(gx, wr, bias, state, name="slstm_scan"):
     return B, S, d
 
 
+def _ring(nbytes: int, device) -> torch.Tensor:
+    """Scratch for an exchange ring (the kernel zeroes it)."""
+    return torch.empty(nbytes // 8, dtype=torch.int64, device=device)
+
+
 def _ptr(t: Optional[torch.Tensor]):
     return None if t is None else t.data_ptr()
 
@@ -136,7 +155,7 @@ def slstm_scan(gx: torch.Tensor, wr: torch.Tensor, bias: torch.Tensor,
     :func:`.ref.slstm_scan_ref`.  Raises on what the kernel does not
     take; never falls back."""
     B, S, d = _check(gx, wr, bias, state)
-    plan(B, d)
+    ring = _ring(plan(B, d)["ring_fwd"], gx.device)
     lib = _lib()
     dev = gx.device
     f32 = lambda *shape: torch.empty(shape, dtype=torch.float32, device=dev)
@@ -144,12 +163,11 @@ def slstm_scan(gx: torch.Tensor, wr: torch.Tensor, bias: torch.Tensor,
     final = tuple(f32(B, d) for _ in range(4))
     saved = ((f32(B, S, 4 * d), f32(B, S, d), f32(B, S, d), f32(B, S, d))
              if save else (None,) * 4)
-    count = torch.empty(1, dtype=torch.int32, device=dev)
     init = (None,) * 4 if state is None else state
     err = lib.slstm_scan_fwd_launch(
         gx.data_ptr(), wr.data_ptr(), bias.data_ptr(), *map(_ptr, init),
         hs.data_ptr(), *map(_ptr, final), *map(_ptr, saved),
-        count.data_ptr(), B, S, d, torch.cuda.current_stream(dev).cuda_stream)
+        ring.data_ptr(), B, S, d, torch.cuda.current_stream(dev).cuda_stream)
     _raise_on(lib, err, "slstm_scan")
     return (hs, final, saved) if save else (hs, final)
 
@@ -180,28 +198,27 @@ def slstm_scan_bwd(wr: torch.Tensor, state: Optional[tuple], saved: tuple,
     for t in dfinal:
         if t is not None:
             _check_state((t,) * 4, B, d, G.device, "slstm_scan_bwd dfinal")
-    plan(B, d, backward=True)
+    ring = _ring(plan(B, d, backward=True)["ring_bwd"], G.device)
     lib = _lib()
     dev = G.device
     dG = torch.empty_like(G)
     dstate = (tuple(torch.empty((B, d), dtype=torch.float32, device=dev)
                     for _ in range(4)) if want_dstate else (None,) * 4)
-    count = torch.empty(1, dtype=torch.int32, device=dev)
     init = (None,) * 3 if state is None else state[:3]
     err = lib.slstm_scan_bwd_launch(
         wr.data_ptr(), *map(_ptr, init), *map(_ptr, saved), dhs.data_ptr(),
         *map(_ptr, dfinal), dG.data_ptr(), *map(_ptr, dstate),
-        count.data_ptr(), B, S, d, torch.cuda.current_stream(dev).cuda_stream)
+        ring.data_ptr(), B, S, d, torch.cuda.current_stream(dev).cuda_stream)
     _raise_on(lib, err, "slstm_scan_bwd")
     return dG, (dstate if want_dstate else None)
 
 
 def barriers(B: int, S: int, d: int, device) -> None:
-    """The forward's grid for (B, d) through one chunk's S − 1 barriers
-    and nothing else: the floor of a chunk's chain of steps."""
-    plan(B, d)
+    """The forward's grid for (B, d) through one chunk's S − 1 exchanges
+    of tagged words and nothing else: the floor of a chunk's chain of
+    steps."""
+    ring = _ring(plan(B, d)["ring_fwd"], device)
     lib = _lib()
-    count = torch.empty(1, dtype=torch.int32, device=device)
     _raise_on(lib, lib.slstm_barriers_launch(
-        count.data_ptr(), B, S, d,
+        ring.data_ptr(), B, S, d,
         torch.cuda.current_stream(device).cuda_stream), "slstm_barriers")

@@ -393,14 +393,16 @@ def _on_card_matches_plain(cuda, gx, wr, bias, st, seed):
     (4, 1, 768, True), (4, 37, 768, False), (1, 2048, 768, False),
     (4, 2048, 768, True), (4, 300, 770, True), (1, 5, 40, False),
     (13, 50, 768, True), (16, 300, 768, True), (32, 64, 768, False),
-    (48, 40, 768, True), (128, 1, 768, True)])
+    (48, 40, 768, True), (128, 1, 768, True), (128, 30, 768, False),
+    (133, 20, 768, True)])
 def test_slstm_kernels_match_plain_on_card(cuda, B, S, d, state):
     """Forward and backward against the plain versions at S = 1 (decode),
-    a ragged S and 2,048; B 1 and 4; d = 768 (6 units a block), 770 (the
-    last block holds 2) and 40 (one a block); and B from 13 to 128, which
-    run as several chunks of batch rows in one launch (at d = 768 the
-    backward takes 12 rows a chunk, the forward 37), the last chunk
-    shorter at B = 13."""
+    a ragged S and 2,048; B 1 and 4; d = 768 (6 units a block, W_r's
+    slice in registers), 770 (the last block holds 2; the slice in shared
+    memory) and 40 (one a block); and B from 13 to 133, of which 128 and
+    133 run as several chunks of batch rows in one launch, forward and
+    backward (at d = 768 a chunk holds at most 67 rows forward and 60
+    backward on an H100), the last chunk shorter at B = 133."""
     gx, wr, bias, st = _inputs(B, S, d, seed=S + d, state=state)
     _on_card_matches_plain(cuda, gx, wr, bias, st, seed=S)
 
@@ -453,8 +455,68 @@ def test_slstm_plan_and_barriers_on_card(cuda):
             assert p[f"smem_{k}"] <= p["smem_optin"]
             assert (chunks - 1) * rows < B <= chunks * rows
             assert rows >= -(-B // chunks)
-    assert tsl.plan(16, 768)["chunks_bwd"] == 2
+    assert tsl.plan(16, 768)["chunks_bwd"] == 1
+    p = tsl.plan(128, 768)
+    assert p["chunks_fwd"] >= 2 and p["chunks_bwd"] >= 2
+    assert p["w_in_registers"] and not tsl.plan(4, 770)["w_in_registers"]
     tsl.barriers(4, 2048, 768, cuda)
     torch.cuda.synchronize()
     with pytest.raises(ValueError, match="d=8192"):
         tsl.plan(4, 8192)
+
+
+@pytest.mark.gpu
+def test_slstm_ring_never_takes_a_stale_tag(cuda, monkeypatch):
+    """The exchange ring's tags from an earlier launch never match.  Every
+    call here gets the same memory for its ring (a prefix of one buffer),
+    so it finds the last call's tags there: two calls back to back, a
+    call after one at another B (other chunk counts, so other tags), and
+    a CUDA graph of the forward and the backward replayed 3 times all
+    give the bits of the first call."""
+    B, S, d = 4, 64, 768
+    gx, wr, bias, st = _inputs(B, S, d, seed=23)
+    gx, wr, bias = (torch.from_numpy(a).to(cuda) for a in (gx, wr, bias))
+    st = tuple(torch.from_numpy(a).to(cuda) for a in st)
+    dhs = torch.randn((B, S, d), generator=torch.Generator(
+        device=cuda).manual_seed(23), device=cuda)
+    dfinal = tuple(torch.randn((B, d), generator=torch.Generator(
+        device=cuda).manual_seed(24 + i), device=cuda) for i in range(4))
+    big_plan = tsl.plan(128, d)
+    assert big_plan["chunks_fwd"] >= 2 and big_plan["chunks_bwd"] >= 2
+    pool = tsl._ring(max(tsl.plan(n, d)[k] for n in (B, 128)
+                         for k in ("ring_fwd", "ring_bwd")), cuda)
+    monkeypatch.setattr(tsl, "_ring", lambda nbytes, device:
+                        pool[:nbytes // 8])
+
+    def both():
+        hs, final, saved = tsl.slstm_scan(gx, wr, bias, st, save=True)
+        dG, dstate = tsl.slstm_scan_bwd(wr, st, saved, dhs, dfinal)
+        return (hs,) + final + saved + (dG,) + dstate
+
+    def same(a, b):
+        return all(torch.equal(x, y) for x, y in zip(a, b))
+    want = both()
+    torch.cuda.synchronize()
+    assert pool.any()                          # the ring holds tags now
+    assert same(both(), want)
+    big = _inputs(128, 30, d, seed=25)
+    big = [torch.from_numpy(a).to(cuda) for a in big[:3]] + [tuple(
+        torch.from_numpy(a).to(cuda) for a in big[3])]
+    hs, _, saved = tsl.slstm_scan(*big, save=True)
+    tsl.slstm_scan_bwd(big[1], big[3], saved, torch.ones_like(hs))
+    del hs, saved
+    assert same(both(), want)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        both()
+    torch.cuda.current_stream().wait_stream(side)
+    g = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(g, stream=side):
+        out = both()
+    for _ in range(3):
+        for t in out:
+            t.zero_()
+        g.replay()
+        torch.cuda.synchronize()
+        assert same(out, want)
