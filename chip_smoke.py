@@ -278,6 +278,26 @@
    0's logits against its plain version; a profiler window; an f32 step
    against the plain versions.  Both new kernels' ptxas reports: none
    may spill.
+13. The last four configurations (``dense_phase``, ``llama4_phase``).
+   Granite-3-2B (GQA 32/8 at head dim 64, tied embeddings), StableLM-3B
+   (MHA 32/32 at 80, LayerNorm, rope over a quarter of the head) and
+   ChatGLM3-6B (GQA 32/2 at 128, a group of 16, rope over half) at full
+   width, bf16: serving at full depth as InternVL2's (every prefill
+   launch checked, L ``flash_attention`` launches a prefill, the kernel
+   timed at layer 0's inputs with SDPA, profiler windows); the same
+   model in f32 at 2 layers, first tokens equal and logits within
+   LOGIT_TOL with the kernels and with the plain versions; training at
+   4 × 2,048 (full depth; ChatGLM3 at DENSE_TRAIN_LAYERS's 12 of 28),
+   ZOO_STEPS plain and ZOO_STEPS ``--strads --weight-decay 0`` steps, as
+   InternVL2's (2 forward and 1 backward launch a layer a step, all on
+   the wgmma route, no ``_chunked_attention``, a checked step, the
+   backward at layer 0's inputs, a profiler window).  Llama-4 Maverick
+   at full width, LLAMA4_LAYERS layers (one dense, one MoE of 128
+   experts top-1 with a shared expert), bf16, serving batch 4 × 1,024,
+   32 tokens: every ``flash_attention`` (48/8 at 128) and ``topk_gating``
+   ((4,096, 128) and (4, 128), k = 1) launch checked, both kernels timed,
+   init seconds and peak, serving peak, prefill ms, decode tok/s beside
+   a decode step's weight-read bound; no f32 run (74 GB of weights).
 
 Kernel times: ``ms`` is the eager loop (CUDA events around 50–200 calls
 enqueued back to back), which for a kernel of a few microseconds times
@@ -3543,16 +3563,7 @@ def serve_kernel_phase(torch, ops, ref, first, seed: int):
 
     # topk_gating
     logits, kk = first[("gating", BATCH * PROMPT)]
-    p, i = ops.topk_gating(logits, kk)
-    pr, ir = ref.topk_gating_ref(logits, kk)
-    p2, i2 = ops.topk_gating(logits, kk)
-    torch.cuda.synchronize()
-    check(torch.equal(p, p2) and torch.equal(i, i2),
-          "topk_gating: two launches differ")
-    check(torch.equal(i, ir), "topk_gating: idx differs from the plain "
-                              "version at layer 0's logits")
-    gerr = (p - pr).abs().max().item()
-    check(gerr <= GATE_TOL, f"topk_gating: probs error {gerr} > {GATE_TOL}")
+    gate = gating_timing(torch, ops, ref, logits, kk)
     dec_logits, _ = first[("gating", BATCH)]
     dp, di = ops.topk_gating(dec_logits, kk)
     dpr, dir_ = ref.topk_gating_ref(dec_logits, kk)
@@ -3568,30 +3579,21 @@ def serve_kernel_phase(torch, ops, ref, first, seed: int):
         check(torch.equal(a[1], b[1]) and e <= GATE_TOL,
               f"topk_gating: disagrees at T={T}, E={E}, k={k_}")
         gragged[f"T={T} E={E} k={k_}"] = e
-    T, E = logits.shape
     out["topk_gating"] = {
-        "max_abs_err": gerr,
-        "ms": time_ms(torch, lambda: ops.topk_gating(logits, kk)),
-        "device_ms": graph_ms(torch, lambda: ops.topk_gating(logits, kk)),
+        **gate,
         # the decode step's (4, 16) logits: 768 of the main path's 792
         # launches
         "decode_shape_ms": time_ms(torch, lambda: ops.topk_gating(
             dec_logits, kk)),
         "decode_shape_device_ms": graph_ms(torch, lambda: ops.topk_gating(
             dec_logits, kk)),
-        "plain_ms": time_ms(torch, lambda: ref.topk_gating_ref(logits, kk)),
-        "library_ms": None,
         "library": "none: no single PyTorch call computes softmax, top-k "
                    "with lowest-index ties and renormalisation",
         "tolerance": f"probs {GATE_TOL} absolute; idx equal",
-        "idx_equal": True, "ragged_max_abs_err": gragged,
+        "ragged_max_abs_err": gragged,
         "decode_shape_max_abs_err": (dp - dpr).abs().max().item(),
-        "shape": {"logits": [T, E], "k": kk}}
-    bms, by = bound(4 * T * E + 8 * T * kk, T * E * (4 + kk))
-    out["topk_gating"].update(
-        bound_ms=bms, bound_by=by, bound_share=bms / out["topk_gating"]
-        ["ms"], device_bound_share=bms / out["topk_gating"]["device_ms"],
-        ms_repeat=time_ms(torch, lambda: ops.topk_gating(logits, kk)))
+        "bound_share": gate["bound_ms"] / gate["ms"],
+        "ms_repeat": time_ms(torch, lambda: ops.topk_gating(logits, kk))}
     return out
 
 
@@ -3702,6 +3704,7 @@ def profile_window(torch, fn, kernels=None, counts: bool = False) -> dict:
                    for d, k, c in rows[:15]]}
     if counts:
         out["counts"] = {k: c for k, (_, c) in per_name.items()}
+        out["counts_ms"] = {k: d / 1e3 for k, (d, _) in per_name.items()}
     return out
 
 
@@ -3916,12 +3919,17 @@ def sort_prefill(torch, ops, ref, M, srv) -> dict:
             "max_abs_logit": e.abs().max().item()}
 
 
-def parity_phase(torch, ops, ref, M, get_config, data, seed: int):
-    """Phi-3.5-MoE at full width in float32 with 2 layers: the first token
-    and the logits with the kernels equal those with the plain versions."""
+def parity_phase(torch, ops, ref, M, get_config, data, seed: int,
+                 arch: str = ARCH):
+    """``arch`` (Phi-3.5-MoE, or a dense arch) at full width in float32
+    with 2 layers: the first token and the logits with the kernels equal
+    those with the plain versions; 2 ``flash_attention`` launches (the
+    prefill's) and, for a moe arch, 2 ``topk_gating`` a MoE layer (the
+    prefill's and the decode step's).  A moe arch's sort dispatch too."""
     import dataclasses
-    cfg = dataclasses.replace(get_config(ARCH), num_layers=2,
+    cfg = dataclasses.replace(get_config(arch), num_layers=2,
                               dtype="float32")
+    moe_layers = 2 // cfg.moe_every if cfg.family == "moe" else 0
     gen = torch.Generator(device=DEVICE).manual_seed(seed)
     prm = M.init_params(cfg, gen)
     batch = data.make_batch(data.SyntheticLMConfig(
@@ -3931,13 +3939,14 @@ def parity_phase(torch, ops, ref, M, get_config, data, seed: int):
     with torch.inference_mode():
         ops.reset_launch_counts()
         lk, tk, dk = first_step(torch, M, cfg, prm, batch, cache_len)
-        check(ops.LAUNCHES == launch_counts(flash_attention=2, topk_gating=4),
-              f"f32 run launches {ops.LAUNCHES}")
+        check(ops.LAUNCHES == launch_counts(flash_attention=2,
+                                            topk_gating=2 * moe_layers),
+              f"{cfg.name} f32 run launches {ops.LAUNCHES}")
         with patched(ops, attention=ref.attention_ref,
                      topk_gating=ref.topk_gating_ref):
             lp, tp, dp = first_step(torch, M, cfg, prm, batch, cache_len,
                                     tk)
-    out = {"layers": 2, "dtype": "float32",
+    out = {"arch": cfg.name, "layers": 2, "dtype": "float32",
            "first_tokens_equal": int((tk == tp).sum()),
            "tolerance": f"{LOGIT_TOL} of max|logits|"}
     for name, a, b in (("prefill", lk, lp), ("decode", dk, dp)):
@@ -3948,6 +3957,9 @@ def parity_phase(torch, ops, ref, M, get_config, data, seed: int):
                                         f"{err} > {LOGIT_TOL}·{scale}")
     check(torch.equal(tk, tp), f"f32 run: first tokens {tk.tolist()} with "
                                f"the kernels, {tp.tolist()} plain")
+    if not moe_layers:
+        del prm
+        return out
     # the sort dispatch (the same capacity and drop order at T = 4,096)
     with torch.inference_mode():
         ls, ts, ds = first_step(torch, M, dataclasses.replace(
@@ -4913,12 +4925,13 @@ def counted(fn, box: dict):
     return wrapped
 
 
-def serve_build(torch, serve_lm, arch: str, seed: int):
-    """``serve_lm.build`` at full width: batch 4, prompt 1,024, 32 tokens."""
+def serve_build(torch, serve_lm, arch: str, seed: int, layers: int = 0):
+    """``serve_lm.build`` at full width: batch 4, prompt 1,024, 32 tokens;
+    ``layers`` cuts the depth (0: the config's own)."""
     sargs = serve_lm.parse_args([
         "--arch", arch, "--preset", "full", "--batch", str(BATCH),
         "--prompt-len", str(PROMPT), "--gen", str(GEN), "--seed", str(seed),
-        "--device", DEVICE])
+        "--layers", str(layers), "--device", DEVICE])
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     srv = serve_lm.build(sargs)
@@ -4927,7 +4940,9 @@ def serve_build(torch, serve_lm, arch: str, seed: int):
                  "batch": BATCH, "prompt": PROMPT, "gen": GEN,
                  "cache_len": srv.cache_len,
                  "weights_gb": torch.cuda.memory_allocated() / 1e9,
-                 "init_s": time.perf_counter() - t0}
+                 "init_s": time.perf_counter() - t0,
+                 "init_peak_memory_gb":
+                     torch.cuda.max_memory_allocated() / 1e9}
 
 
 def checked_train_step(torch, ops, ref, tstep, cfg, params, batch,
@@ -4973,10 +4988,14 @@ def wgmma_bwd_kernels(window: dict, n: int, tag: str) -> dict:
     """The attention backward's kernels by name in a profiler window taken
     with ``counts``: the wgmma route's prep, dK/dV and dQ ``n`` times
     each, none of the mma.sync route's (its delta pass, its bf16 dK/dV
-    and dQ kernels)."""
-    counts = window.pop("counts")
+    and dQ kernels); the window keeps the device ms of the wgmma route's
+    three kernels, summed over their ``n`` launches."""
+    counts, counts_ms = window.pop("counts"), window.pop("counts_ms")
     bwd = {k: sum(c for name, c in counts.items() if k in name)
            for k in BWD_KERNELS}
+    window["bwd_kernels_device_ms"] = {
+        k: sum(d for name, d in counts_ms.items() if k in name)
+        for k in BWD_KERNELS[:3]}
     want = {k: n if k in BWD_KERNELS[:3] else 0 for k in BWD_KERNELS}
     check(bwd == want, f"{tag}: the backward's kernels {bwd}, expected the "
                        f"wgmma route's {n} each and none of the mma.sync "
@@ -5511,27 +5530,55 @@ def attn_kernels(ops):
 
 
 def zoo_train_phase(torch, ops, ref, tfa, M, tlaunch, tstep, layers_mod,
-                    cfg, seed: int, seq: int) -> dict:
-    """InternVL2-1B or HuBERT-XLarge at full width and depth, bf16, batch
-    4 × ``seq`` (InternVL2: 2,048 tokens after 256 patch embeddings, 2,304
-    queries; HuBERT: 1,500 frames) through ``launch.train.main``
-    (ZOO_STEPS plain steps), with ``_chunked_attention`` counted (none
-    may run on the card); then a checked training step, the backward
-    kernel at layer 0's inputs (the wgmma route) and timed, and a
-    profiler window over one step holding L launches of each wgmma-route
-    kernel and none of the mma.sync route's.  Returns (the numbers, the backward's entry,
-    the forward's training-shape entry)."""
+                    cfg, seed: int, seq: int, layers: int = 0,
+                    strads: bool = False) -> dict:
+    """InternVL2-1B, HuBERT-XLarge or a dense arch at full width, bf16,
+    batch 4 × ``seq`` (InternVL2: 2,048 tokens after 256 patch
+    embeddings, 2,304 queries; HuBERT: 1,500 frames) through
+    ``launch.train.main`` (ZOO_STEPS plain steps; with ``strads`` then
+    ZOO_STEPS ``--strads --weight-decay 0`` steps, U = half the L + 1
+    blocks, every unscheduled block keeping its bits), at ``cfg``'s depth
+    (``layers``: the ``--layers`` cut it was made with, 0 for none), with
+    ``_chunked_attention`` counted (none may run on the card); then a
+    checked training step, the backward kernel at layer 0's inputs (the
+    wgmma route) and timed, and a profiler window over one step holding
+    L launches of each wgmma-route kernel and none of the mma.sync
+    route's.  Returns (the numbers, the backward's entry, the forward's
+    training-shape entry)."""
+    from repro_torch.optim import tree_flatten
     L = cfg.num_layers
     chunked = {"calls": 0}
     box = {}
+    cut = ("--layers", str(layers)) if layers else ()
+    argv = lambda *extra: zoo_argv(cfg.name, seed, ZOO_STEPS, seq, *cut,
+                                   *extra)
     with patched(layers_mod, _chunked_attention=counted(
             layers_mod._chunked_attention, chunked)):
         _, res = train_run(
-            torch, ops, tfa, tlaunch, zoo_argv(cfg.name, seed, ZOO_STEPS,
-                                               seq),
+            torch, ops, tfa, tlaunch, argv(),
             lambda i, state, metrics: box.update(state=state), L,
             steps=ZOO_STEPS, tokens=TRAIN_BATCH * seq)
         print(f"{cfg.name} training: " + json.dumps(res))
+        if strads:
+            box.clear()
+            torch.cuda.empty_cache()
+            U = (L + 1) // 2
+            strads_check, sstats, prev = strads_checker(
+                torch, tree_flatten, L, U, box)
+            _, res["strads"] = train_run(
+                torch, ops, tfa, tlaunch, argv("--strads", "--weight-decay",
+                                               "0"),
+                strads_check, L, steps=ZOO_STEPS, tokens=TRAIN_BATCH * seq)
+            check(len(sstats["blocks_active"]) == ZOO_STEPS,
+                  f"{cfg.name} STRADS: {len(sstats['blocks_active'])} "
+                  f"steps checked")
+            res["strads"].update(sstats, U=U, blocks=L + 1,
+                                 peak_memory_note="includes the check's "
+                                                  "copy of the parameters "
+                                                  "(bf16)")
+            print(f"{cfg.name} training STRADS: " + json.dumps(
+                res["strads"]))
+            prev.clear()
         state = box.pop("state")
         batch = data_batch(cfg, seq, ZOO_STEPS, seed)
         res["checked_step"], first = checked_train_step(
@@ -6165,6 +6212,208 @@ def phi_train_phase(torch, ops, ref, tfa, M, tlaunch, tstep, get_config,
     return kentry, res
 
 
+# ---------------------------------------------------------------------------
+# The last four configurations: ChatGLM3-6B, Granite-3-2B, StableLM-3B
+# (serving, f32 and training), Llama-4 Maverick (serving at 2 layers)
+# ---------------------------------------------------------------------------
+
+GRANITE, STABLELM, CHATGLM = "granite-3-2b", "stablelm-3b", "chatglm3-6b"
+LLAMA4 = "llama4-maverick-400b-a17b"
+DENSE_ARCHS = (GRANITE, STABLELM, CHATGLM)
+DENSE_TRAIN_LAYERS = {GRANITE: 0, STABLELM: 0, CHATGLM: 12}
+                               # 0: full depth.  ChatGLM3's 28 layers
+                               # (6.2 × 10⁹ parameters) with f32 moments
+                               # overflow 80 GB; 12 are 3.0 × 10⁹, the size
+                               # of MiniCPM-2B, which trains at full depth
+LLAMA4_LAYERS = 2              # one dense and one MoE layer (moe_every 2):
+                               # 1.86 × 10¹⁰ parameters, 37.2 GB in bf16;
+                               # its f32 run would need 74 GB
+#: (padded query heads, kv heads, head dim) of each arch's attention
+ATTN_HEADS = {GRANITE: (32, 8, 64), STABLELM: (32, 32, 80),
+              CHATGLM: (32, 2, 128), LLAMA4: (48, 8, 128)}
+
+
+def serve_checked_prefill(torch, ops, ref, M, srv, attn_calls: int,
+                          gate_calls: int = 0) -> tuple:
+    """The first prefill and decode step of ``srv`` with every kernel
+    launch held against its plain version: ``attn_calls``
+    ``flash_attention`` launches within ATTN_TOL (the prefill's; a decode
+    step attends without the kernel), ``gate_calls`` ``topk_gating``
+    launches with equal indices and probabilities within GATE_TOL.
+    Returns (both kernels' stats, layer 0's inputs of each kernel)."""
+    cfg = srv.cfg
+    attn, gate, stats, first = checked_ops(torch, ops, ref)
+    with patched(ops, attention=attn, topk_gating=gate):
+        first_step(torch, M, cfg, srv.params, srv.batch, srv.cache_len)
+    torch.cuda.synchronize()
+    st_a, st_g = stats["flash_attention"], stats["topk_gating"]
+    check(st_a["calls"] == attn_calls and st_a["max_rel_err"] <= ATTN_TOL,
+          f"{cfg.name} prefill: flash_attention vs plain {st_a}, expected "
+          f"{attn_calls} calls")
+    check(st_g["calls"] == gate_calls and st_g["idx_equal"]
+          and st_g["max_abs_err"] <= GATE_TOL,
+          f"{cfg.name} prefill and decode step: topk_gating vs plain "
+          f"{st_g}, expected {gate_calls} calls")
+    q, k = first["attention"][:2]
+    check((q.shape[2], k.shape[2], q.shape[3]) == ATTN_HEADS[cfg.name]
+          and q.shape[:2] == (BATCH, PROMPT),
+          f"{cfg.name}: attention at q {tuple(q.shape)}, k "
+          f"{tuple(k.shape)}; expected heads {ATTN_HEADS[cfg.name]}")
+    return stats, first
+
+
+def print_serving(cfg, res: dict) -> None:
+    print(f"{cfg.name} serving: " + json.dumps(
+        {k: v for k, v in res.items() if not k.startswith("profile")}))
+    for w in ("profile_prefill", "profile_decode4"):
+        print_profile(f"{cfg.name} {w}", res[w])
+
+
+def dense_phase(torch, ops, ref, tfa, M, serve_lm, tlaunch, tstep,
+                layers_mod, get_config, data, arch: str, seed: int) -> tuple:
+    """A dense arch (Granite-3-2B, StableLM-3B, ChatGLM3-6B) at full
+    width, bf16: serving at full depth (batch 4, prompt 1,024, 32 greedy
+    tokens) with every prefill launch of ``flash_attention`` held against
+    its plain version, the kernel timed at layer 0's inputs with SDPA,
+    the main path's counts (L launches a prefill), profiler windows over
+    a prefill and 4 decode steps; the same model in f32 at 2 layers, the
+    first token and logits with the kernels against those with the plain
+    versions (``parity_phase``); then plain and STRADS training at 4 ×
+    2,048 through ``launch.train.main`` at full depth, or
+    DENSE_TRAIN_LAYERS's cut (``zoo_train_phase``).  Returns (the
+    numbers, the flash_attention entries by shape, the backward's
+    entry)."""
+    import dataclasses
+    srv, res = serve_build(torch, serve_lm, arch, seed)
+    cfg = srv.cfg
+    L = cfg.num_layers
+    res["params"] = M.num_params(cfg)
+    with torch.inference_mode():
+        res["every_launch_vs_plain"], first = serve_checked_prefill(
+            torch, ops, ref, M, srv, L)
+        q, k, v, kw = first.pop("attention")
+        serve_attn = attention_timing(torch, ops, ref, q, k, v, kw)
+        del first, q, k, v
+        _, numbers = main_path(torch, ops, M, srv, attn_launches(L))
+        res.update(numbers)
+        res.update(profile_serving(torch, ops, M, srv))
+    print_serving(cfg, res)
+    del srv
+    torch.cuda.empty_cache()
+
+    parity = parity_phase(torch, ops, ref, M, get_config, data, seed, arch)
+    print(f"{arch} f32 parity (2 layers, full width): "
+          + json.dumps(parity))
+    torch.cuda.empty_cache()
+
+    cut = DENSE_TRAIN_LAYERS[arch]
+    tcfg = dataclasses.replace(cfg, num_layers=cut) if cut else cfg
+    train, bentry, fentry = zoo_train_phase(
+        torch, ops, ref, tfa, M, tlaunch, tstep, layers_mod, tcfg, seed,
+        TRAIN_SEQ, layers=cut, strads=True)
+    train["params"] = M.num_params(tcfg)
+    return ({"serve": res, "f32_parity": parity, "train": train},
+            {f"{arch} serving": serve_attn, f"{arch} training": fentry},
+            bentry)
+
+
+def gating_timing(torch, ops, ref, logits, k: int) -> dict:
+    """``topk_gating`` at one call's real logits (T, E): two launches give
+    the same bits, the indices equal the plain version's and the
+    probabilities are within GATE_TOL; timed eager and in a CUDA graph,
+    with the plain version, and its bound (the logits read, probabilities
+    and indices written)."""
+    p, i = ops.topk_gating(logits, k)
+    p2, i2 = ops.topk_gating(logits, k)
+    pr, ir = ref.topk_gating_ref(logits, k)
+    torch.cuda.synchronize()
+    check(torch.equal(p, p2) and torch.equal(i, i2),
+          f"topk_gating: two launches differ at {tuple(logits.shape)}")
+    err = (p - pr).abs().max().item()
+    check(torch.equal(i, ir) and err <= GATE_TOL,
+          f"topk_gating at {tuple(logits.shape)}, k {k}: idx equal "
+          f"{torch.equal(i, ir)}, probs error {err}")
+    T, E = logits.shape
+    bms, by = bound(4 * T * E + 8 * T * k, T * E * (4 + k))
+    kernel = lambda: ops.topk_gating(logits, k)
+    out = {"shape": {"logits": [T, E], "k": k}, "max_abs_err": err,
+           "idx_equal": True, "ms": time_ms(torch, kernel),
+           "device_ms": graph_ms(torch, kernel),
+           "plain_ms": time_ms(torch, lambda: ref.topk_gating_ref(logits, k)),
+           "bound_ms": bms, "bound_by": by, "library_ms": None}
+    out["device_bound_share"] = bms / out["device_ms"]
+    return out
+
+
+def llama4_phase(torch, ops, ref, M, serve_lm, seed: int) -> tuple:
+    """Llama-4 Maverick at full width, depth cut to LLAMA4_LAYERS (one
+    dense layer and one MoE layer of 128 experts, top-1, with its shared
+    expert), bf16, through ``serve_lm``: batch 4, prompt 1,024, 32 greedy
+    tokens.  Every launch of a prefill and a decode step against its
+    plain version (2 ``flash_attention`` at 48 query heads padded from
+    40 over 8 of 128, 1 ``topk_gating`` at (4,096, 128) and 1 at the
+    decode step's (4, 128), k = 1); both kernels timed at layer 0's
+    inputs; the main path's counts (2 attention, 33 gating launches); the
+    seconds and peak memory of the weights' init (each stacked expert
+    leaf, 128 × 5,120 × 8,192, drawn as one f32 temporary) and of
+    serving; prefill ms, decode tok/s beside the bound of a decode step,
+    which reads every weight but the embedding table (at 4 tokens the
+    capacity of 4 a expert runs the FFN of all 128 experts); profiler
+    windows.  No f32 token-for-token run: at 2 layers its weights take
+    74 GB in f32.  Returns (the numbers, the flash_attention entry by
+    shape, the topk_gating entries by shape)."""
+    from repro_torch.models import moe as tmoe
+    from repro_torch.models.params import leaves
+    srv, res = serve_build(torch, serve_lm, LLAMA4, seed, LLAMA4_LAYERS)
+    cfg = srv.cfg
+    check(cfg.num_experts == 128 and cfg.experts_per_token == 1
+          and cfg.moe_every == 2 and cfg.moe_shared_expert,
+          f"{cfg.name}: {cfg.num_experts} experts top-"
+          f"{cfg.experts_per_token}, moe_every {cfg.moe_every}")
+    moe_layers = cfg.num_layers // cfg.moe_every
+    res["params"] = M.num_params(cfg)
+    res["capacity"] = {
+        "prefill": tmoe._capacity(min(tmoe.GROUP, BATCH * PROMPT), 1,
+                                  cfg.num_experts, cfg.capacity_factor),
+        "decode": tmoe._capacity(BATCH, 1, cfg.num_experts,
+                                 cfg.capacity_factor)}
+    nbytes = lambda ts: sum(x.numel() * x.element_size() for x in ts)
+    read = nbytes(leaves(srv.params)) - nbytes([srv.params["tok_embed"]])
+    res["decode_step_weight_bytes"] = read
+    res["decode_step_bound_ms"] = read / PEAK_BYTES_PER_S * 1e3
+    moe = srv.params["layers"][f"ffn{cfg.moe_every - 1}"]
+    experts = nbytes(moe[n] for n in ("wg", "wu", "wd"))
+    res["expert_weight_bytes"] = experts
+    res["expert_read_ms"] = experts / PEAK_BYTES_PER_S * 1e3
+    with torch.inference_mode():
+        res["every_launch_vs_plain"], first = serve_checked_prefill(
+            torch, ops, ref, M, srv, cfg.num_layers, 2 * moe_layers)
+        q, k, v, kw = first.pop("attention")
+        serve_attn = attention_timing(torch, ops, ref, q, k, v, kw)
+        logits, kk = first.pop(("gating", BATCH * PROMPT))
+        dec_logits, _ = first.pop(("gating", BATCH))
+        check(kk == 1 and tuple(logits.shape) == (BATCH * PROMPT, 128),
+              f"{cfg.name}: router logits {tuple(logits.shape)}, k {kk}")
+        gates = {f"{LLAMA4} prefill": gating_timing(torch, ops, ref, logits,
+                                                    kk),
+                 f"{LLAMA4} decode": gating_timing(torch, ops, ref,
+                                                   dec_logits, kk)}
+        del first, q, k, v, logits, dec_logits
+        _, numbers = main_path(torch, ops, M, srv, launch_counts(
+            flash_attention=cfg.num_layers,
+            topk_gating=moe_layers * (GEN + 1)))
+        res.update(numbers)
+        res["decode_ms_a_step"] = BATCH / res["decode_tok_per_s"] * 1e3
+        res["decode_bound_share"] = (res["decode_step_bound_ms"]
+                                     / res["decode_ms_a_step"])
+        res.update(profile_serving(torch, ops, M, srv))
+    print_serving(cfg, res)
+    print("topk_gating by shape: " + json.dumps(gates))
+    del srv
+    torch.cuda.empty_cache()
+    return res, {f"{LLAMA4} serving": serve_attn}, gates
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -6577,6 +6826,33 @@ def main() -> int:
                 skern[name][f"launches_{arch}_training"] = count
         fa["by_shape"][f"{arch} training"] = run.pop("attn_fwd")
         fb["by_shape"][f"{arch} training"] = run.pop("attn_bwd")
+
+    # 13. the last four configurations: the dense archs serving at full
+    # depth, in f32 at 2 layers and training; Llama-4 serving at 2 layers
+    for arch in DENSE_ARCHS:
+        zoo[arch], shapes, fb["by_shape"][f"{arch} training"] = dense_phase(
+            torch, ops, ref, tfa, M, serve_lm, tlaunch, tstep, tlayers,
+            get_config, tdata, arch, args.seed)
+        fa["by_shape"].update(shapes)
+        run = zoo[arch]["train"]
+        fa[f"launches_{arch}"] = {
+            "serving": zoo[arch]["serve"]["launches"]["flash_attention"],
+            "training": run["launches"]["flash_attention"],
+            "training_strads": run["strads"]["launches"]["flash_attention"]}
+        fb[f"launches_{arch}_training"] = {
+            "plain": run["launches"]["flash_attention_bwd"],
+            "strads": run["strads"]["launches"]["flash_attention_bwd"]}
+        phase(f"{arch} serving, f32 and training")
+    zoo[LLAMA4], shapes, gates = llama4_phase(torch, ops, ref, M, serve_lm,
+                                              args.seed)
+    fa["by_shape"].update(shapes)
+    fa[f"launches_{LLAMA4}"] = zoo[LLAMA4]["launches"]["flash_attention"]
+    tg = skern["topk_gating"]
+    tg["by_shape"] = {ARCH: {k: tg[k] for k in (
+        "shape", "max_abs_err", "ms", "device_ms", "plain_ms", "bound_ms",
+        "bound_by", "device_bound_share")}, **gates}
+    tg[f"launches_{LLAMA4}"] = zoo[LLAMA4]["launches"]["topk_gating"]
+    phase(f"{LLAMA4} serving")
     for name in ("flash_attention", "flash_attention_bwd"):
         print(f"{name} by shape: " + json.dumps(
             {shape: {k: e.get(k) for k in (
@@ -6585,7 +6861,7 @@ def main() -> int:
                 "max_abs_err")}
              for shape, e in skern[name]["by_shape"].items()}))
 
-    # 13. lasso_loadbal.json traced, inside a profiler session: last, since
+    # 14. lasso_loadbal.json traced, inside a profiler session: last, since
     # a session slows the host's later launches (decode is host-bound)
     torch.cuda.empty_cache()
     X, y, _ = lasso.synthetic_correlated_device(args.seed, n, J, k_true=16,

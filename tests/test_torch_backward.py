@@ -50,6 +50,7 @@ GATE_TOL = 1e-6
 SCAN_TOL = 1e-4
 PHI, LLAMA4, ZAMBA = ("phi3.5-moe-42b-a6.6b", "llama4-maverick-400b-a17b",
                       "zamba2-2.7b")
+GRANITE, STABLELM, CHATGLM = "granite-3-2b", "stablelm-3b", "chatglm3-6b"
 
 
 def _t(a):
@@ -195,6 +196,10 @@ TRAIN_CASES = [  # arch, config overrides, sequence length
     (LLAMA4, {}, 24),
     (ZAMBA, {}, 24),
     (ZAMBA, {}, 136),   # over 128 and ragged: the SSD form's scan fallback
+    (CHATGLM, {}, 24),  # rope over half the head
+    # ChatGLM3's group of 16 query heads a kv head (32/2; reduced has 8)
+    (CHATGLM, {"num_heads": 32, "head_dim": 8}, 24),
+    (STABLELM, {}, 24),  # LayerNorm, rope over a quarter of the head
 ]
 
 
@@ -291,11 +296,17 @@ def test_train_state_from_jax_carries_every_leaf(arch):
     assert any(family_leaf in n and n.startswith("opt/") for n in got)
 
 
-@pytest.mark.parametrize("strads", [False, True])
-@pytest.mark.parametrize("arch,seq", [(PHI, 32), (ZAMBA, 136)])
+@pytest.mark.parametrize("arch,seq,strads", [
+    (PHI, 32, False), (PHI, 32, True), (ZAMBA, 136, False),
+    (ZAMBA, 136, True), (LLAMA4, 32, False), (GRANITE, 32, False),
+    (STABLELM, 32, False), (CHATGLM, 32, False)])
 def test_cli_trains_and_the_loss_falls(arch, seq, strads):
     """``launch/train.py --preset reduced --device cpu`` for both
-    families (Zamba2 at 136 tokens: the scan's plain version)."""
+    families (Zamba2 at 136 tokens: the scan's plain version), plain and
+    STRADS; plain for Llama-4 and the three dense archs (their STRADS CLI
+    runs are in ``tests/test_torch_zoo.py``: over 4 STRADS steps of half
+    the blocks the reference's init lets StableLM's loss rise, the JAX
+    package's own run too)."""
     argv = ["--arch", arch, "--preset", "reduced", "--steps", "4",
             "--batch", "2", "--seq", str(seq), "--device", "cpu",
             "--log-every", "1"] + (["--strads"] if strads else [])

@@ -347,6 +347,48 @@ def test_head_dim_80_training_shapes_take_the_wgmma_route(B, S, H, D):
     assert tfa.bwd_route(*views) == "mma_sync"
 
 
+# the last four configurations the card serves and trains, at full width:
+# (padded query heads, kv heads, head dim) of their attention
+NEW_ATTN_ARCHS = [("granite-3-2b", (32, 8, 64)), ("stablelm-3b", (32, 32, 80)),
+                  ("chatglm3-6b", (32, 2, 128)),
+                  ("llama4-maverick-400b-a17b", (48, 8, 128))]
+
+
+@pytest.mark.parametrize("arch,heads", NEW_ATTN_ARCHS)
+def test_attention_block_hands_the_backward_wgmma_views(arch, heads,
+                                                        monkeypatch):
+    """One attention block of ``arch`` at full width in bf16 (StableLM's
+    rope over 20 of 80 dims, ChatGLM3's over 64 of 128, each joined by a
+    ``torch.cat``): the q, k and v it hands the kernel, the kernel's
+    (B, S, H, D) output and the gradient the block's output projection
+    sends back to it are TMA views, so the backward takes the wgmma
+    route."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import layers as TL
+    from repro_torch.models import params as TP
+    cfg = get_config(arch)
+    p = TP.init(TL.attention_template(cfg), torch.Generator().manual_seed(0),
+                torch.bfloat16, "cpu")
+    seen = {}
+
+    def attend(q, k, v, *, causal, window):
+        seen["out"] = torch.zeros(q.shape, dtype=q.dtype, requires_grad=True)
+        seen["qkv"] = (q, k, v)
+        return seen["out"]
+    monkeypatch.setattr(TL, "attend", attend)
+    x = torch.randn((1, 130, cfg.d_model),
+                    generator=torch.Generator().manual_seed(1)).bfloat16()
+    y, _ = TL.attention_apply(p, x, cfg, positions=torch.arange(130))
+    y.float().sum().backward()
+    q, k, v = seen["qkv"]
+    assert (q.shape[2], k.shape[2], q.shape[3]) == heads
+    dout = seen["out"].grad
+    if dout.stride(-1) != 1:                 # as ops._FlashAttention does
+        dout = dout.contiguous()
+    views = [t.transpose(1, 2) for t in (q, k, v, seen["out"], dout)]
+    assert tfa.bwd_route(*views) == "wgmma"
+
+
 @pytest.mark.parametrize("Sq", [1, 63, 64, 127, 128, 129, 333, 2048])
 def test_bwd_workspace_rows(Sq):
     """The wgmma route's lse/delta workspaces hold Sq rounded up to a
@@ -965,6 +1007,13 @@ GPU_ATTN_CASES = ATTN_CASES + [
     (1, 1024, 1024, 8, 2, 256, True, None),
     (2, 300, 170, 4, 2, 64, True, 5),
     (2, 150, 200, 8, 2, 128, True, 40, 1),
+] + [  # ChatGLM3's group of 16 and Llama-4's of 6 at head dim 128, and
+    # StableLM's causal MHA at 80, each also at a ragged Skv of 1,001
+    (1, 1024, 1024, 32, 2, 128, True, None),
+    (2, 333, 1001, 32, 2, 128, True, None),
+    (1, 1024, 1024, 48, 8, 128, True, None),
+    (2, 333, 1001, 48, 8, 128, True, None),
+    (2, 333, 1001, 32, 32, 80, True, None),
 ]
 
 
@@ -1143,6 +1192,14 @@ GPU_ATTN_BWD_CASES = [
     (2, 333, 1001, 8, 2, 80, True, 100),
     (1, 700, 333, 8, 2, 80, True, 100),
     (2, 150, 200, 8, 2, 80, True, 40, 1),
+    # ChatGLM3's group of 16 (32/2) and Llama-4's of 6 (48/8) at head dim
+    # 128, StableLM's causal MHA (32/32) at 80: at 1,000 rows and at a
+    # ragged Skv of 1,001 under 333 queries, all on the wgmma route
+    (1, 1000, 1000, 32, 2, 128, True, None),
+    (2, 333, 1001, 32, 2, 128, True, None),
+    (1, 1000, 1000, 48, 8, 128, True, None),
+    (2, 333, 1001, 48, 8, 128, True, None),
+    (2, 333, 1001, 32, 32, 80, True, None),
 ]
 
 

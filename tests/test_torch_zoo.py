@@ -519,7 +519,10 @@ def test_frontend_helpers_give_each_arch_its_inputs(arch):
 
 
 @pytest.mark.parametrize("arch,extra", [(AUDIO, ()), (VISION, ()),
-                                        (XLSTM, ("--strads",))])
+                                        (XLSTM, ("--strads",)),
+                                        ("granite-3-2b", ("--strads",)),
+                                        ("stablelm-3b", ("--strads",)),
+                                        ("chatglm3-6b", ("--strads",))])
 def test_train_cli_runs_the_new_archs_on_the_cpu(arch, extra, capsys):
     hist = TLT.main(["--arch", arch, "--preset", "reduced", "--steps", "3",
                      "--batch", "2", "--seq", "16", "--log-every", "1",
@@ -532,7 +535,9 @@ def test_train_cli_runs_the_new_archs_on_the_cpu(arch, extra, capsys):
         assert f"/{cfg.num_layers + 1} blocks" in out
 
 
-@pytest.mark.parametrize("arch", [XLSTM, VISION])
+@pytest.mark.parametrize("arch", [XLSTM, VISION, "granite-3-2b",
+                                  "stablelm-3b", "chatglm3-6b",
+                                  "llama4-maverick-400b-a17b"])
 def test_serve_lm_serves_the_new_decoders_and_refuses_hubert(arch, capsys):
     toks = serve_lm.main(["--arch", arch, "--batch", "2", "--prompt-len",
                           "10", "--gen", "3", "--device", "cpu"])
