@@ -152,7 +152,9 @@
    versions at the shapes of layer 0 (its real q, k, v and router
    logits) and at ragged ones, timed, with SDPA beside attention; then
    the main path (``Server.generate``) with the launch counts set to 0
-   just before and read just after (24 and 792); then the same prefill
+   just before and read just after (24 and 792; every gating launch of
+   a main path, a sort prefill and a training run on the kernels'
+   vector route, ``gating_routes``); then the same prefill
    and first decode step with the plain versions, and with a float64
    attention as a control of how far a 24-layer bf16 model amplifies
    rounding; then the prefill with ``moe_impl="sort"`` on the same
@@ -276,8 +278,8 @@
    ``topk_gating``, 2 ``topk_gating_bwd``, 4 ``flash_attention`` and 2
    backward launches on the wgmma route; ``topk_gating_bwd`` at layer
    0's logits against its plain version; a profiler window; an f32 step
-   against the plain versions.  Both new kernels' ptxas reports: none
-   may spill.
+   against the plain versions.  Both gating kernels' ptxas reports:
+   the main path's instantiations (Phi's and Llama-4's) may not spill.
 13. The last four configurations (``dense_phase``, ``llama4_phase``).
    Granite-3-2B (GQA 32/8 at head dim 64, tied embeddings), StableLM-3B
    (MHA 32/32 at 80, LayerNorm, rope over a quarter of the head) and
@@ -3724,6 +3726,25 @@ def first_step(torch, M, cfg, params, batch, cache_len, tok=None):
     return lg.float(), pick, d.float()
 
 
+def route_calls() -> dict:
+    """A copy of ``moe_gating.ROUTE_CALLS``."""
+    from repro_torch.kernels import moe_gating as tmg
+    return {n: dict(rc) for n, rc in tmg.ROUTE_CALLS.items()}
+
+
+def gating_routes(before: dict, launches: dict, where: str) -> dict:
+    """The gating kernels' routes since ``before`` (a :func:`route_calls`
+    copy): every launch of a main path takes the vector route, as many
+    as ``launches`` counted."""
+    routes = {n: {r: c - before[n][r] for r, c in rc.items()}
+              for n, rc in route_calls().items()}
+    for n, rc in routes.items():
+        check(rc == {"vector": launches[n], "scalar": 0},
+              f"{where}: {n} took the routes {rc} in {launches[n]} "
+              f"launches; every main-path launch takes the vector route")
+    return routes
+
+
 def main_path(torch, ops, M, srv, want: dict) -> tuple:
     """The serving main path: a prefill timed on its own, then
     ``Server.generate`` with the launch counts set to 0 just before and
@@ -3739,6 +3760,7 @@ def main_path(torch, ops, M, srv, want: dict) -> tuple:
     del lg, _
     torch.cuda.reset_peak_memory_stats()
     ops.reset_launch_counts()
+    routes0 = route_calls()
     t0 = time.perf_counter()
     toks = srv.generate(GEN)
     torch.cuda.synchronize()
@@ -3746,13 +3768,15 @@ def main_path(torch, ops, M, srv, want: dict) -> tuple:
     launches = dict(ops.LAUNCHES)
     check(launches == want, f"{cfg.name}: main path launches {launches}, "
                             f"expected {want}")
+    routes = gating_routes(routes0, launches, f"{cfg.name} main path")
     check(toks.shape == (BATCH, GEN) and bool(((toks >= 0) & (
         toks < cfg.vocab_size)).all()), "tokens outside the vocabulary")
     return toks, dict(
         prefill_ms=prefill_s * 1e3, generate_s=gen_s,
         decode_tok_per_s=BATCH * GEN / (gen_s - prefill_s),
         peak_memory_gb=torch.cuda.max_memory_allocated() / 1e9,
-        launches=launches, sample_tokens=toks[0, :16].tolist())
+        launches=launches, gating_routes=routes,
+        sample_tokens=toks[0, :16].tolist())
 
 
 def profile_serving(torch, ops, M, srv) -> dict:
@@ -3893,11 +3917,13 @@ def sort_prefill(torch, ops, ref, M, srv) -> dict:
     check(st_a["max_rel_err"] <= ATTN_TOL and st_g["idx_equal"]
           and st_g["max_abs_err"] <= GATE_TOL, f"sort prefill: {stats}")
     ops.reset_launch_counts()
+    routes0 = route_calls()
     a, b = prefill(scfg), prefill(scfg)
     torch.cuda.synchronize()
     launches = dict(ops.LAUNCHES)
     check(launches == attn_launches(2 * L, 0, 2 * L),
           f"sort prefill: two prefills launched {launches}")
+    routes = gating_routes(routes0, launches, "sort prefill")
     check(torch.equal(a, b), "sort prefill: two runs differ")
     e = prefill(cfg)
     check(bool(torch.isfinite(a).all()), "sort prefill: logits not finite")
@@ -3910,7 +3936,8 @@ def sort_prefill(torch, ops, ref, M, srv) -> dict:
         ms[name].append((time.perf_counter() - t0) * 1e3)
     return {"every_launch_vs_plain": stats, "launches": {
                 k: v // 2 for k, v in launches.items()},
-            "two_runs_equal": True, "prefill_ms": ms,
+            "gating_routes": routes, "two_runs_equal": True,
+            "prefill_ms": ms,
             "prefill_ms_median": {k: median(v) for k, v in ms.items()},
             "first_tokens_equal_einsum": int((
                 a[:, :cfg.vocab_size].argmax(-1)
@@ -4330,11 +4357,14 @@ def train_run(torch, ops, tfa, tlaunch, argv, on_step, layers: int,
     torch.cuda.reset_peak_memory_stats()
     ops.reset_launch_counts()
     routes0 = dict(tfa.BWD_ROUTE_CALLS)
+    gates0 = route_calls()
     t0 = time.perf_counter()
     hist = tlaunch.main(argv, on_step=on_step)
     torch.cuda.synchronize()
     secs = time.perf_counter() - t0
     launches = dict(ops.LAUNCHES)
+    gates = gating_routes(gates0, launches,
+                          f"training run {argv[:2]} {argv[-4:]}")
     routes = {r: n - routes0[r] for r, n in tfa.BWD_ROUTE_CALLS.items()}
     if per_step is None:
         n = layers * steps
@@ -4355,7 +4385,7 @@ def train_run(torch, ops, tfa, tlaunch, argv, on_step, layers: int,
     step_ms = median([h["step_ms"] for h in hist[1:]])
     return hist, {
         "seconds": secs, "launches": launches, "bwd_routes": routes,
-        "losses": losses,
+        "gating_routes": gates, "losses": losses,
         "grad_norms": [h["grad_norm"] for h in hist],
         "lrs": [h["lr"] for h in hist],
         "step_ms": [h["step_ms"] for h in hist],
@@ -6206,9 +6236,12 @@ def phi_train_phase(torch, ops, ref, tfa, M, tlaunch, tstep, get_config,
     torch.cuda.empty_cache()
     kentry["launches"] = res["plain"]["launches"]["topk_gating_bwd"]
     kentry["launches_strads"] = res["strads"]["launches"]["topk_gating_bwd"]
+    # the main path's instantiations <G, NV, VEC, K>: Phi's forward and
+    # backward, Llama-4's forward
     kentry["ptxas"] = family_ptxas("moe_gating", ("topk_gating",),
-                                   ("topk_gating_rows<1>",
-                                    "topk_gating_bwd_rows<1>"))
+                                   ("topk_gating_rows<4,1,1,2>",
+                                    "topk_gating_rows<8,4,1,1>",
+                                    "topk_gating_bwd_rows<4,1,1,2>"))
     return kentry, res
 
 
@@ -6895,6 +6928,10 @@ def main() -> int:
     tg = kern["topk_gating"]
     tg["decode_shape_floor_share"] = (max(tg["bound_ms"], launch_floor_ms)
                                       / tg["decode_shape_device_ms"])
+    for shape in (f"{LLAMA4} prefill", f"{LLAMA4} decode"):
+        e = tg["by_shape"][shape]
+        tg[f"device_floor_share_{shape.replace(' ', '_')}"] = (
+            max(e["bound_ms"], launch_floor_ms) / e["device_ms"])
     result.update(kernels=list(kern.values()), main=main, profile=prof,
                   lasso_pipelined=pipelined, lasso_loadbal=loadbal,
                   lasso_ssp=lssp, lasso_counters=lobs, lasso_serve=lserve,

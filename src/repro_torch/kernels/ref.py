@@ -117,6 +117,16 @@ def attention_mask(Sq: int, Skv: int, q_offset: int, causal: bool,
     return m
 
 
+def gating_softmax(logits: torch.Tensor) -> torch.Tensor:
+    """p = e / sum e over the last axis, e = exp(x - max), in f32: a
+    division, as the Pallas kernel and the CUDA kernel take it
+    (``torch.softmax`` on the CPU multiplies by the sum's reciprocal,
+    which can round apart two p that the division ties)."""
+    x = logits.float()
+    e = torch.exp(x - x.amax(dim=-1, keepdim=True).detach())
+    return e / e.sum(dim=-1, keepdim=True)
+
+
 def topk_gating_ref(logits: torch.Tensor, k: int):
     """Softmax over experts, keep the top k, renormalise.
 
@@ -127,7 +137,7 @@ def topk_gating_ref(logits: torch.Tensor, k: int):
     """
     if not 1 <= k <= logits.shape[-1]:
         raise ValueError(f"k={k} outside 1..{logits.shape[-1]} experts")
-    work = torch.softmax(logits.float(), dim=-1)
+    work = gating_softmax(logits)
     probs, idx = [], []
     for _ in range(k):
         best = work.argmax(dim=-1, keepdim=True)
@@ -152,7 +162,7 @@ def topk_gating_bwd_ref(logits: torch.Tensor, idx: torch.Tensor,
         dlogits = p ⊙ (dp − Σ_e p_e·dp_e).
 
     The picks are the forward's, so ties go as they went there."""
-    p = torch.softmax(logits.float(), dim=-1)
+    p = gating_softmax(logits)
     idx = idx.long()
     dq = dprobs.float()
     s = p.gather(-1, idx).sum(dim=-1, keepdim=True)

@@ -561,6 +561,46 @@ def test_topk_gating_ties_go_to_the_lower_index(jx):
     torch.testing.assert_close(p, torch.full((64, 2), 0.5))
 
 
+# rows whose p tie by rounding, with the row's sum the same in every
+# order of adding: the max 0.75 (e = 1) and logits d ulps below it (e =
+# 1 - d 2^-24) on the experts named, the rest 30-35 below it (e < 1e-13,
+# lost in any sum); name -> ({expert: d}, the picks of k argmaxes of p)
+GATING_TIES = {
+    # p3 = p4 = p5: the lower two go first, though e5 is the largest
+    "two below a higher max": ({5: 0, 3: 1, 4: 1, 7: 64}, (3, 4)),
+    "one below a higher max": ({5: 0, 3: 1, 9: 6}, (3, 5)),
+    # p0 = p4 = p9: the one below the max goes second
+    "one below between two maxes": ({0: 0, 9: 0, 4: 1, 12: 64}, (0, 4)),
+    # no tie within reach of the picks: a near pair 0.25 below the max
+    "a near pair below the picks": ({5: 0, 11: 2 ** 21, 8: 2 ** 22,
+                                     2: 2 ** 22 + 1}, (5, 11)),
+}
+
+
+def _tie_rows(T: int, E: int, pattern: dict, seed: int) -> torch.Tensor:
+    x = 0.75 - 30 - 5 * torch.rand((T, E),
+                                   generator=torch.Generator().manual_seed(
+                                       seed))
+    for e, d in pattern.items():
+        x[:, e] = 0.75 - d * 2.0 ** -24
+    return x
+
+
+@pytest.mark.parametrize("k", [1, 2])
+@pytest.mark.parametrize("E", [16, 128])
+@pytest.mark.parametrize("name", list(GATING_TIES))
+def test_topk_gating_rounding_ties_pick_as_jax(jx, name, E, k):
+    """The tie rows of the GPU tests pick in the plain version as in the
+    JAX kernel: by p, the lower index first among equal p."""
+    pattern, picks = GATING_TIES[name]
+    x = _tie_rows(16, E, pattern, E + k)
+    p, i = tops.topk_gating(x, k)
+    _, ik = jx.gating(jx.jnp.asarray(x.numpy()), k, block_t=8,
+                      interpret=True)
+    np.testing.assert_array_equal(i.numpy(), np.asarray(ik))
+    assert (i == torch.tensor(picks[:k], dtype=torch.int32)).all()
+
+
 def test_cpu_ops_take_the_plain_version_and_launch_nothing():
     q, k, v = (torch.from_numpy(a) for a in _attn_inputs(1, 8, 8, 2, 1, 8))
     logits = torch.randn(10, 16, generator=torch.Generator().manual_seed(0))
@@ -590,6 +630,50 @@ def test_kernel_bindings_refuse_cpu_tensors():
     x, bm = torch.zeros(1, 3, 8), torch.zeros(1, 3, 4)
     with pytest.raises(ValueError, match="CUDA"):
         tss.ssm_scan(x, x, torch.zeros(8), bm, bm)
+
+
+# the gating kernels' route: 16-byte loads where E % 4 == 0 on a 16-byte
+# base (and, at k = 2, the backward's picks 8-byte aligned), checked
+# 4-byte loads otherwise; (E, logits offset, picks offset, k, route)
+GATING_ROUTES = [(16, 0, 0, 2, "vector"), (128, 0, 0, 1, "vector"),
+                 (128, 4, 0, 2, "vector"), (64, 0, 0, 8, "vector"),
+                 (33, 0, 0, 2, "scalar"), (3, 0, 0, 2, "scalar"),
+                 (16, 1, 0, 2, "scalar"), (128, 2, 0, 1, "scalar"),
+                 (16, 0, 1, 2, "scalar"), (16, 0, 1, 3, "vector")]
+
+
+@pytest.mark.parametrize("E,offset,pick_offset,k,want", GATING_ROUTES)
+def test_gating_route_follows_width_and_alignment(E, offset, pick_offset,
+                                                  k, want):
+    logits = _offset_view(torch.randn(6, E), offset)
+    picks = [_offset_view(torch.zeros(6, k, dtype=dt), pick_offset)
+             for dt in (torch.int32, torch.float32, torch.float32)]
+    assert tmg.route(logits, *picks) == want
+    if not pick_offset:
+        assert tmg.route(logits) == want
+    assert tmg.route(logits.double()) == "scalar"
+
+
+@pytest.mark.parametrize("E,k", [(16, 2), (128, 1)])
+def test_router_logits_take_the_vector_route(E, k):
+    """The model's router hands the kernel logits the vector route takes
+    (a fresh ``(h @ router).float()``), at Phi's and Llama-4's widths."""
+    from repro_torch.models import moe
+    seen = []
+    real = tops.topk_gating
+
+    def spy(logits, kk):
+        seen.append(tmg.route(logits))
+        return real(logits, kk)
+    cfg = types.SimpleNamespace(experts_per_token=k, num_experts=E)
+    g = torch.Generator().manual_seed(E)
+    h = torch.randn(10, 64, generator=g).bfloat16()
+    tops.topk_gating = spy
+    try:
+        moe._router({"router": torch.randn(64, E, generator=g)}, h, cfg)
+    finally:
+        tops.topk_gating = real
+    assert seen == ["vector"]
 
 
 # ---------------------------------------------------------------------------
@@ -1331,6 +1415,143 @@ def test_topk_gating_bwd_kernel_matches_plain_on_card(cuda, T, E, k):
     assert (got - want).abs().max().item() <= 1e-6
     again = tmg.topk_gating_bwd(logits, idx, probs.detach(), dprobs)
     assert torch.equal(got, again)
+
+
+# the redesigned gating kernels on each route: E across the lane-group
+# buckets (G = 4 at E <= 16, 8 above), k on the top-2 tree (1, 2) and on
+# k passes (8, 32), T not a multiple of a block's rows (32 at E <= 16, 16
+# above), a quarter of the rows bf16-rounded (exact ties), every 7th row
+# of equal logits, and bases one element into a buffer (the scalar
+# route); (T, E, k, offset)
+GPU_GATING_ROUTE_CASES = [
+    (1000 if off == 0 else 37, E, k, off)
+    for E in (3, 16, 33, 128) for k in (1, 2, 8, 32) if k <= E
+    for off in (0, 1)]
+
+
+def _gating_logits(cuda, T, E, seed):
+    g = torch.Generator().manual_seed(seed)
+    logits = torch.randn((T, E), generator=g)
+    logits[: T // 4] = logits[: T // 4].bfloat16().float()
+    logits[1::7] = 0.5
+    return logits.to(cuda)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("T,E,k,offset", GPU_GATING_ROUTE_CASES)
+def test_topk_gating_routes_match_plain_on_card(cuda, T, E, k, offset):
+    logits = _gating_logits(cuda, T, E, T + E + k)
+    if offset:
+        logits = _offset_view(logits, offset)
+    way = "vector" if not offset and E % 4 == 0 else "scalar"
+    assert tmg.route(logits) == way
+    calls = dict(tmg.ROUTE_CALLS["topk_gating"])
+    p, i = tmg.topk_gating(logits, k)
+    p2, i2 = tmg.topk_gating(logits, k)
+    torch.cuda.synchronize()
+    assert tmg.ROUTE_CALLS["topk_gating"][way] == calls[way] + 2
+    assert torch.equal(p, p2) and torch.equal(i, i2)     # no atomics
+    pr, ir = tref.topk_gating_ref(logits, k)
+    assert torch.equal(i, ir)
+    torch.testing.assert_close(p, pr, rtol=1e-5, atol=1e-6)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("T,E,k,offset", GPU_GATING_ROUTE_CASES)
+def test_topk_gating_bwd_routes_match_plain_on_card(cuda, T, E, k, offset):
+    logits = _gating_logits(cuda, T, E, 3 * T + E + k)
+    pr, ir = tref.topk_gating_ref(logits, k)
+    dprobs = torch.randn((T, k), generator=torch.Generator().manual_seed(
+        T * k)).to(cuda)
+    want = tref.topk_gating_bwd_ref(logits, ir, pr, dprobs)
+    if offset:
+        logits, ir, pr, dprobs = (_offset_view(t, offset)
+                                  for t in (logits, ir, pr, dprobs))
+    way = "vector" if not offset and E % 4 == 0 else "scalar"
+    assert tmg.route(logits, ir, pr, dprobs) == way
+    calls = dict(tmg.ROUTE_CALLS["topk_gating_bwd"])
+    got = tmg.topk_gating_bwd(logits, ir, pr, dprobs)
+    again = tmg.topk_gating_bwd(logits, ir, pr, dprobs)
+    torch.cuda.synchronize()
+    assert tmg.ROUTE_CALLS["topk_gating_bwd"][way] == calls[way] + 2
+    assert torch.equal(got, again)
+    assert (got - want).abs().max().item() <= 1e-6
+
+
+@pytest.mark.gpu
+def test_topk_gating_bwd_takes_the_scalar_route_for_unaligned_picks(cuda):
+    """Aligned logits with k = 2 picks one element into their buffers:
+    the backward reads the picks as scalars, and agrees."""
+    logits = _gating_logits(cuda, 999, 16, 5)
+    pr, ir = tref.topk_gating_ref(logits, 2)
+    dprobs = torch.randn((999, 2), generator=torch.Generator().manual_seed(
+        6)).to(cuda)
+    want = tref.topk_gating_bwd_ref(logits, ir, pr, dprobs)
+    ir, pr, dprobs = (_offset_view(t) for t in (ir, pr, dprobs))
+    assert tmg.route(logits, ir, pr, dprobs) == "scalar"
+    got = tmg.topk_gating_bwd(logits, ir, pr, dprobs)
+    torch.cuda.synchronize()
+    assert (got - want).abs().max().item() <= 1e-6
+
+
+def _pselect(cuda, tmp_path):
+    """The forward built with ``-DMOE_GATING_PSELECT`` (every e divided,
+    the picks taken on p) as ``fn(logits, k) -> (probs, idx)``."""
+    import ctypes
+    import subprocess
+    from repro_torch.kernels import _build
+    lib = tmp_path / "libmoe_gating_pselect.so"
+    subprocess.run([_build._nvcc(), *_build.NVCC_FLAGS,
+                    "-DMOE_GATING_PSELECT", "-o", str(lib),
+                    str(_build.CSRC / "moe_gating.cu")], check=True,
+                   capture_output=True)
+    dll = ctypes.CDLL(str(lib))
+    p_, i_ = ctypes.c_void_p, ctypes.c_int
+    dll.topk_gating_launch.argtypes = [p_, p_, p_, i_, i_, i_, i_, p_]
+    dll.topk_gating_launch.restype = i_
+
+    def fn(x, k):
+        T, E = x.shape
+        probs = torch.empty((T, k), device=cuda)
+        idx = torch.empty((T, k), dtype=torch.int32, device=cuda)
+        assert dll.topk_gating_launch(
+            x.data_ptr(), probs.data_ptr(), idx.data_ptr(), T, E, k,
+            int(tmg.route(x) == "vector"),
+            torch.cuda.current_stream().cuda_stream) == 0
+        torch.cuda.synchronize()
+        return probs, idx
+    return fn
+
+
+@pytest.mark.gpu
+def test_topk_gating_picks_by_e_equal_picks_by_p_on_card(cuda, tmp_path):
+    """The forward picks on e and divides only the picks, falling back to
+    p for a warp with a near tie.  Each tie pattern of ``GATING_TIES``
+    fills whole warps of its own (999 rows of it), so a warp that misses
+    one takes the shortcut on it; then the patterns and random rows
+    interleaved, so one near row sends its warp's other rows to p.  The
+    picks equal the plain version's and, with the probabilities, a build
+    that always picks on p (``-DMOE_GATING_PSELECT``) bit for bit."""
+    pselect = _pselect(cuda, tmp_path)
+    T = 999
+    for E, k in [(16, 1), (16, 2), (128, 1), (128, 2), (33, 1), (33, 2)]:
+        tensors = []
+        for name, (pattern, picks) in GATING_TIES.items():
+            x = _tie_rows(T, E, pattern, E + k).to(cuda)
+            tensors.append((name, x, torch.tensor(
+                picks[:k], dtype=torch.int32, device=cuda).expand(T, k)))
+        mixed = _gating_logits(cuda, T, E, E + k)
+        for j, (_, x, _) in enumerate(tensors):
+            mixed[j::len(tensors) + 1] = x[j::len(tensors) + 1]
+        tensors.append(("interleaved", mixed, None))
+        for name, x, want in tensors:
+            got = tmg.topk_gating(x, k)
+            pr, ir = tref.topk_gating_ref(x, k)
+            if want is not None:
+                assert torch.equal(ir, want), (name, E, k)
+            assert torch.equal(got[1], ir), (name, E, k)
+            assert all(map(torch.equal, got, pselect(x, k))), (name, E, k)
+            torch.testing.assert_close(got[0], pr, rtol=1e-5, atol=1e-6)
 
 
 GPU_SSM_BWD_CASES = [  # B, S, C, N, h0, dh, dtype
