@@ -1,0 +1,10 @@
+"""``device_idle_share`` (%): the share of the traced window in which no
+operation ran on the device (the trace's busy seconds, kernels, copies
+and fills merged, over the window's length)."""
+
+
+def read(ctx):
+    t = ctx.trace
+    if t is None or t.window_s <= 0 or t.busy_s <= 0:
+        return None
+    return 100.0 * (1.0 - t.busy_s / t.window_s)
