@@ -1240,13 +1240,14 @@ def lasso_trace_phase(torch, lasso, lc, ExecutionPlan, cfg, X, y,
     where ``lasso_loadbal_phase`` saw the version move, with its version
     and the load spreads that phase printed (the same run and arithmetic:
     equal); a ``checkpoint`` span every C rounds and one executor span a
-    chunk; each span a ``record_function`` range in the profiler.  The
+    chunk; each span a ``strads.<name>`` range in the profiler.  The
     Chrome trace goes to ``build/lasso_loadbal.trace.json``; each span
     name's total host ms is returned."""
     import tempfile
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     from repro_torch.obs import TelemetrySpec, validate_spans
+    from repro_torch.obs.events import RANGE_PREFIX
     spec = TelemetrySpec(kind="trace", profiler=True)
     plan = load_plan(ExecutionPlan, "lasso_loadbal.json",
                      telemetry=spec.to_json())
@@ -1295,8 +1296,10 @@ def lasso_trace_phase(torch, lasso, lc, ExecutionPlan, cfg, X, y,
     totals = span_totals(events)
     ranges = {}
     for e in prof.events():
-        if e.device_type == DeviceType.CPU and e.name in totals:
-            ranges[e.name] = ranges.get(e.name, 0) + 1
+        name = e.name[len(RANGE_PREFIX):]
+        if e.device_type == DeviceType.CPU and \
+                e.name.startswith(RANGE_PREFIX) and name in totals:
+            ranges[name] = ranges.get(name, 0) + 1
     check(all(ranges.get(k) == v["count"] for k, v in totals.items()),
           f"lasso trace: record_function ranges {ranges} for spans "
           f"{ {k: v['count'] for k, v in totals.items()} }")

@@ -46,11 +46,24 @@ Telemetry is injected like the policies (``plan.telemetry``, a
 :class:`~repro_torch.obs.TelemetrySpec`): device counters
 (:mod:`repro_torch.obs.counters`) ride the carry as ``obs`` and are
 folded once a round from the round's schedule on every executor, and
-``kind="trace"`` opens a host :class:`~repro_torch.obs.Recorder` for the
-span of an ``execute`` (the executor's span a chunk, ``checkpoint``
-spans, ``rebalance`` instants).  The report's ``telemetry`` is then a
-:class:`~repro_torch.obs.RunReport`.  The port compiles nothing, so
-there is no program cache and no ``cache_miss`` event.
+``kind="trace"`` records the host events of an ``execute`` (its span,
+the executor's span a chunk, ``checkpoint`` spans, ``rebalance``
+instants) on a :class:`~repro_torch.obs.Recorder`.  The report's
+``telemetry`` is then a :class:`~repro_torch.obs.RunReport`.  The port
+compiles nothing, so there is no program cache and no ``cache_miss``
+event.
+
+The Recorder is the engine's :attr:`StradsEngine.recorder`: one a
+caller attaches (the serving layer attaches the one it is given), else
+one the engine attaches itself when an ``execute`` starts inside a
+``torch.profiler`` session (kept until one starts with no session and
+no trace plan), else under ``kind="trace"`` one for that ``execute``
+alone.  While one is live every round records four timers on it:
+``round``, ``schedule`` (noise, ``propose``, ``schedule_stats`` and Σ,
+``schedule``), ``push`` (``push`` and Σ) and ``pull`` (``pull`` and
+``sched_update``), each with its host time and, on CUDA, its device
+time (:meth:`~repro_torch.obs.Recorder.timer`).  With none a round costs
+one ``is None`` test; a timed run equals an untimed one to the bit.
 
 Partition policy is injected like the scheduler (the partitioning
 contract of :mod:`repro_torch.core.primitives`): the resolved
@@ -86,7 +99,7 @@ import torch
 from ..checkpoint import save_checkpoint
 from ..kernels import KernelSpec, build_kernels
 from ..obs import RunReport, counters as obs_counters
-from ..obs.events import Recorder
+from ..obs.events import Recorder, no_timer, profiler_live
 from ..part import Assignment, PartitionerSpec, build_partitioner
 from ..sched import SchedulerSpec, build_scheduler
 from .kvstore import DATA_AXIS, KVStore, place, store_from_tree
@@ -171,7 +184,8 @@ class StradsEngine:
         self._part_stats = None
         #: the model store, built by ``place_state`` / ``init_state``
         self.kvstore: Optional[KVStore] = None
-        self._recorder: Optional[Recorder] = None   # live during execute
+        self._recorder: Optional[Recorder] = None
+        self._own_recorder = False   # attached by execute, not a caller
         app.device = self.device
         self.set_kernels(None)
         self.set_scheduler(None)
@@ -179,9 +193,26 @@ class StradsEngine:
 
     # -- observability hooks (the telemetry-injection contract) --------------
 
+    @property
+    def recorder(self) -> Optional[Recorder]:
+        """The attached :class:`~repro_torch.obs.Recorder` (``None`` by
+        default): the engine records its spans, instants and round
+        timers on it.  Set it to attach one; ``None`` detaches."""
+        return self._recorder
+
+    @recorder.setter
+    def recorder(self, rec: Optional[Recorder]):
+        self._recorder = rec
+        self._own_recorder = False
+
+    def _timer(self):
+        """The live Recorder's ``timer``, else a no-op of its shape."""
+        rec = self._recorder
+        return rec.timer if rec is not None else no_timer
+
     def _obs_event(self, name: str, **args):
-        """Record a host event when a Recorder is live (``kind="trace"``
-        during ``execute``); a no-op otherwise."""
+        """Record a host event when a Recorder is live; a no-op
+        otherwise."""
         if self._recorder is not None:
             self._recorder.instant(name, **args)
 
@@ -539,10 +570,18 @@ class StradsEngine:
                  if self._needs_stats else None)
         return app.schedule(state, carry, cand, stats, t, phase)
 
-    def _apply(self, state, data, sched, phase):
-        """push → Σ_workers → pull (the BSP update + sync)."""
-        z, local = self.app.push(data, state, sched, phase)
-        return self.app.pull(state, sched, tree_psum(z), local, data, phase)
+    def _update(self, state, data, sched, sc, phase, tm=no_timer):
+        """push → Σ_workers → pull (the BSP update + sync) →
+        ``sched_update``, under the ``push`` and ``pull`` timers.  Returns
+        the new state and scheduler carry."""
+        app = self.app
+        with tm("push"):
+            z, local = app.push(data, state, sched, phase)
+            z = tree_psum(z)
+        with tm("pull"):
+            new_state = app.pull(state, sched, z, local, data, phase)
+            return new_state, app.sched_update(sc, state, new_state, sched,
+                                               phase)
 
     def _generator(self, generator):
         if generator is None:
@@ -561,12 +600,15 @@ class StradsEngine:
         stateful policy's priorities evolving across rounds."""
         if sched_carry is _UNSET:
             sched_carry = self.init_sched_carry()
-        phase = self.app.static_phase(t)
-        g = self._noise(generator, noise, t)
-        sched = self._make_schedule(state, sched_carry, data, g, t, phase)
-        new_state = self._apply(state, data, sched, phase)
-        new_carry = self.app.sched_update(sched_carry, state, new_state,
-                                          sched, phase)
+        tm = self._timer()
+        with tm("round"):
+            phase = self.app.static_phase(t)
+            with tm("schedule"):
+                g = self._noise(generator, noise, t)
+                sched = self._make_schedule(state, sched_carry, data, g, t,
+                                            phase)
+            new_state, new_carry = self._update(state, data, sched,
+                                                sched_carry, phase, tm)
         return RoundResult(state=new_state, sched=sched,
                            sched_carry=new_carry)
 
@@ -654,6 +696,59 @@ class StradsEngine:
         if not isinstance(plan, ExecutionPlan):
             raise TypeError(f"execute() wants an ExecutionPlan; got "
                             f"{type(plan).__name__}")
+        # telemetry: counters ride the carry on every executor; host
+        # events and round timers go to the attached Recorder, else to
+        # one the engine attaches while a profiler session is live, else
+        # under the trace kind to one for this execute alone
+        tspec = plan.telemetry or None
+        traced = tspec is not None and tspec.events
+        if profiler_live():
+            if self._recorder is None:
+                self._recorder, self._own_recorder = Recorder(), True
+        elif self._own_recorder and not traced:
+            self._recorder, self._own_recorder = None, False
+        rec, temporary = self._recorder, False
+        if rec is None and traced:
+            rec = self._recorder = Recorder(profiler=tspec.profiler)
+            temporary = True
+        first_event = rec.num_events if rec is not None else 0
+        # the run gets this frame's reference to the start state: a
+        # caller that drops its own (the serve loop) frees it after the
+        # first round
+        held, state = [state], None
+        try:
+            with (rec.span("execute", executor=plan.executor,
+                           rounds=plan.rounds) if rec is not None
+                  else _NULL_CTX):
+                rep = self._run_plan(
+                    held.pop(), data, generator, plan, collect, callback,
+                    carry, noise, ckpt_dir, partition, stream, source,
+                    stream_state)
+        finally:
+            if temporary:
+                self._recorder = None
+        if tspec is None:
+            rep.telemetry = None
+            return rep
+        parts = rep.telemetry if isinstance(rep.telemetry, list) else (
+            [rep.telemetry] if rep.telemetry is not None else [])
+        if len(parts) > 1:
+            from ..ps.telemetry import merge_summaries
+            ssp = merge_summaries(parts)
+        else:
+            ssp = parts[0] if parts else None
+        rep.telemetry = RunReport.build(
+            tspec, plan.executor, int(rep.carry.t),
+            device_counters=getattr(rep.carry, "obs", None),
+            recorder=rec if traced else None, first_event=first_event,
+            ssp=ssp)
+        return rep
+
+    def _run_plan(self, state, data, generator, plan, collect, callback,
+                  carry, noise, ckpt_dir, partition, stream, source,
+                  stream_state) -> ExecutionReport:
+        """:meth:`execute` inside its span: the plan's checks, policies
+        and resume, then its chunks or its one span."""
         if plan.workers is not None and plan.workers != self.workers:
             raise ValueError(
                 f"plan.workers={plan.workers} but the engine has "
@@ -745,48 +840,15 @@ class StradsEngine:
                 "checkpoint chunk boundaries; without plan."
                 "checkpoint_every + ckpt_dir the assignment stays "
                 "at its initial (static) value for the whole run",
-                UserWarning, stacklevel=2)
-        # telemetry: counters ride the carry on every executor; the trace
-        # kind also opens a host Recorder for the span of this execute
-        tspec = plan.telemetry or None
-        rec = (Recorder(profiler=tspec.profiler)
-               if tspec is not None and tspec.events else None)
-        self._recorder = rec
-        # the run gets this frame's reference to the start state: a
-        # caller that drops its own (the serve loop) frees it after the
-        # first round
+                UserWarning, stacklevel=3)
         held, state = [state], None
-        try:
-            with (rec.span("execute", executor=plan.executor,
-                           rounds=plan.rounds) if rec is not None
-                  else _NULL_CTX):
-                if chunk or ingestor is not None:
-                    rep = self._execute_chunked(
-                        held.pop(), data, generator, plan, t_done, carry,
-                        collect, callback, noise, chunk, ckpt_dir,
-                        ingestor)
-                else:
-                    rep = self._execute_span(
-                        held.pop(), data, generator, plan,
-                        plan.rounds - t_done, t_done, carry, collect,
-                        callback, noise)
-        finally:
-            self._recorder = None
-        if tspec is None:
-            rep.telemetry = None
-            return rep
-        parts = rep.telemetry if isinstance(rep.telemetry, list) else (
-            [rep.telemetry] if rep.telemetry is not None else [])
-        if len(parts) > 1:
-            from ..ps.telemetry import merge_summaries
-            ssp = merge_summaries(parts)
-        else:
-            ssp = parts[0] if parts else None
-        rep.telemetry = RunReport.build(
-            tspec, plan.executor, int(rep.carry.t),
-            device_counters=getattr(rep.carry, "obs", None),
-            recorder=rec, ssp=ssp)
-        return rep
+        if chunk or ingestor is not None:
+            return self._execute_chunked(
+                held.pop(), data, generator, plan, t_done, carry, collect,
+                callback, noise, chunk, ckpt_dir, ingestor)
+        return self._execute_span(held.pop(), data, generator, plan,
+                                  plan.rounds - t_done, t_done, carry,
+                                  collect, callback, noise)
 
     def _execute_chunked(self, state, data, generator, plan, t_done: int,
                          carry, collect, callback, noise, chunk: int,
@@ -987,23 +1049,28 @@ class StradsEngine:
         if prev_carry is not None and prev_carry.depth == 1:
             sched = prev_carry.sched            # the in-flight schedule
         else:
+            # the fresh run's extra schedule: outside every round's timers
             sched = self._make_schedule(
                 state, sc, data, self._noise(generator, noise, t0), t0,
                 app.static_phase(t0))
         ys: list = []
         num_cand = self._obs_num_candidates()
+        tm = self._timer()
         for t in range(t0, t0 + rounds):
-            phase = app.static_phase(t)
-            sched_next = self._make_schedule(
-                state, sc, data, self._noise(generator, noise, t + 1),
-                t + 1, app.static_phase(t + 1))
-            if obs is not None:
-                # count the schedule the round executes (the one-round-
-                # stale one), not the prefetch
-                obs = obs_counters.observe_round(obs, sched, t % period,
-                                                 num_cand)
-            new_state = self._apply(state, data, sched, phase)
-            sc = app.sched_update(sc, state, new_state, sched, phase)
+            with tm("round"):
+                phase = app.static_phase(t)
+                with tm("schedule"):
+                    sched_next = self._make_schedule(
+                        state, sc, data,
+                        self._noise(generator, noise, t + 1), t + 1,
+                        app.static_phase(t + 1))
+                if obs is not None:
+                    # count the schedule the round executes (the one-
+                    # round-stale one), not the prefetch
+                    obs = obs_counters.observe_round(obs, sched,
+                                                     t % period, num_cand)
+                new_state, sc = self._update(state, data, sched, sc, phase,
+                                             tm)
             state, sched = new_state, sched_next
             if collect is not None:
                 ys.append(collect(state))

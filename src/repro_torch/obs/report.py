@@ -47,13 +47,14 @@ class RunReport:
     @classmethod
     def build(cls, spec: TelemetrySpec, executor: str, rounds: int,
               device_counters: Any = None, recorder: Any = None,
-              ssp: Any = None) -> "RunReport":
+              ssp: Any = None, first_event: int = 0) -> "RunReport":
         """Assemble from the run's raw pieces: the device counters off the
-        final carry, the live Recorder (or None), and the SSP summary (or
+        final carry, the live Recorder (or None) with the number of its
+        events that came before the run, and the SSP summary (or
         None)."""
         return cls(spec=spec, executor=executor, rounds=rounds,
                    counters=summarize_counters(device_counters),
-                   events=(recorder.to_json_events()
+                   events=(recorder.to_json_events(first_event)
                            if recorder is not None else []),
                    ssp=ssp)
 

@@ -5,7 +5,8 @@ validation, error text and JSON, so every plan file reads the same in
 both packages.  ``"counters"`` turns on the device counters of
 :mod:`repro_torch.obs.counters`; ``"trace"`` adds the host
 :class:`~repro_torch.obs.events.Recorder`, and ``profiler=True`` a
-``torch.profiler.record_function`` range around each of its spans.
+``torch.profiler.record_function`` range (``strads.<name>``) around
+each of its spans.
 """
 from __future__ import annotations
 

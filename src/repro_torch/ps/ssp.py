@@ -178,14 +178,22 @@ def _commit(app, table, state, sched, z, keep, data, phase):
     return app.pull(state, sched, z, local, data, phase)
 
 
-def _fused_round(app, table, view, data, sched, phase, info: dict):
+def _fused_round(app, table, view, data, sched, phase, info: dict, sc,
+                 tm):
     """``staleness=0``: the window is one round, so nothing is deferred —
-    push → commit-through → Σ_workers → shared commit, the BSP round."""
-    z, local = app.push(data, view, sched, phase)
-    st = table.commit_local(view, local, phase)
-    keep = table.defer_local(local, phase)
-    _account(info, _tree_nbytes(z))
-    return _commit(app, table, st, sched, tree_psum(z), keep, data, phase)
+    push → commit-through → Σ_workers → shared commit → ``sched_update``,
+    the BSP round, under the ``push`` and ``pull`` timers.  Returns the
+    new state and scheduler carry."""
+    with tm("push"):
+        z, local = app.push(data, view, sched, phase)
+        st = table.commit_local(view, local, phase)
+        keep = table.defer_local(local, phase)
+        _account(info, _tree_nbytes(z))
+        z = tree_psum(z)
+    with tm("pull"):
+        new_state = _commit(app, table, st, sched, z, keep, data, phase)
+        return new_state, app.sched_update(sc, view, new_state, sched,
+                                           phase)
 
 
 def _account(info: dict, window_bytes: int) -> None:
@@ -281,64 +289,74 @@ def run_ssp(eng, state, data, generator, num_rounds: int, *,
     info = {"shared_bytes": server.shared_nbytes()}
     ys: list = []
     t = t0
+    # a window's timers count its s + 1 rounds: its schedules are made
+    # together, and its pushes and commits timed as one interval each
+    tm = eng._timer()
     for _ in range(num_steps):
         cache = StaleCache(values=server.snapshot(state), clock=t)
         for w0 in range(0, L, W):
-            ts = [t + w0 + k for k in range(W)]
-            phases = [app.static_phase(tk) for tk in ts]
-            noises = [eng._noise(generator, noise, tk) for tk in ts]
-            # the gate, laid out: the window's last read is exactly at
-            # the bound, so the flush below comes before the next round
-            assert cache.fresh_enough(ts[-1], staleness)
-            scheds = _window_schedules(eng, table,
-                                       server.merge(state, cache.values),
-                                       sc, data, noises, ts, phases)
-            if W == 1:
-                view = server.merge(state, cache.values)
-                new_state = _fused_round(app, table, view, data, scheds[0],
-                                         phases[0], info)
-                sc = app.sched_update(sc, view, new_state, scheds[0],
-                                      phases[0])
-                state = new_state
-                T.observe_read(telem, ts[0], cache.clock)
-                if obs is not None:
-                    obs = obs_counters.observe_round(
-                        obs, scheds[0], ts[0] % period, num_cand)
-                clocks = tick(clocks)
-                if collect is not None:
-                    ys.append(collect(state))
-                cache = cache.refresh(server.snapshot(state), ts[-1] + 1)
-                continue
+            with tm("round", W):
+                ts = [t + w0 + k for k in range(W)]
+                phases = [app.static_phase(tk) for tk in ts]
+                with tm("schedule", W):
+                    noises = [eng._noise(generator, noise, tk) for tk in ts]
+                    # the gate, laid out: the window's last read is
+                    # exactly at the bound, so the flush below comes
+                    # before the next round
+                    assert cache.fresh_enough(ts[-1], staleness)
+                    scheds = _window_schedules(
+                        eng, table, server.merge(state, cache.values), sc,
+                        data, noises, ts, phases)
+                if W == 1:
+                    view = server.merge(state, cache.values)
+                    state, sc = _fused_round(app, table, view, data,
+                                             scheds[0], phases[0], info, sc,
+                                             tm)
+                    T.observe_read(telem, ts[0], cache.clock)
+                    if obs is not None:
+                        obs = obs_counters.observe_round(
+                            obs, scheds[0], ts[0] % period, num_cand)
+                    clocks = tick(clocks)
+                    if collect is not None:
+                        ys.append(collect(state))
+                    cache = cache.refresh(server.snapshot(state), ts[-1] + 1)
+                    continue
 
-            # no view outlives its push: a view holds the window-start
-            # tensors of the worker-resident leaves the commits replace
-            # (MF's R is 9.3 GB at the chip shape)
-            z_pends, keep_pends = [], []
-            for k in range(W):
-                z, local = app.push(data, server.merge(state, cache.values),
-                                    scheds[k], phases[k])
-                state = table.commit_local(state, local, phases[k])
-                keep_pends.append(table.defer_local(local, phases[k]))
-                z_pends.append(z)
-                T.observe_read(telem, ts[k], cache.clock)
-                if obs is not None:
-                    obs = obs_counters.observe_round(
-                        obs, scheds[k], ts[k] % period, num_cand)
-                clocks = tick(clocks)
-            # the bound forces a sync: flush the pending buffer (one sum
-            # over workers), replay the deferred commits in round order
-            # with the scheduler carry folded per commit, refresh
-            _account(info, sum(_tree_nbytes(z) for z in z_pends))
-            zs = _batched_sum(z_pends)
-            for k in range(W):
-                new_state = _commit(app, table, state, scheds[k], zs[k],
-                                    keep_pends[k], data, phases[k])
-                sc = app.sched_update(sc, state, new_state, scheds[k],
-                                      phases[k])
-                state = new_state
-                if collect is not None:
-                    ys.append(collect(state))
-            cache = cache.refresh(server.snapshot(state), ts[-1] + 1)
+                # no view outlives its push: a view holds the window-start
+                # tensors of the worker-resident leaves the commits replace
+                # (MF's R is 9.3 GB at the chip shape)
+                with tm("push", W):
+                    z_pends, keep_pends = [], []
+                    for k in range(W):
+                        z, local = app.push(
+                            data, server.merge(state, cache.values),
+                            scheds[k], phases[k])
+                        state = table.commit_local(state, local, phases[k])
+                        keep_pends.append(table.defer_local(local,
+                                                            phases[k]))
+                        z_pends.append(z)
+                        T.observe_read(telem, ts[k], cache.clock)
+                        if obs is not None:
+                            obs = obs_counters.observe_round(
+                                obs, scheds[k], ts[k] % period, num_cand)
+                        clocks = tick(clocks)
+                    # the bound forces a sync: flush the pending buffer
+                    # (one sum over workers)
+                    _account(info, sum(_tree_nbytes(z) for z in z_pends))
+                    zs = _batched_sum(z_pends)
+                # replay the deferred commits in round order with the
+                # scheduler carry folded per commit, then refresh
+                with tm("pull", W):
+                    for k in range(W):
+                        new_state = _commit(app, table, state, scheds[k],
+                                            zs[k], keep_pends[k], data,
+                                            phases[k])
+                        sc = app.sched_update(sc, state, new_state,
+                                              scheds[k], phases[k])
+                        state = new_state
+                        if collect is not None:
+                            ys.append(collect(state))
+                cache = cache.refresh(server.snapshot(state), ts[-1] + 1)
         t += L
 
     carry = SSPCarry(t=t, clocks=clocks, sched_carry=sc,

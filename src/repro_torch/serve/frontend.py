@@ -18,10 +18,17 @@ eagerly, so it has neither.  A response's latency (submit → result
 ready) ends after the query has run on the device: the frontend
 synchronizes the device before it stamps the time, or a latency would
 measure only the enqueue.
+
+Each request gets an id from the frontend's counter.  On a Recorder (the
+one the frontend is given, attached to the engine when the engine has
+none; else the engine's, looked up at each flush) each batch is a
+``serve_batch`` span that carries its requests' ids (``requests``) and
+each one's wait in the queue, from ``submit`` to the batch's start on
+the frontend's clock, in µs (``waits_us``); the fold-in (``app.query``)
+is the ``serve_query`` timer.
 """
 from __future__ import annotations
 
-import contextlib
 import dataclasses
 import time
 from collections import deque
@@ -30,15 +37,18 @@ from typing import Any, Callable, List, Optional
 import numpy as np
 import torch
 
+from ..obs.events import no_timer
 from .spec import ServeSpec
 from .view import ModelView
 
 
 @dataclasses.dataclass
 class Request:
-    """One queued query: a per-example payload + submit time."""
+    """One queued query: a per-example payload, its submit time and its
+    id (the frontend's count of requests before it)."""
     payload: Any
     t_submit: float
+    id: int = 0
 
 
 @dataclasses.dataclass
@@ -80,18 +90,30 @@ class ServeFrontend:
         self.engine = engine
         self.view = view
         self.spec = spec
-        self.recorder = recorder
+        self._recorder = recorder
+        if recorder is not None and engine.recorder is None:
+            engine.recorder = recorder
         self._clock = clock
         self._queue: deque = deque()
+        self._next_id = 0
         self.responses: List[Response] = []
         self.latencies_ms: List[float] = []
 
+    @property
+    def recorder(self):
+        """The Recorder the frontend was given, else the engine's."""
+        return (self._recorder if self._recorder is not None
+                else self.engine.recorder)
+
     # -- queue ---------------------------------------------------------------
 
-    def submit(self, payload) -> None:
+    def submit(self, payload) -> int:
         """Enqueue one per-example query payload (no leading batch axis:
-        the frontend stacks)."""
-        self._queue.append(Request(payload, self._clock()))
+        the frontend stacks); returns its request id."""
+        rid = self._next_id
+        self._next_id += 1
+        self._queue.append(Request(payload, self._clock(), rid))
+        return rid
 
     def pending(self) -> int:
         return len(self._queue)
@@ -124,15 +146,17 @@ class ServeFrontend:
             if batch is None:
                 return served
             view_state, staleness = self.view.read()
-            span = (self.recorder.span("serve_batch", size=len(batch),
-                                       staleness=staleness)
-                    if self.recorder is not None
-                    else contextlib.nullcontext())
-            with span:
-                stacked = _stack([r.payload for r in batch],
-                                 self.engine.device)
-                out = self.engine.app.query(view_state, stacked)
-                self._ready()
+            rec = self.recorder
+            if rec is None:
+                out = self._serve(batch, view_state, no_timer)
+            else:
+                start = self._clock()
+                with rec.span("serve_batch", size=len(batch),
+                              staleness=staleness) as ev:
+                    ev["requests"] = [r.id for r in batch]
+                    ev["waits_us"] = [(start - r.t_submit) * 1e6
+                                      for r in batch]
+                    out = self._serve(batch, view_state, rec.timer)
             done = self._clock()
             for i, req in enumerate(batch):
                 lat = (done - req.t_submit) * 1e3
@@ -141,6 +165,15 @@ class ServeFrontend:
                     result=_row(out, i), latency_ms=lat,
                     staleness=staleness))
             served += len(batch)
+
+    def _serve(self, batch: List[Request], view_state, tm):
+        """The batch's payloads stacked, the fold-in (the ``serve_query``
+        timer), and the wait for the device."""
+        stacked = _stack([r.payload for r in batch], self.engine.device)
+        with tm("serve_query"):
+            out = self.engine.app.query(view_state, stacked)
+        self._ready()
+        return out
 
     # -- reporting -----------------------------------------------------------
 

@@ -21,9 +21,13 @@ of the same plan to the bit.
 Requests fold in by due round: ``requests`` is a sequence of
 ``(t_due, payload)`` pairs, submitted at the first boundary whose clock
 reaches ``t_due``.  Spans and instants ride a caller's
-:class:`~repro_torch.obs.Recorder` (``train_chunk`` spans around each
-executor span, ``serve_batch`` spans and ``serve_read`` /
-``serve_refresh`` / ``serve_pin`` instants between them).
+:class:`~repro_torch.obs.Recorder`, attached to the engine when the
+engine has none, else the engine's
+(:attr:`~repro_torch.core.StradsEngine.recorder`), so they make one
+timeline: ``train_chunk`` spans around each ``execute`` (with its own
+spans and round timers inside), ``serve_publish`` and ``serve_batch``
+spans and ``serve_read`` / ``serve_refresh`` / ``serve_pin`` instants
+between them.
 
 Streaming ingest (``stream=``/``source=``) lands at the same boundaries:
 boundary 0 ingests before the clock-0 publish, each later boundary after
@@ -154,6 +158,8 @@ def serve_while_training(engine, state, data, generator,
         raise ValueError("stream_state resumes a streamed run; pass "
                          "the stream=/source= pair with it")
 
+    if recorder is None:
+        recorder = engine.recorder
     view = ModelView(engine, spec, recorder=recorder)
     frontend = ServeFrontend(engine, view, spec, recorder=recorder)
 

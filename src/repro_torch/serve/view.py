@@ -28,7 +28,12 @@ takes the state back, and a read after it raises
 tensor the next chunk overwrote.
 
 Every read is logged as ``{"t", "clock", "staleness"}``: the measured
-staleness-at-read is what the bound is checked against.  Reads never
+staleness-at-read is what the bound is checked against.  On a Recorder
+(the one the view is given, attached to the engine when the engine has
+none; else the engine's, looked up at each publish and read) every
+publish is a ``serve_publish`` span with its device time
+(``device=True``: the stale cache's refresh copies count), and reads,
+refreshes and pins are instants.  Reads never
 write: the view touches neither the training noise stream nor the
 engine carry, which is what makes ``serve_while_training`` equal to an
 unserved ``execute()`` to the bit.
@@ -78,7 +83,9 @@ class ModelView:
                             f"{type(spec).__name__}")
         self.engine = engine
         self.spec = spec
-        self.recorder = recorder
+        self._recorder = recorder
+        if recorder is not None and engine.recorder is None:
+            engine.recorder = recorder
         self._server: Optional[ParameterServer] = None
         self._cache: Optional[StaleCache] = None   # stale: server leaves
         self._state = None                         # stale: boundary state
@@ -87,18 +94,32 @@ class ModelView:
         self._clock = 0          # committed training rounds at last publish
         self.reads: List[dict] = []
 
+    @property
+    def recorder(self):
+        """The Recorder the view was given, else the engine's."""
+        return (self._recorder if self._recorder is not None
+                else self.engine.recorder)
+
     # -- the training side ---------------------------------------------------
 
     def publish(self, state, t: int) -> None:
         """Make the state committed through round ``t`` servable.  Called
         at a boundary, while training does not run."""
+        rec = self.recorder
+        if rec is None:
+            self._publish(state, t, None)
+            return
+        with rec.span("serve_publish", device=True, t=int(t)):
+            self._publish(state, t, rec)
+
+    def _publish(self, state, t: int, rec) -> None:
         self._clock = int(t)
         if self.spec.kind == "snapshot":
             self._pinned = None          # the old pin goes before the copy
             self._pinned = _copy_tree(state)
             self._pinned_clock = self._clock
-            if self.recorder is not None:
-                self.recorder.instant("serve_pin", t=self._clock)
+            if rec is not None:
+                rec.instant("serve_pin", t=self._clock)
             return
         if self._server is None:
             eng = self.engine
@@ -114,9 +135,9 @@ class ModelView:
             self._cache = StaleCache(
                 values=_copy_tree(self._server.snapshot(state)),
                 clock=self._clock)
-            if self.recorder is not None:
-                self.recorder.instant("serve_refresh", t=self._clock,
-                                      nbytes=self._server.shared_nbytes())
+            if rec is not None:
+                rec.instant("serve_refresh", t=self._clock,
+                            nbytes=self._server.shared_nbytes())
 
     def release(self) -> None:
         """Training takes the boundary state back (its next chunk may
@@ -162,8 +183,9 @@ class ModelView:
         rec = {"t": self._clock, "clock": self._clock - staleness,
                "staleness": staleness}
         self.reads.append(rec)
-        if self.recorder is not None:
-            self.recorder.instant("serve_read", **rec)
+        recorder = self.recorder
+        if recorder is not None:
+            recorder.instant("serve_read", **rec)
         return view, staleness
 
     # -- measured-staleness accounting ---------------------------------------

@@ -90,8 +90,10 @@ def _jplan(executor, rounds, staleness=0, telemetry=False, **kw):
 # Port runs of the three apps
 # ---------------------------------------------------------------------------
 
-def _port(app, plan, problems, workers=None, noise=None, **kw):
-    """(engine, data, report) of one port run from a fresh start."""
+def _port(app, plan, problems, workers=None, noise=None, recorder=None,
+          **kw):
+    """(engine, data, report) of one port run from a fresh start, with
+    ``recorder`` attached to the engine."""
     if app == "lasso":
         X, y = problems["lasso"]
         eng = lasso.make_engine(lasso.LassoConfig(**LASSO),
@@ -114,6 +116,7 @@ def _port(app, plan, problems, workers=None, noise=None, **kw):
         data = eng.shard_data({"words": words, "docs": docs})
         state = eng.init_state(words=words, docs=docs, z0=z0)
         gen = None
+    eng.recorder = recorder
     rep = eng.execute(state, data, gen, plan, noise=noise, **kw)
     return eng, data, rep
 
@@ -387,7 +390,7 @@ def test_profiler_spans_annotate_a_torch_profile():
             with rec.span("scan"):
                 torch.ones(4).sum()
     names = {e.key for e in prof.key_averages()}
-    assert {"execute", "scan"} <= names
+    assert {"strads.execute", "strads.scan"} <= names
     assert validate_spans(rec.to_json_events()) is None
 
 
@@ -625,3 +628,194 @@ def test_trace_kind_records_the_jax_spans_and_rebalances(tmp_path):
     assert "cache_miss" in {e["name"] for e in want["events"]}
     assert rep.telemetry.counters == want["counters"]
     assert validate_spans(got) is None
+
+
+# ---------------------------------------------------------------------------
+# The engine's Recorder: round timers, the profiler's clock, span ids
+# ---------------------------------------------------------------------------
+
+ROUND_TIMERS = ("round", "schedule", "push", "pull")
+
+
+def _attached_run(app, executor, staleness, problems, rec):
+    """A 12-round port run of ``app`` with ``rec`` attached."""
+    return _port(app, _plan(executor, 12, staleness), problems,
+                 workers=4 if app == "lda" else None, recorder=rec)
+
+
+@pytest.mark.parametrize("executor,staleness", [
+    ("loop", 0), ("scan", 0), ("pipelined", 0), ("ssp", 0), ("ssp", 1),
+    ("ssp", 2)])
+@pytest.mark.parametrize("app", ["lasso", "mf", "lda"])
+def test_round_timers_count_the_rounds_and_change_no_bit(app, executor,
+                                                         staleness,
+                                                         problems):
+    """Each of the four timers counts every round run (an SSP window's
+    intervals count its s + 1 rounds), off CUDA with no device time, and
+    the timed run equals the untimed one to the bit."""
+    rec = Recorder()
+    _, _, timed = _attached_run(app, executor, staleness, problems, rec)
+    _, _, plain = _attached_run(app, executor, staleness, problems, None)
+    _equal(plain.state, timed.state)
+    timers = rec.timers()
+    assert set(timers) == set(ROUND_TIMERS)
+    for name in ROUND_TIMERS:
+        assert timers[name]["count"] == 12, name
+        assert timers[name]["device_s"] is None
+        assert timers[name]["host_s"] > 0.0
+    parts = sum(timers[n]["host_s"] for n in ("schedule", "push", "pull"))
+    assert parts <= timers["round"]["host_s"]
+    # an attached Recorder without a trace plan adds no report, and the
+    # engine's spans land on it
+    assert timed.telemetry is None
+    assert {e["name"] for e in rec.to_json_events()} >= {"execute",
+                                                         executor}
+
+
+def test_a_recorder_reads_no_device_value_per_round(problems, monkeypatch):
+    """``test_counters_read_no_device_value_per_round``'s check with a
+    Recorder attached: its timers and spans read no tensor on the host,
+    so a timed run calls ``item``/``tolist``/``__int__``/``__bool__`` as
+    often as an untimed one."""
+    calls = []
+    for name in ("item", "tolist", "__int__", "__bool__"):
+        orig = getattr(torch.Tensor, name)
+
+        def spy(self, *a, _orig=orig, _name=name, **kw):
+            calls.append(_name)
+            return _orig(self, *a, **kw)
+        monkeypatch.setattr(torch.Tensor, name, spy)
+    counts = []
+    for rec in (None, Recorder()):
+        calls.clear()
+        for executor, s in (("scan", 0), ("pipelined", 0), ("ssp", 1)):
+            _attached_run("lasso", executor, s, problems, rec)
+        counts.append(list(calls))
+    assert counts[0] == counts[1]
+
+
+def test_a_live_profiler_session_attaches_the_engines_recorder(problems):
+    from repro_torch.obs.events import RANGE_PREFIX
+    eng, data, rep = _port("lasso", _plan("scan", 4), problems)
+    assert eng.recorder is None
+    with torch.profiler.profile() as prof:
+        rep = eng.execute(rep.state, data, None, _plan("scan", 4))
+    rec = eng.recorder
+    assert isinstance(rec, Recorder) and rep.telemetry is None
+    names = {e.name() for e in prof.profiler.kineto_results.events()}
+    want = {RANGE_PREFIX + n for n in ("execute", "scan") + ROUND_TIMERS}
+    assert want <= names
+    assert rec.timers()["round"]["count"] == 4
+    # kept while sessions last, then detached by a run outside them
+    with torch.profiler.profile():
+        eng.execute(rep.state, data, None, _plan("scan", 4))
+    assert eng.recorder is rec and rec.timers()["round"]["count"] == 8
+    eng.execute(rep.state, data, None, _plan("scan", 4))
+    assert eng.recorder is None
+    # a caller's Recorder stays, session or not
+    mine = Recorder()
+    eng.recorder = mine
+    with torch.profiler.profile():
+        eng.execute(rep.state, data, None, _plan("scan", 4))
+    eng.execute(rep.state, data, None, _plan("scan", 4))
+    assert eng.recorder is mine and mine.timers()["round"]["count"] == 8
+
+
+def test_a_trace_plan_reports_the_attached_recorders_run(problems):
+    """Under ``kind="trace"`` with a Recorder attached, the report carries
+    that execute's events, which stay on the Recorder."""
+    rec = Recorder()
+    with rec.span("outer"):
+        eng, data, rep = _port("lasso", _plan("scan", 4), problems,
+                               recorder=rec)
+        rep = eng.execute(rep.state, data, None,
+                          _plan("scan", 4, 0, TelemetrySpec(kind="trace")))
+    names = [e["name"] for e in rep.telemetry.events]
+    assert names == ["execute", "scan"]
+    assert [e["name"] for e in rec.to_json_events()] == [
+        "outer", "execute", "scan", "execute", "scan"]
+    assert validate_spans(rep.telemetry.events) is None
+
+
+def test_span_times_lie_on_the_profilers_clock():
+    """``origin_ns + ts`` of a span lies within 1 ms of its mirrored
+    range's start in a ``torch.profiler`` session."""
+    rec = Recorder()
+    with torch.profiler.profile() as prof:
+        for _ in range(3):
+            with rec.span("tick"):
+                torch.ones(8).sum()
+    starts = sorted(e.start_ns() for e in
+                    prof.profiler.kineto_results.events()
+                    if e.name() == "strads.tick")
+    spans = [e for e in rec.to_json_events() if e["name"] == "tick"]
+    assert len(starts) == len(spans) == 3
+    for ev, start in zip(spans, starts):
+        assert abs(rec.origin_ns + ev["ts"] * 1e3 - start) < 1e6
+    # the Chrome export of the Recorder is on the same clock, in µs
+    doc = chrome_trace(rec.to_json_events(), origin_us=rec.origin_ns / 1e3)
+    assert abs(doc["traceEvents"][0]["ts"] * 1e3 - starts[0]) < 1e6
+
+
+def test_every_spans_parent_is_the_span_around_it(problems, tmp_path):
+    plan = _plan("ssp", 8, 1, TelemetrySpec(kind="trace"),
+                 checkpoint_every=4)
+    _, _, rep = _port("lasso", plan, problems, ckpt_dir=str(tmp_path))
+    rec = Recorder()
+    with rec.span("a"):
+        with rec.span("b"):
+            with rec.span("c"):
+                pass
+        with rec.span("d"):
+            pass
+    with rec.span("e"):
+        pass
+    for events in (rep.telemetry.events, rec.to_json_events()):
+        spans = [e for e in events if e["ph"] == "X"]
+        assert len({e["id"] for e in spans}) == len(spans)
+        for ev in spans:
+            around = [o for o in spans if o is not ev
+                      and o["ts"] <= ev["ts"]
+                      and ev["ts"] + ev["dur"] <= o["ts"] + o["dur"]]
+            inner = min(around, key=lambda o: o["dur"], default=None)
+            assert ev["parent"] == (inner["id"] if inner else None)
+            assert "id" not in ev["args"] and "parent" not in ev["args"]
+
+
+def test_timer_device_time_folds_without_a_sync(monkeypatch):
+    """A timer folds its completed device intervals once it holds
+    ``_FOLD_AT`` of them (event queries, no sync), and ``timers()``
+    resolves the rest; spans opened with ``device=True`` carry the same
+    device time as ``device_dur``."""
+    from repro_torch.obs import events
+
+    class Mark:
+        clock = [0.0]
+
+        def __init__(self):
+            self.t = Mark.clock[0]
+            Mark.clock[0] += 1.0         # a ms a mark
+            self.done = True
+
+        def elapsed_time(self, end):
+            return end.t - self.t
+
+        def query(self):
+            return self.done
+
+        def synchronize(self):
+            self.done = True
+
+    monkeypatch.setattr(events, "_device_mark", Mark)
+    monkeypatch.setattr(events, "_FOLD_AT", 3)
+    rec = Recorder()
+    for _ in range(7):
+        with rec.timer("t"):
+            pass
+    stat = rec._timers["t"]
+    assert len(stat.pending) == 1 and stat.device_s == pytest.approx(6e-3)
+    with rec.span("s", device=True):
+        pass
+    t = rec.timers()["t"]
+    assert t["count"] == 7 and t["device_s"] == pytest.approx(7e-3)
+    assert [e["device_dur"] for e in rec.to_json_events()] == [1e3]

@@ -29,7 +29,7 @@ from repro.serve import serve_while_training as jserve_while_training
 from repro_torch.apps import lasso, lda, mf
 from repro_torch.core import ExecutionPlan, StradsAppBase
 from repro_torch.launch import serve as tserve
-from repro_torch.obs import Recorder
+from repro_torch.obs import Recorder, TelemetrySpec, validate_spans
 from repro_torch.serve import (ModelView, ServeFrontend, ServeSpec,
                                StaleReadError, serve_only,
                                serve_while_training)
@@ -529,6 +529,114 @@ def test_serve_only(lasso_problem):
         X[:5] @ trained["beta"].numpy(), rtol=RTOL, atol=ATOL)
     pct = srep.latency_percentiles()
     assert 0 <= pct["p50_ms"] <= pct["p99_ms"]
+
+
+# ---------------------------------------------------------------------------
+# The serving layer on a Recorder: waits, request ids, one timeline
+# ---------------------------------------------------------------------------
+
+def test_batch_spans_carry_each_requests_wait(lasso_problem):
+    """Under a fake clock each ``waits_us`` of a ``serve_batch`` span is
+    the batch's start less that request's submit, and the span names its
+    requests' ids."""
+    X, y = lasso_problem
+    eng, data, init = _lasso(X, y)
+    rec, clock = Recorder(), _fake_clock()
+    spec = ServeSpec(kind="stale", max_staleness=0, max_batch=3,
+                     batch_window_ms=1e4)
+    view = ModelView(eng, spec)
+    fe = ServeFrontend(eng, view, spec, recorder=rec, clock=clock)
+    view.publish(init(), 0)
+    submits = []
+    for i in range(5):
+        submits.append(clock())
+        assert fe.submit({"x": X[i]}) == i
+        clock.advance(0.25 * (i + 1))
+    starts = [clock()]
+    assert fe.flush() == 3                 # a full batch; 2 wait
+    clock.advance(0.5)
+    starts.append(clock())
+    assert fe.flush(force=True) == 2
+    batches = [e for e in rec.to_json_events() if e["name"] == "serve_batch"]
+    assert [b["requests"] for b in batches] == [[0, 1, 2], [3, 4]]
+    for b, start in zip(batches, starts):
+        want = [(start - submits[i]) * 1e6 for i in b["requests"]]
+        assert b["waits_us"] == pytest.approx(want, rel=1e-12)
+        assert set(b["args"]) == {"size", "staleness"}
+    assert rec.timers()["serve_query"]["count"] == 2
+    publish = [e for e in rec.to_json_events()
+               if e["name"] == "serve_publish"]
+    assert len(publish) == 1 and publish[0]["device_dur"] is None
+
+
+def test_request_ids_cover_every_served_request_once(lasso_problem):
+    X, y = lasso_problem
+    eng, data, init = _lasso(X, y)
+    rec = Recorder()
+    reqs = _requests("lasso", 11, 6, X)
+    srep = serve_while_training(eng, init(), data, None,
+                                ExecutionPlan(executor="ssp", rounds=6,
+                                              staleness=1),
+                                recorder=rec, requests=reqs)
+    ids = [i for e in rec.to_json_events() if e["name"] == "serve_batch"
+           for i in e["requests"]]
+    assert sorted(ids) == list(range(len(reqs))) == list(range(
+        len(srep.responses)))
+    waits = [w for e in rec.to_json_events() if e["name"] == "serve_batch"
+             for w in e["waits_us"]]
+    assert len(waits) == len(ids) and min(waits) >= 0.0
+
+
+def test_frontends_share_the_engines_recorder(lasso_problem):
+    """A frontend or view given a Recorder attaches it to an engine that
+    has none; one given none uses the engine's, looked up when it
+    publishes or serves."""
+    X, y = lasso_problem
+    eng, data, init = _lasso(X, y)
+    spec = ServeSpec(kind="stale", max_staleness=0)
+    view = ModelView(eng, spec)
+    plain = ServeFrontend(eng, view, spec)
+    assert eng.recorder is None and plain.recorder is None
+    rec = Recorder()
+    fe = ServeFrontend(eng, view, spec, recorder=rec)
+    assert eng.recorder is rec and plain.recorder is rec \
+        and view.recorder is rec
+    other = Recorder()
+    assert ServeFrontend(eng, view, spec, recorder=other).recorder is other
+    assert eng.recorder is rec                 # the engine keeps its own
+    view.publish(init(), 0)
+    plain.submit({"x": X[0]})
+    plain.flush(force=True)
+    fe.submit({"x": X[1]})
+    fe.flush(force=True)
+    names = [e["name"] for e in rec.to_json_events()]
+    assert names.count("serve_batch") == 2 and "serve_publish" in names
+    eng2, _, init2 = _lasso(X, y)
+    ModelView(eng2, spec, recorder=rec)
+    assert eng2.recorder is rec
+
+
+def test_a_traced_served_run_is_one_timeline(lasso_problem):
+    """Under ``kind="trace"``, ``serve_while_training`` leaves one event
+    list: every ``execute`` nests inside its ``train_chunk``, and the
+    whole list is strictly nested."""
+    X, y = lasso_problem
+    eng, data, init = _lasso(X, y)
+    rec = Recorder()
+    plan = ExecutionPlan(executor="ssp", rounds=6, staleness=2,
+                         telemetry=TelemetrySpec(kind="trace"))
+    srep = serve_while_training(eng, init(), data, None, plan, recorder=rec,
+                                requests=_requests("lasso", 5, 6, X))
+    events = rec.to_json_events()
+    assert validate_spans(events) is None
+    chunks = {e["id"]: e for e in events if e["name"] == "train_chunk"}
+    execs = [e for e in events if e["name"] == "execute"]
+    assert len(chunks) == len(execs) == 2
+    assert all(e["parent"] in chunks for e in execs)
+    assert rec.timers()["round"]["count"] == 6
+    # the last chunk's report carries its own execute's events
+    assert [e["name"] for e in srep.report.telemetry.events][:2] == [
+        "execute", "ssp"]
 
 
 @settings(max_examples=6, deadline=None)
